@@ -1,0 +1,4 @@
+from repro_torch.kernels.utility_topk.ops import utility_topk
+from repro_torch.kernels.utility_topk.ref import utility_topk_ref
+
+__all__ = ["utility_topk", "utility_topk_ref"]

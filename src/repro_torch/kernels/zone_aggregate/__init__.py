@@ -1,0 +1,4 @@
+from repro_torch.kernels.zone_aggregate.ops import zone_aggregate
+from repro_torch.kernels.zone_aggregate.ref import zone_aggregate_ref
+
+__all__ = ["zone_aggregate", "zone_aggregate_ref"]
