@@ -52,11 +52,16 @@ def arbitrate(
     s: SimState,
     throttled: torch.Tensor,
     bits: torch.Tensor,
+    plane=None,
 ):
     """One admission round per node: highest-E_v queued DA, bitmap-feasible.
 
     Takes and returns the (N, A) free bit-plane so multiple rounds per tick
     avoid re-unpacking the word bitmap. Returns (state, bits').
+
+    ``plane`` (the sharded engine's ``MeshPlane``) computes feasibility and
+    allocation on the rank's zone block and gathers the per-node result
+    words; ``bits`` is then the plane's blocked bit plane.
     """
     P = s.st.shape[0]
     N = cfg.num_nodes
@@ -86,16 +91,19 @@ def arbitrate(
     # for its winner's demand: the bitmap_fit hot-path op, on the words that
     # are kept in step with the ``bits`` plane across rounds. The AND below
     # is a guard: a kernel fault could only reject admissions.
-    w_mass = s.mass[ws]
-    w_contig = s.contig[ws]
-    feas_hot = hotpath.bitmap_fit(s.free, w_mass, w_contig) != 0
-    alloc_bits, feas_n = bitmap.alloc_for_class(
-        bits, w_mass, w_contig, policy=cfg.alloc_policy
-    )
-    feas_n = feas_n & feas_hot & has_w
-    taken = alloc_bits & feas_n[:, None]
-    alloc_words_n = bitmap.pack_bits(taken)
-    bits = bits & ~taken
+    if plane is None:
+        w_mass = s.mass[ws]
+        w_contig = s.contig[ws]
+        feas_hot = hotpath.bitmap_fit(s.free, w_mass, w_contig) != 0
+        alloc_bits, feas_n = bitmap.alloc_for_class(
+            bits, w_mass, w_contig, policy=cfg.alloc_policy
+        )
+        feas_n = feas_n & feas_hot & has_w
+        taken = alloc_bits & feas_n[:, None]
+        alloc_words_n = bitmap.pack_bits(taken)
+        bits = bits & ~taken
+    else:
+        alloc_words_n, feas_n, bits = plane.alloc_round(cfg, s, bits, ws, has_w)
     free = s.free & ~alloc_words_n
 
     admit = winner & feas_n[node_c]

@@ -176,8 +176,7 @@ class LaminarConfig:
     memory: MemoryConfig = dataclasses.field(default_factory=MemoryConfig)
 
     # --- scenario: arrival-rate schedule + node disruption process --------------
-    # (the default is the stationary, disruption-free scenario, the only one
-    # this package's engine runs so far)
+    # (the default is the stationary, disruption-free scenario)
     scenario: ScenarioConfig = dataclasses.field(default_factory=ScenarioConfig)
 
     # --- offered load -----------------------------------------------------------

@@ -1,18 +1,19 @@
 """The Laminar engine: tick-synchronous composition of all subsystems.
 
-A port of ``repro.core.engine`` for the flat single-device path. One tick is
-one call of the step function; a run is a Python loop over ticks. The hot
-path per tick mirrors the paper's control path:
+A port of ``repro.core.engine``. One tick is one call of the step
+function; a run is a Python loop over ticks. The hot path per tick mirrors
+the paper's control path:
 
     memory dynamics -> runtime control (Airlock / OOM) -> Airlock
-    transitions -> completions -> node-view build -> Z-HAF reports ->
-    TEG refresh -> arrivals -> probe movement (+ regeneration) ->
-    TEG dispatch -> DA addressing -> node arbitration (xN rounds) ->
-    pending stage -> absolute timeout
+    transitions -> completions -> scenario disruption -> node-view build ->
+    Z-HAF reports -> TEG refresh -> arrivals -> probe movement
+    (+ regeneration) -> TEG dispatch -> DA addressing -> node arbitration
+    (xN rounds) -> pending stage -> absolute timeout
 
 The tick asks nothing of the host: no ``.item()``, no ``torch.nonzero``, no
-boolean-mask indexing, so on CUDA the host only enqueues work. Only the
-stationary, disruption-free scenario runs here so far.
+boolean-mask indexing, so on CUDA the host only enqueues work. The scenario's
+arrival schedule enters through the draws (the Poisson count of tick ``t``);
+its disruption process is a stage of the tick.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import airlock, arbiter, da, hotpath, teg, workload, zhaf
+from repro_torch.core import airlock, arbiter, da, disrupt, hotpath, teg, workload, zhaf
 from repro_torch.core.config import NUM_TIERS, TIER_NAMES, LaminarConfig
 from repro_torch.core.draws import Draws, TorchDraws, max_dispatch
 from repro_torch.core.state import (
@@ -39,8 +40,6 @@ from repro_torch.core.state import (
     state_from_numpy,
     state_to_numpy,
 )
-from repro_torch.workloads.scenario import ScenarioConfig
-
 TS_FIELDS = (
     "arrived",
     "started",
@@ -54,14 +53,6 @@ TS_FIELDS = (
     "migrated",
     "timeout",
 )
-
-
-def _check_scenario(scenario: ScenarioConfig) -> None:
-    if scenario.schedule.kind != "stationary" or scenario.disruption.enabled:
-        raise NotImplementedError(
-            f"scenario {scenario.name!r}: only the stationary, disruption-free "
-            "scenario is ported so far"
-        )
 
 
 def _inject_arrivals(
@@ -125,14 +116,23 @@ def _inject_arrivals(
     return s._replace(metrics=m), mask
 
 
-def make_step(cfg: LaminarConfig, scenario: ScenarioConfig | None = None):
+def make_step(cfg: LaminarConfig, plane=None):
     """Build the one-tick transition ``step(s, draws) -> (s', ts)``.
 
     ``ts`` is the (len(TS_FIELDS),) int32 vector of cumulative counters.
-    The arrival rate enters through the draws (their Poisson count).
+    The tick runs ``cfg.scenario``. Its arrival rate, scheduled or not,
+    enters through the draws (their Poisson count), which must be made for
+    the same scenario.
+
+    ``plane`` selects the node-plane strategy. ``None`` runs the flat
+    single-device path. The zone-sharded engine
+    (``repro_torch.parallel.engine_mesh``) passes a ``MeshPlane``: the
+    per-node bitmap pipeline (view build, feasibility, allocation, zone
+    aggregation) then runs on each rank's zone block, while the probe table
+    and every O(N) float vector stay replicated.
     """
-    scenario = cfg.scenario if scenario is None else scenario
-    _check_scenario(scenario)
+    scenario = cfg.scenario
+    disruption_on = scenario.disruption.enabled
     n_dispatch = max_dispatch(cfg)
 
     def step(s: SimState, d: Draws) -> Tuple[SimState, torch.Tensor]:
@@ -151,18 +151,27 @@ def make_step(cfg: LaminarConfig, scenario: ScenarioConfig | None = None):
         # ---- service progress ------------------------------------------------
         s = arbiter.completions(cfg, s)
 
+        # ---- scenario disruption: fail/drain/recover nodes --------------------
+        if disruption_on:
+            s, evict_mask = disrupt.apply(cfg, scenario, s, d)
+
         # ---- true node state, computed once per tick ---------------------------
-        view = zhaf.build_view(cfg, s)
-        bits = view.bits
+        if plane is None:
+            view = zhaf.build_view(cfg, s)
+            bits = view.bits
+        else:
+            view, bits = plane.build_view(cfg, s)
 
         # ---- cold path: state dissemination -------------------------------
         s = zhaf.report(cfg, s, d, view)
-        s = teg.refresh(cfg, s)
+        s = teg.refresh(cfg, s, plane)
 
         # ---- admissions hot path ----------------------------------------------
         s, arrival_mask = _inject_arrivals(cfg, s, d)
         s, regen_mask = da.move(cfg, s, d)
         dispatch_mask = arrival_mask | regen_mask | react_mask
+        if disruption_on:
+            dispatch_mask = dispatch_mask | evict_mask
         s = teg.dispatch(cfg, s, d, dispatch_mask, n_dispatch)
         s = da.address(cfg, s, d, view)
 
@@ -173,7 +182,7 @@ def make_step(cfg: LaminarConfig, scenario: ScenarioConfig | None = None):
         # multiple admission rounds per tick: after each reservation the node
         # removes the winner's atoms and proceeds to the next feasible candidate
         for _ in range(cfg.arb_rounds):
-            s, bits = arbiter.arbitrate(cfg, s, throttled, bits)
+            s, bits = arbiter.arbitrate(cfg, s, throttled, bits, plane)
         s = arbiter.pending_stage(cfg, s)
         s = arbiter.timeouts(cfg, s)
 
@@ -218,17 +227,26 @@ class LaminarEngine:
         """The default random-value provider: a generator on the device."""
         return TorchDraws(self.cfg, lam, num_zones, seed=seed, device=self.device)
 
+    def _plane(self, s: SimState):
+        """The node-plane strategy of the tick (``None``: the flat path)."""
+        return None
+
     def simulate(
-        self,
-        s: SimState,
-        draws,
-        num_ticks: int,
-        scenario: ScenarioConfig | None = None,
+        self, s: SimState, draws, num_ticks: int
     ) -> Tuple[SimState, torch.Tensor]:
         """Run ``num_ticks`` ticks from ``s``; ``draws.tick(t)`` gives each
         tick's random values. Returns the final state and the (T, 11) int32
-        timeseries, both still on the device (nothing waits for it)."""
-        step = make_step(self.cfg, scenario)
+        timeseries, both still on the device (nothing waits for it).
+
+        The scenario is ``cfg.scenario``; draws that record another one
+        (``TorchDraws.scenario``) are refused."""
+        made_for = getattr(draws, "scenario", self.cfg.scenario)
+        if made_for != self.cfg.scenario:
+            raise ValueError(
+                f"draws made for scenario {made_for.name!r}, engine runs "
+                f"{self.cfg.scenario.name!r}"
+            )
+        step = make_step(self.cfg, plane=self._plane(s))
         rows = []
         for t in range(num_ticks):
             s, ts = step(s, draws.tick(t))
@@ -241,7 +259,6 @@ class LaminarEngine:
         self,
         seed: int = 0,
         num_ticks: int | None = None,
-        scenario: ScenarioConfig | None = None,
         draws=None,
     ) -> Dict[str, Any]:
         """One run: ``init`` + ``simulate`` + ``summarize``. ``draws``
@@ -250,7 +267,7 @@ class LaminarEngine:
         if draws is None:
             draws = self.draws(lam, s.zstart.shape[0], seed)
         nt = num_ticks if num_ticks is not None else self.cfg.num_ticks
-        final, ts = self.simulate(s, draws, nt, scenario)
+        final, ts = self.simulate(s, draws, nt)
         out = summarize(self.cfg, final, ts.cpu().numpy())
         out["lambda_per_s"] = lam / self.cfg.dt_ms * 1e3
         return out
@@ -259,7 +276,6 @@ class LaminarEngine:
         self,
         seeds: Sequence[int],
         num_ticks: int | None = None,
-        scenario: ScenarioConfig | None = None,
     ) -> List[Dict[str, Any]]:
         """One ``summarize()`` dict per seed.
 
@@ -275,7 +291,7 @@ class LaminarEngine:
         outs: List[Dict[str, Any]] = []
         for sd in seeds:
             draws = self.draws(lam, s0.zstart.shape[0], sd)
-            final, ts = self.simulate(s0, draws, nt, scenario)
+            final, ts = self.simulate(s0, draws, nt)
             out = summarize(self.cfg, final, ts.cpu().numpy())
             out["lambda_per_s"] = lam / self.cfg.dt_ms * 1e3
             out["seed"] = sd

@@ -1,7 +1,8 @@
 """Hot-path kernel dispatch, a port of ``repro.core.hotpath``.
 
 The four measured control-plane operations go through this module:
-bitmap feasibility (``arbiter``), utility scoring + candidate argmax
+bitmap feasibility (``arbiter``; ``bitmap_fit_blocked`` for the zone
+blocks of the sharded engine), utility scoring + candidate argmax
 (``da``), zone aggregation (``teg``) and the fused Airlock survival scan
 (``engine``). Each forwards to its kernel package, whose wrapper dispatches
 by device: a CUDA tensor launches the hand-written Hopper kernel (or the
@@ -21,7 +22,13 @@ from repro_torch.kernels.survival_scan import ref as _surv_ref
 from repro_torch.kernels.utility_topk import ops as _topk_ops
 from repro_torch.kernels.zone_aggregate import ops as _agg_ops
 
-__all__ = ["bitmap_fit", "survival_scan", "utility_topk", "zone_aggregate"]
+__all__ = [
+    "bitmap_fit",
+    "bitmap_fit_blocked",
+    "survival_scan",
+    "utility_topk",
+    "zone_aggregate",
+]
 
 # the survival_scan kernel package hardcodes the state-machine codes to stay
 # importable without repro_torch.core; fail loudly here if they ever drift
@@ -38,6 +45,14 @@ def bitmap_fit(
 ) -> torch.Tensor:
     """Per-node feasibility (int32 0/1) of each node's demand vs its words."""
     return _bitmap_ops.bitmap_fit(words, mass, contig)
+
+
+def bitmap_fit_blocked(
+    words: torch.Tensor, mass: torch.Tensor, contig: torch.Tensor
+) -> torch.Tensor:
+    """Zone-blocked feasibility: ``(Z, M, W)`` words, ``(Z, M)`` demand ->
+    ``(Z, M)`` int32; the zone-sharded engine's entry for its zone block."""
+    return _bitmap_ops.bitmap_fit_blocked(words, mass, contig)
 
 
 def utility_topk(

@@ -259,6 +259,45 @@ def densify_zones(starts: np.ndarray, counts: np.ndarray):
     return member, mask.astype(np.float32)
 
 
+# ---------------------------------------------------------------------------
+# zone-blocked layout: flat node-major (N, ...) <-> padded (Z, M, ...)
+# ---------------------------------------------------------------------------
+# The zone-sharded engine (repro_torch.parallel.engine_mesh) splits the
+# node-plane work along the zone axis. Zones are heterogeneous, so the
+# blocked layout is PADDED: row z holds zone z's nodes in slots
+# [0, zcount[z]) and inert fill elsewhere.
+
+
+def pack_zoned(
+    x: torch.Tensor, zmember: torch.Tensor, zmask: torch.Tensor, fill=0
+) -> torch.Tensor:
+    """Flat node-major ``(N, ...)`` -> padded zone-blocked ``(Z, M, ...)``.
+
+    Valid slots gather their node's row; padding slots are set to ``fill``."""
+    v = x[zmember.long()]  # (Z, M, ...)
+    mask = (zmask > 0).reshape(zmask.shape + (1,) * (v.dim() - zmask.dim()))
+    return torch.where(mask, v, torch.tensor(fill, dtype=v.dtype, device=v.device))
+
+
+def unpack_zoned(
+    xb: torch.Tensor, zmember: torch.Tensor, zmask: torch.Tensor, num_nodes: int
+) -> torch.Tensor:
+    """Padded zone-blocked ``(Z, M, ...)`` -> flat node-major ``(N, ...)``.
+
+    Every node occupies exactly one valid slot, so the scatter writes each
+    flat row exactly once. Padding slots point at node 0 in ``zmember``; they
+    go to a spare row that is cut off, so they never clobber node 0. ``xb``
+    may carry more zone rows than ``zmember`` (padding to a multiple of the
+    device count); those rows are ignored."""
+    Z, M = zmember.shape
+    xb = xb[:Z]
+    tgt = torch.where(zmask > 0, zmember, num_nodes).reshape(-1).long()
+    flat = xb.reshape((Z * M,) + tuple(xb.shape[2:]))
+    out = torch.zeros((num_nodes + 1,) + tuple(xb.shape[2:]), dtype=xb.dtype, device=xb.device)
+    out.index_copy_(0, tgt, flat)
+    return out[:num_nodes]
+
+
 def paint_rigid(cfg: LaminarConfig, rng: np.random.Generator):
     """Pre-occupy node bitmaps with rigid-topology chunks (post-landing ecology)."""
     A = cfg.atoms_per_node

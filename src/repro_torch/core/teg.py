@@ -49,16 +49,23 @@ def scatter_rows(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     return buf[:n]
 
 
-def refresh(cfg: LaminarConfig, s: SimState) -> SimState:
+def refresh(cfg: LaminarConfig, s: SimState, plane=None) -> SimState:
     """Refresh T_global (zone aggregates) from the Z-HAF reported view.
 
     The segmented reduction is the zone_aggregate hot-path op; it runs every
-    tick and its result is kept on refresh ticks.
+    tick and its result is kept on refresh ticks. ``plane`` (the sharded
+    engine's ``MeshPlane``) reduces the rank's zone rows and gathers the
+    (Z,) table. It too runs every tick, selected by ``torch.where``:
+    deciding on the host whether the tick is due would wait for the device,
+    and ranks must all call the collective or none.
     """
     every = cfg.ticks(cfg.teg_refresh_ms)
     due = (s.t % every) == 0
-    s_gather, h_gather, mask = zhaf.zone_gather(s)
-    zS, zH = hotpath.zone_aggregate(s_gather, h_gather, mask)
+    if plane is None:
+        s_gather, h_gather, mask = zhaf.zone_gather(s)
+        zS, zH = hotpath.zone_aggregate(s_gather, h_gather, mask)
+    else:
+        zS, zH = plane.zone_aggregates(cfg, s)
     return s._replace(zS=torch.where(due, zS, s.zS), zH=torch.where(due, zH, s.zH))
 
 

@@ -21,7 +21,7 @@ from repro_torch.core.state import QUEUED, SimState
 class NodeView(NamedTuple):
     """True node state, computed once per tick and shared by all subsystems."""
 
-    bits: torch.Tensor  # (N, A) free-atom bit plane
+    bits: torch.Tensor | None  # (N, A) free-atom bit plane; None in mesh mode
     s_true: torch.Tensor  # (N,) free atoms
     h_true: torch.Tensor  # (N,) pending DA count (Heat)
     run_true: torch.Tensor  # (N,) longest contiguous free run

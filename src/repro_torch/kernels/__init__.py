@@ -6,6 +6,7 @@ kernel built from ``csrc/<name>.cu``, a CPU tensor takes the plain version).
 Every wrapper counts its kernel launches in ``<wrapper>.launches``.
 
   * ``bitmap_fit``    — per-node demand feasibility against bitmap words
+    (and ``bitmap_fit_blocked``, the same kernel over zone-blocked rows)
   * ``utility_topk``  — fused DA utility scoring + candidate argmax
   * ``zone_aggregate``— per-zone mean slack / total heat
   * ``survival_scan`` — fused Airlock survival decision
@@ -18,6 +19,7 @@ from repro_torch.kernels.zone_aggregate import ops as zone_aggregate
 
 WRAPPERS = {
     "bitmap_fit": bitmap_fit.bitmap_fit,
+    "bitmap_fit_blocked": bitmap_fit.bitmap_fit_blocked,
     "utility_topk": utility_topk.utility_topk,
     "zone_aggregate": zone_aggregate.zone_aggregate,
     "survival_scan": survival_scan.survival_scan,

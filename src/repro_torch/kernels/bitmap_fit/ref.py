@@ -19,3 +19,15 @@ def bitmap_fit_ref(
     ok = torch.where(contig.to(torch.bool), runs >= m, free >= m)
     ok = ok | (m == 0)
     return ok.to(torch.int32)
+
+
+def bitmap_fit_blocked_ref(
+    words: torch.Tensor, mass: torch.Tensor, contig: torch.Tensor
+) -> torch.Tensor:
+    """Zone-blocked version: ``(Z, M, W)`` words, ``(Z, M)`` demand -> (Z, M).
+
+    Row feasibility does not depend on the blocking, so this is the flat
+    version on the flattened rows, reshaped back."""
+    Z, M, W = words.shape
+    flat = bitmap_fit_ref(words.reshape(Z * M, W), mass.reshape(-1), contig.reshape(-1))
+    return flat.reshape(Z, M)

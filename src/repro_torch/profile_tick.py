@@ -1,19 +1,23 @@
 """Where the engine tick's time goes on the card, at the paper's Exp5 geometry.
 
-    python -m repro_torch.profile_tick [--airlock]
+    python -m repro_torch.profile_tick [--airlock] [--sharded]
 
 Runs the engine on CUDA at the Exp5 geometry (``exp5_config(full=True)``),
 warms it up for 200 ticks, then reports, per tick of a 20-tick window: the host wall time to enqueue the tick
 and to finish it, the number of device kernels, the summed device kernel
 time (so the device's busy and idle shares of the wall time), and the ops
 that take the most host time and the kernels that take the most device time
-(``torch.profiler``). It needs a CUDA card and exits non-zero without one.
+(``torch.profiler``). ``--sharded`` runs the tick of the zone-sharded engine
+on a one-rank NCCL group instead of the flat tick. It needs a CUDA card and
+exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -50,16 +54,35 @@ def exp5_config(airlock: bool, full: bool = True, ticks: int = 2400) -> LaminarC
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--airlock", action="store_true", help="Airlock on (default: kernel OOM)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="the zone-sharded engine's tick on a one-rank NCCL group")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_tick: CUDA is not available", file=sys.stderr)
         return 2
+    if not args.sharded:
+        return profile(args.airlock, LaminarEngine)
 
-    cfg = exp5_config(args.airlock)
-    eng = LaminarEngine(cfg, device="cuda")
+    import torch.distributed as dist
+
+    from repro_torch.parallel.engine_mesh import ZoneShardedEngine
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            return profile(args.airlock, ZoneShardedEngine)
+        finally:
+            dist.destroy_process_group()
+
+
+def profile(airlock: bool, engine_cls) -> int:
+    cfg = exp5_config(airlock)
+    eng = engine_cls(cfg, device="cuda")
     s, lam = eng.init(0)
     draws = eng.draws(lam, s.zstart.shape[0], seed=0)
-    step = make_step(cfg)
+    step = make_step(cfg, plane=eng._plane(s))
     t = 0
     for _ in range(WARMUP_TICKS):
         s, _ = step(s, draws.tick(t))
@@ -74,14 +97,15 @@ def main(argv=None) -> int:
     t_enq = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
-    print(f"profile_tick: {'airlock' if args.airlock else 'kernel-oom'}, {cfg.num_nodes} nodes, "
-          f"{cfg.probe_capacity} slots, after {WARMUP_TICKS} ticks")
+    print(f"profile_tick: {engine_cls.__name__}, {'airlock' if airlock else 'kernel-oom'}, "
+          f"{cfg.num_nodes} nodes, {cfg.probe_capacity} slots, after {WARMUP_TICKS} ticks")
     print(f"host: enqueue {t_enq / n * 1e3:.3f} ms/tick, finished {t_all / n * 1e3:.3f} ms/tick "
           f"({n / t_all:.1f} ticks/s)")
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             s, _ = step(s, draws.tick(t))

@@ -1,4 +1,6 @@
-"""Scenario configuration (schedules, disruption, presets) for the port."""
+"""Scenarios for the port: configuration and presets (``scenario``), the
+arrival-rate schedules (``schedule``) and the node disruption process
+(``disruption``)."""
 
 from repro_torch.workloads.scenario import (
     KINDS,

@@ -3,10 +3,8 @@ disruption process, plus the named presets.
 
 A jax-free copy of the dataclasses in ``repro.workloads`` (``schedule.py``,
 ``disruption.py``, ``scenario.py``): the same fields, defaults, presets and
-``signature()``. Only the configuration lives here. The engine of this
-package runs the stationary, disruption-free scenario and raises
-``NotImplementedError`` for any other; the schedules and the disruption
-process are a later part of the port.
+``signature()``. The schedules themselves are ``workloads.schedule``, the
+disruption process ``workloads.disruption``.
 """
 
 from __future__ import annotations

@@ -6,9 +6,12 @@ between the two packages as numpy arrays:
   * :func:`port_config` — a ``repro`` config as the port's config;
   * :func:`jax_state_to_numpy` — a JAX ``SimState`` as the numpy dict that
     ``repro_torch.core.state.state_from_numpy`` takes;
-  * :class:`JaxTape` — replays the JAX engine's key schedule and records every
-    per-tick random value, after its distribution, as the port's ``Draws``,
-    so both engines see the same randomness;
+  * :class:`JaxTape` — replays the JAX engine's key schedule (the scenario's
+    9-way split, arrival schedule and dispatch headroom included) and records
+    every per-tick random value, after its distribution, as the port's
+    ``Draws``, so both engines see the same randomness;
+  * :func:`jax_reference_run`, :func:`jax_tape`, :func:`check_run_matches_jax`
+    — a live JAX run, its tape, and the port's run held to it;
   * :func:`assert_outputs_equal` / :func:`first_divergence` — compare two
     ``summarize()`` dicts.
 """
@@ -16,6 +19,7 @@ between the two packages as numpy arrays:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +27,9 @@ import numpy as np
 import torch
 
 from repro.core import config as jcfg
+from repro.workloads import schedule as jsched
 from repro_torch.core import config as tcfg
-from repro_torch.core.draws import Draws, max_dispatch
+from repro_torch.core.draws import ArrayDraws, Draws, max_dispatch
 from repro_torch.workloads import scenario as tscen
 
 # The parity tests run small tensors, where intra-op threads only add
@@ -56,12 +61,18 @@ def jax_state_to_numpy(s) -> dict:
     return out
 
 
-def _draws_from_keys(cfg: jcfg.LaminarConfig, lam: float, num_zones: int, ks) -> dict:
+def _split_ways(cfg: jcfg.LaminarConfig) -> int:
+    """``engine.make_step``'s per-tick key split: 9 ways with disruption."""
+    return 9 if cfg.scenario.disruption.enabled else 8
+
+
+def _draws_from_keys(cfg: jcfg.LaminarConfig, lam, num_zones: int, ks) -> dict:
     """Every random value of one tick, drawn exactly as ``repro.core`` draws
-    it from the tick's subkeys ``ks`` (``engine.make_step``'s 8-way split)."""
+    it from the tick's subkeys ``ks`` (``engine.make_step``'s split); ``lam``
+    is the tick's Poisson intensity."""
     N, P = cfg.num_nodes, cfg.probe_capacity
     n_max, K = cfg.max_arrivals_per_tick, cfg.candidate_k
-    D = max_dispatch(cfg)
+    D = max_dispatch(port_config(cfg))
     w = cfg.workload
     r = jax.random
 
@@ -109,37 +120,46 @@ def _draws_from_keys(cfg: jcfg.LaminarConfig, lam: float, num_zones: int, ks) ->
     k_cand, k_noise = r.split(ks[5])
     out["cand_u"] = r.uniform(k_cand, (P, K - 1))
     out["addr_eps"] = r.normal(k_noise, (P, K))
+    if cfg.scenario.disruption.enabled:
+        # workloads.disruption_step (ks[7])
+        k_evt, k_site = r.split(ks[7])
+        out["dis_u"] = r.uniform(k_evt, ())
+        out["dis_start"] = r.randint(k_site, (), 0, N)
     return out
 
 
 def draws_from_key(cfg, lam: float, num_zones: int, key) -> Draws:
     """The ``Draws`` of one tick whose state carries ``key``."""
-    _, *ks = jax.random.split(key, 8)
+    _, *ks = jax.random.split(key, _split_ways(cfg))
     d = _draws_from_keys(cfg, lam, num_zones, ks)
     return Draws(**{k: torch.from_numpy(np.array(v)) for k, v in d.items()})
 
 
-class JaxTape:
-    """Replays the JAX engine's key schedule from ``PRNGKey(seed)`` for
-    ``num_ticks`` ticks (one jitted scan) and hands tick ``t``'s values as
-    the port's ``Draws`` (CPU tensors)."""
+class JaxTape(ArrayDraws):
+    """Replays the JAX engine's key schedule from ``PRNGKey(seed)`` (and the
+    arrival schedule from ``schedule_key(seed)``) for ``num_ticks`` ticks of
+    ``cfg.scenario``, in one jitted scan, and hands tick ``t``'s values as
+    the port's ``Draws`` (CPU tensors). ``ArrayDraws(tape.arrays)`` carries
+    the same values to processes without JAX."""
 
     def __init__(self, cfg: jcfg.LaminarConfig, lam: float, num_zones: int,
                  seed: int, num_ticks: int):
-        if cfg.scenario.disruption.enabled:
-            raise NotImplementedError("the tape replays the 8-way key split only")
+        sched = cfg.scenario.schedule
+        sched_key = jsched.schedule_key(seed)
 
-        def step(key, _):
-            key, *ks = jax.random.split(key, 8)
-            return key, _draws_from_keys(cfg, lam, num_zones, ks)
+        def step(carry, _):
+            key, t = carry
+            key, *ks = jax.random.split(key, _split_ways(cfg))
+            if sched.kind == "stationary":
+                lam_t = lam  # the engine's exact pre-scenario arrival stream
+            else:
+                lam_t = jsched.rate_per_tick(sched, lam, t, sched_key, cfg.dt_ms)
+            return (key, t + 1), _draws_from_keys(cfg, lam_t, num_zones, ks)
 
         _, tape = jax.jit(
-            lambda k: jax.lax.scan(step, k, None, length=num_ticks)
+            lambda k: jax.lax.scan(step, (k, jnp.zeros((), jnp.int32)), None, length=num_ticks)
         )(jax.random.PRNGKey(seed))
-        self._tape = {k: np.asarray(v) for k, v in tape.items()}
-
-    def tick(self, t: int) -> Draws:
-        return Draws(**{k: torch.from_numpy(np.array(v[t])) for k, v in self._tape.items()})
+        super().__init__({k: np.asarray(v) for k, v in tape.items()})
 
 
 def jax_staged_tick(cfg: jcfg.LaminarConfig, s, lam: float):
@@ -150,7 +170,7 @@ def jax_staged_tick(cfg: jcfg.LaminarConfig, s, lam: float):
     from repro.core import airlock, arbiter, da, engine, hotpath, teg, zhaf
 
     draws = draws_from_key(cfg, lam, len(s.zstart), s.key)
-    key, *ks = jax.random.split(s.key, 8)
+    key, *ks = jax.random.split(s.key, _split_ways(cfg))
     s = s._replace(key=key)
     rec = []
 
@@ -175,7 +195,7 @@ def jax_staged_tick(cfg: jcfg.LaminarConfig, s, lam: float):
     s, arrival_mask = stage("inject_arrivals", engine._inject_arrivals, ks[2], lam)
     s, regen_mask = stage("move", da.move, ks[3])
     mask = arrival_mask | regen_mask | react_mask
-    D = max_dispatch(cfg)
+    D = max_dispatch(port_config(cfg))
     s = stage("dispatch", teg.dispatch, ks[4], mask, D, mask=mask)
     s = stage("address", da.address, ks[5], view, view=view)
     throttled = (
@@ -193,6 +213,47 @@ def jax_staged_tick(cfg: jcfg.LaminarConfig, s, lam: float):
     s = stage("pending_stage", arbiter.pending_stage)
     s = stage("timeouts", arbiter.timeouts)
     return draws, rec
+
+
+def jax_reference_run(cfg: jcfg.LaminarConfig, seed: int = 0):
+    """One run of the JAX engine: its ``summarize()`` dict, the per-tick
+    intensity ``lam`` and the zone count (what a :class:`JaxTape` needs)."""
+    from repro.core import LaminarEngine
+    from repro.core.engine import summarize
+
+    eng = LaminarEngine(cfg)
+    s0, lam = eng.init(seed)
+    final, ts = eng._runner(lam, cfg.num_ticks)(s0)
+    out = summarize(cfg, final, np.asarray(ts))
+    out["lambda_per_s"] = lam / cfg.dt_ms * 1e3
+    return out, lam, len(s0.zstart)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_tape(cfg: jcfg.LaminarConfig, seed: int) -> JaxTape:
+    from repro.core import LaminarEngine
+
+    s0, lam = LaminarEngine(cfg).init(seed)
+    return JaxTape(cfg, lam, len(s0.zstart), seed=seed, num_ticks=cfg.num_ticks)
+
+
+def jax_tape(cfg: jcfg.LaminarConfig, seed: int = 0) -> JaxTape:
+    """The ``JaxTape`` of a run of ``cfg`` (``cfg.num_ticks`` ticks), cached
+    per process. Airlock changes neither the draws nor the arrival rate, so
+    runs with Airlock off and on share one tape."""
+    return _cached_tape(dataclasses.replace(cfg, airlock=False), seed)
+
+
+def check_run_matches_jax(cfg: jcfg.LaminarConfig, seed: int = 0) -> dict:
+    """The port's flat engine on the CPU, fed the JAX draws, equals the live
+    JAX engine on every metric, ``lat_hist`` and the timeseries."""
+    from repro_torch.core.engine import LaminarEngine as TorchEngine
+
+    want, _, _ = jax_reference_run(cfg, seed)
+    got = TorchEngine(port_config(cfg), device="cpu").run(seed=seed, draws=jax_tape(cfg, seed))
+    assert first_divergence(want, got) is None, first_divergence(want, got)
+    assert_outputs_equal(want, got)
+    return got
 
 
 def first_divergence(a: dict, b: dict):

@@ -60,6 +60,32 @@ def test_bitmap_fit_matches_plain(dev, W, N):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("Z,M,W", [(1, 1, 1), (3, 13, 2), (257, 310, 2), (9, 40, 4)])
+def test_bitmap_fit_blocked_matches_plain(dev, Z, M, W):
+    """The zone-blocked entry launches the same kernel over the (Z * M, W)
+    rows of a padded block (padding slots zeroed), and counts on its own."""
+    from repro_torch.core.state import densify_zones
+
+    rng = np.random.default_rng(Z * M * W)
+    counts = np.maximum(1, rng.integers(M // 2, M + 1, Z)).astype(np.int32)
+    counts[0] = M
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    member, mask = densify_zones(starts, counts)
+    N = int(counts.sum())
+    words = rng.integers(0, 2**32, size=(N, W), dtype=np.uint32)
+    words[: N // 3] = 0xFFFFFFFF
+    valid = mask > 0
+    wb = torch.from_numpy(np.where(valid[..., None], words[member], 0).astype(np.uint32).view(np.int32))
+    mass = torch.from_numpy(np.where(valid, rng.integers(0, 32 * W + 1, N)[member], 0).astype(np.int32))
+    contig = torch.from_numpy(valid & (rng.integers(0, 2, N)[member] == 1))
+    n0, f0 = bitmap_fit.bitmap_fit_blocked.launches, bitmap_fit.bitmap_fit.launches
+    (want,), (got,) = _both(bitmap_fit.bitmap_fit_blocked, (wb, mass, contig), {}, dev)
+    assert bitmap_fit.bitmap_fit_blocked.launches == n0 + 1
+    assert bitmap_fit.bitmap_fit.launches == f0
+    assert got.shape == (Z, M)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("P,K", [(1, 4), (777, 8), (65536, 8)])
 def test_utility_topk_matches_plain(dev, P, K):
     rng = np.random.default_rng(P * K)

@@ -28,6 +28,7 @@ from repro.workloads import SCENARIOS as J_SCENARIOS
 from repro_torch.core import bitmap as tbitmap
 from repro_torch.core import config as tconfig
 from repro_torch.core import state as tstate
+from repro_torch.core.draws import ArrayDraws, TorchDraws
 from repro_torch.core.engine import LaminarEngine
 from repro_torch.workloads import SCENARIOS as T_SCENARIOS
 
@@ -220,10 +221,21 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_engine_rejects_unported_scenarios():
+    """Every scenario preset runs now (the engine reads it from
+    ``cfg.scenario``); what the engine still rejects is generator draws made
+    for another scenario, recorded draws without the disruption values the
+    scenario needs, and an empty seed list."""
     cfg = port_config(SMALL)
-    eng = LaminarEngine(cfg, device="cpu")
+    s, lam = LaminarEngine(cfg, device="cpu").init(0)
+    stationary = TorchDraws(cfg, lam, s.zstart.shape[0], seed=0, device="cpu")
     for name in ("bursty", "churn"):
-        with pytest.raises(NotImplementedError):
-            eng.run(seed=0, num_ticks=1, scenario=T_SCENARIOS[name])
+        eng = LaminarEngine(dataclasses.replace(cfg, scenario=T_SCENARIOS[name]), device="cpu")
+        assert eng.run(seed=0, num_ticks=2)["arrived"] >= 0
+        with pytest.raises(ValueError, match="scenario 'stationary'"):
+            eng.run(seed=0, num_ticks=1, draws=stationary)
+    recorded = ArrayDraws({k: v.numpy()[None] for k, v in stationary.tick(0)._asdict().items()
+                           if v is not None})
+    with pytest.raises(ValueError, match="disruption"):
+        eng.run(seed=0, num_ticks=1, draws=recorded)
     with pytest.raises(ValueError):
         eng.run_batch([])
