@@ -19,6 +19,17 @@ and no result line:
      ``bitmap_fit_blocked`` at its 20 x 301 block) and Exp7's top cell of
      phase 5 (65 536 nodes / 131 072 slots, blocked at 253 x 307); time
      kernel and plain version on the card at each;
+  2b. every launch under its checked plan: each kernel's compiled attributes
+     (``<name>_attrs``: static shared memory, registers, maxThreadsPerBlock)
+     against every plan of phase 2's shapes (static shared memory as
+     declared, within the H100's per-block budget); each entry launched
+     through the wrapper's own launch function and plan into outputs that
+     sit in sentinel-filled buffers with guard bands, at the ragged, Exp5
+     and Exp7 shapes: no sentinel left inside (LC301 on the card), bands
+     untouched (LC302), equal to the plain version; ``block_copy`` (the
+     port of the analyzer's fixture kernels) under the good plan and the
+     three bad plans of ``tests/fixtures/torch_analysis/bad_launch_tail.py``,
+     against the plan interpreter, timed beside ``Tensor.clone``;
   3. run the flat engine on the card at the Exp5 geometry (5000 nodes,
      65 536 probe slots, memory dynamics on), Airlock off then on, 800
      ticks each; check the launch counts, the task-conservation identity and
@@ -37,11 +48,13 @@ and no result line:
      last the result line.
 
 Every launch counter is set to 0 just before each run of phases 3, 5 and 6
-and read just after; the table's ``launches`` sums those runs.
+and read just after; the table's ``launches`` sums those runs (0 for the
+three fixture rows, whose ``smoke_launches`` counts phase 2b's own).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -206,10 +219,9 @@ def call_ms(fn, reps=50, rounds=5):
     return _events_ms(lambda: [fn() for _ in range(reps)], reps, rounds)
 
 
-def check_kernel(name, wrapper, ref, case, dev):
-    args, kw, nbytes, nops = case
-    got = [g.cpu() for g in as_tuple(wrapper(*to_dev(args, dev), **kw))]  # waits
-    want = as_tuple(ref(*args, **kw))
+def compare(name, got, want):
+    """Hold kernel outputs (CPU copies) to the plain version's; returns the
+    max abs error of the float outputs."""
     err = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
         check(g.dtype == w.dtype and g.shape == w.shape,
@@ -227,6 +239,15 @@ def check_kernel(name, wrapper, ref, case, dev):
             check(torch.equal(g, w), f"{name} output {i}: "
                   f"{int((g != w).sum())} of {w.numel()} entries differ")
     return err
+
+
+def check_kernel(name, wrapper, ref, case, dev):
+    """The wrapper on the card against its plain version on CPU copies;
+    returns (max abs err, the plain version's outputs)."""
+    args, kw = case[0], case[1]
+    got = [g.cpu() for g in as_tuple(wrapper(*to_dev(args, dev), **kw))]  # waits
+    want = as_tuple(ref(*args, **kw))
+    return compare(name, got, want), want
 
 
 def phase2(dev, geometries):
@@ -248,8 +269,9 @@ def phase2(dev, geometries):
     ragged = kernel_cases(N=37, P=1029, K=8, Z=3, M=13, W=2, seed=1)
     member, mask = densify_zones(np.array([0, 13, 20], np.int32), np.array([13, 7, 10], np.int32))
     ragged["bitmap_fit_blocked"] = blocked_case(member, mask, W=2, seed=1)
+    checked = {"ragged": {}}
     for name, case in ragged.items():
-        check_kernel(name, WRAPPERS[name], refs[name], case, dev)
+        checked["ragged"][name] = (case, check_kernel(name, WRAPPERS[name], refs[name], case, dev)[1])
     print("phase 2: ragged shapes (N=37, P=1029, Z=3, M=13; blocked Z=3, M=13 with "
           "zeroed padding slots) equal to the plain versions")
     rows = {}
@@ -257,8 +279,10 @@ def phase2(dev, geometries):
         cases = kernel_cases(**geometry, seed=seed)
         cases["bitmap_fit_blocked"] = blocked_case(*zones, W=geometry["W"], seed=seed)
         print(f"phase 2 [{label}]: {geometry}, blocked (Z, M) = {tuple(zones[0].shape)}")
+        checked[label] = {}
         for name, case in cases.items():
-            err = check_kernel(name, WRAPPERS[name], refs[name], case, dev)
+            err, want = check_kernel(name, WRAPPERS[name], refs[name], case, dev)
+            checked[label][name] = (case, want)
             args = to_dev(case[0], dev)
             kw = case[1]
             ms = device_ms(lambda: WRAPPERS[name](*args, **kw))
@@ -277,6 +301,195 @@ def phase2(dev, geometries):
                   f"device time: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
                   f"{row['bound_ms']:.7f} ms ({row['bound_by']}); "
                   f"eager call with launch {eager_ms:.6f} ms")
+    return rows, checked
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: every launch under its checked plan, on the card
+# ---------------------------------------------------------------------------
+
+BAND = 1024  # guard-band elements on each side of an output
+SENTINEL = {torch.float32: (torch.int32, 0x7FA5A5A5),  # a signalling NaN
+            torch.int32: (torch.int32, -0x5A5A5A5B),  # 0xA5A5A5A5
+            torch.bool: (torch.uint8, 0xA5)}
+# the fixture kernels: the three pallas_calls of the JAX package's
+# tests/fixtures/analysis/bad_blockspec_tail.py and their line
+FIXTURE_REPLACES = {
+    "tail_dropping_grid": "tests/fixtures/analysis/bad_blockspec_tail.py:29",
+    "index_map_overshoot": "tests/fixtures/analysis/bad_blockspec_tail.py:44",
+    "vmem_over_budget": "tests/fixtures/analysis/bad_blockspec_tail.py:59",
+}
+# what the analyzer says of each on the CPU, as the JAX analyzer of its pallas_call
+FIXTURE_RULES = {"tail_dropping_grid": ["LC301"], "index_map_overshoot": ["LC301", "LC302"],
+                 "vmem_over_budget": ["LC303"]}
+
+
+def guarded(shape, dtype, dev, fill=None):
+    """A view of ``shape`` inside a buffer with BAND elements on each side,
+    all of it filled with ``fill`` (default: the dtype's sentinel pattern).
+    Returns (view, buffer)."""
+    n = int(np.prod(shape)) if len(shape) else 1
+    buf = torch.empty(n + 2 * BAND, dtype=dtype, device=dev)
+    if fill is None:
+        as_dtype, pattern = SENTINEL[dtype]
+        buf.view(as_dtype).fill_(pattern)
+    else:
+        buf.fill_(fill)
+    return buf[BAND:BAND + n].view(shape), buf
+
+
+def sentinel_hits(buf, dtype):
+    """(sentinel words left inside the output, band words not sentinel)."""
+    as_dtype, pattern = SENTINEL[dtype]
+    hit = buf.view(as_dtype) == pattern
+    inner = int((~hit[:BAND]).sum()) + int((~hit[-BAND:]).sum())
+    return int(hit[BAND:-BAND].sum()), inner
+
+
+def load_fixture_plans():
+    """``PLANS`` of tests/fixtures/torch_analysis/bad_launch_tail.py."""
+    import importlib.util
+
+    path = ROOT / "tests" / "fixtures" / "torch_analysis" / "bad_launch_tail.py"
+    spec = importlib.util.spec_from_file_location("bad_launch_tail", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.PLANS
+
+
+def phase2b(dev, checked):
+    """Attributes against plans, guard bands around every entry's outputs,
+    and the block_copy kernel under the good plan and the three bad ones.
+    Returns the table rows of the three fixture kernels."""
+    from repro_torch.analysis.kernel_contract import PER_BLOCK, audit_launch_plan
+    from repro_torch.kernels import LAUNCHERS, PLANS, _build
+    from repro_torch.kernels.bitmap_fit import plan as bitmap_plan
+    from repro_torch.kernels.block_copy import block_copy, block_copy_ref
+    from repro_torch.kernels.block_copy import ops as copy_ops
+    from repro_torch.kernels.block_copy import plan as copy_plan
+    from repro_torch.kernels.survival_scan import plan as surv_plan
+    from repro_torch.kernels.utility_topk import plan as topk_plan
+    from repro_torch.kernels.zone_aggregate import plan as agg_plan
+
+    # -- compiled attributes against every plan ------------------------------
+    attrs = {}
+    for mod in (bitmap_plan, topk_plan, agg_plan, surv_plan, copy_plan):
+        name = mod.__name__.split(".")[-2]  # the package, named as its source
+        for k, kernel in enumerate(mod.KERNELS):
+            attrs[kernel] = a = _build.attrs(name, k)
+            print(f"phase 2b: {name}.cu {kernel}: {a['registers']} registers/thread, "
+                  f"{a['static_smem']} B static shared memory, max {a['max_threads']} "
+                  f"threads/block")
+    fixture_plans = load_fixture_plans()
+    plans = [PLANS[name](*case[0], **case[1])
+             for per in checked.values() for name, (case, _) in per.items()]
+    plans += [copy_plan.good_plan(1024, 128)] + [p for p, _ in fixture_plans.values()]
+    n_launch = 0
+    for plan in plans:
+        hog = plan is fixture_plans["vmem_over_budget"][0]
+        for L in plan.launches:
+            a = attrs[L.kernel]
+            n_launch += 1
+            check(a["static_smem"] == L.static_smem,
+                  f"{L.kernel}: compiled static shared memory {a['static_smem']} B, plan "
+                  f"declares {L.static_smem} B")
+            check(a["static_smem"] <= PER_BLOCK["static_smem"]
+                  and (hog or a["static_smem"] + L.dynamic_smem <= PER_BLOCK["smem"]),
+                  f"{L.kernel}: shared memory over the H100's per-block budget")
+            check(L.block <= a["max_threads"],
+                  f"{L.kernel}: block {L.block} > maxThreadsPerBlock {a['max_threads']}")
+    for per in checked.values():
+        case = per["survival_scan"][0]
+        P, N = case[0][0].shape[0], case[0][8].shape[0]
+        lib = _build.load("survival_scan", {"survival_scan_scratch_words": [ctypes.c_int] * 2})
+        check(lib.survival_scan_scratch_words(P, N) == surv_plan.scratch_words(P, N),
+              f"survival_scan scratch words at P={P}, N={N}: plan and source disagree")
+    print(f"phase 2b: {len(plans)} plans, {n_launch} launches: static shared memory as "
+          f"declared, within {PER_BLOCK['static_smem']} B static / {PER_BLOCK['smem']} B "
+          f"total and maxThreadsPerBlock; survival_scan scratch words equal the source's")
+
+    # -- guard bands around every entry's outputs -----------------------------
+    for label, per in checked.items():
+        for name, (case, want) in per.items():
+            args, kw = to_dev(case[0], dev), case[1]
+            plan = PLANS[name](*args, **kw)
+            views = [guarded(o.shape, o.dtype, dev) for o in plan.outputs]
+            extra = {}
+            if name == "survival_scan":
+                scratch, sbuf = guarded((plan.scratch_words,), torch.int32, dev)
+                extra["scratch"] = scratch
+            LAUNCHERS[name](plan, [v for v, _ in views], *args, **kw, **extra)
+            torch.cuda.synchronize()
+            for (v, buf), o in zip(views, plan.outputs):
+                left, touched = sentinel_hits(buf, o.dtype)
+                check(left == 0, f"[{label}] {name} {o.name}: {left} elements never written "
+                                 "(LC301 on the card)")
+                check(touched == 0, f"[{label}] {name} {o.name}: {touched} guard-band elements "
+                                    "written (LC302 on the card)")
+            if name == "survival_scan":
+                check(sentinel_hits(sbuf, torch.int32)[1] == 0,
+                      f"[{label}] survival_scan wrote outside its scratch (LC302 on the card)")
+            compare(name, [v.cpu() for v, _ in views], want)
+        print(f"phase 2b [{label}]: every entry's outputs fully written, guard bands "
+              f"untouched, equal to the plain versions")
+
+    # -- block_copy under the good plan and the three bad ones -----------------
+    rng = np.random.default_rng(13)
+    n = 1024
+    x, xbuf = guarded((n,), torch.float32, dev, fill=-7.5)  # poisoned guard band
+    x.copy_(torch.from_numpy(rng.normal(size=n).astype(np.float32)))
+    xc = x.cpu()
+    block_copy.launches = 0
+    good = copy_plan.good_plan(n, 128)
+    got = block_copy(x, good).cpu()
+    check(torch.equal(got, xc) and torch.equal(got, block_copy_ref(xc, good)),
+          "block_copy under the good plan differs from its plain version")
+    rows = {}
+    for fname, (plan, budget) in fixture_plans.items():
+        out, obuf = guarded((n,), torch.float32, dev, fill=float("nan"))
+        copy_ops.launch(plan, (out,), x)
+        torch.cuda.synchronize()
+        check(bool(torch.isnan(obuf[:BAND]).all() and torch.isnan(obuf[-BAND:]).all()),
+              f"block_copy [{fname}] wrote a guard band")
+        got, want = out.cpu(), block_copy_ref(xc, plan)
+        rules = sorted({f.rule for f in audit_launch_plan(plan, name=fname, budget_bytes=budget)})
+        check(rules == FIXTURE_RULES[fname], f"block_copy [{fname}]: analyzer gives {rules}")
+        if fname == "index_map_overshoot":
+            # the last block reads one block past x: the poisoned band on the
+            # card, the last block inside x in the interpreter (clamped)
+            tail = slice(n - 128, n)
+            check(torch.equal(got[: n - 128], want[: n - 128]), "overshoot: head differs")
+            check(bool((got[tail] == -7.5).all()), "overshoot: last block did not read the band")
+            check(torch.equal(want[tail], xc[tail]), "overshoot: interpreter did not clamp")
+            err = float((got[: n - 128] - want[: n - 128]).abs().max())
+            what = "last block read the poisoned band where the interpreter clamps"
+        else:
+            check(torch.equal(torch.nan_to_num(got, nan=1e30), torch.nan_to_num(want, nan=1e30)),
+                  f"block_copy [{fname}] differs from the plan interpreter")
+            ok = ~torch.isnan(want)
+            err = float((got[ok] - want[ok]).abs().max())
+            what = (f"equal to the interpreter, {int((~ok).sum())} elements left NaN"
+                    if fname == "tail_dropping_grid" else
+                    f"exact; {plan.launches[0].dynamic_smem} B of staging > the {budget} B budget")
+            if fname == "vmem_over_budget":
+                check(plan.launches[0].dynamic_smem > budget, "hog plan within its budget")
+        ms = device_ms(lambda: block_copy(x, plan))
+        plain_ms = device_ms(lambda: block_copy_ref(x, plan))
+        library_ms = device_ms(lambda: x.clone())
+        nbytes = 2 * n * 4
+        rows[fname] = dict(
+            name=fname, route="cuda", source="src/repro_torch/csrc/block_copy.cu",
+            replaces=FIXTURE_REPLACES[fname], launches=0, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=library_ms,
+        )
+        print(f"phase 2b: block_copy [{fname}]: analyzer {rules}; {what}; device time: "
+              f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, clone {library_ms:.6f} ms, "
+              f"bound {rows[fname]['bound_ms']:.7f} ms (bytes)")
+    smoke = block_copy.launches
+    for row in rows.values():
+        row["smoke_launches"] = smoke
+    print(f"phase 2b: block_copy wrapper launches in this phase: {smoke}")
     return rows
 
 
@@ -296,9 +509,10 @@ def drive(eng, s, draws, ticks):
     Returns (summary, launches, host syncs inside the ticks, ticks/s)."""
     from repro_torch.core.engine import summarize
     from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels.block_copy import block_copy
 
     torch.cuda.synchronize()
-    for w in WRAPPERS.values():
+    for w in (*WRAPPERS.values(), block_copy):
         w.launches = 0
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -311,6 +525,7 @@ def drive(eng, s, draws, ticks):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in WRAPPERS.items()}
+    check(block_copy.launches == 0, f"block_copy launched {block_copy.launches} times on a main path")
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     for w in syncs[:3]:
         print(f"  sync: {w.message} ({w.filename}:{w.lineno})")
@@ -561,7 +776,10 @@ def main() -> int:
                          W=cfg.atoms_per_node // 32),
                     (geo["zmember"], geo["zmask"]),
                 )
-            rows = phase2(dev, geometries)
+            rows, checked = phase2(dev, geometries)
+            t1 = time.perf_counter()
+            rows.update(phase2b(dev, checked))
+            print(f"phase 2b: {time.perf_counter() - t1:.1f} s wall")
             totals = {name: 0 for name in WRAPPERS}
             gloo = dist.new_group(ranks=[0], backend="gloo")
             for k, run in ((3, lambda: phase3(dev, totals)), (4, lambda: phase4(dev, gloo)),
@@ -570,7 +788,7 @@ def main() -> int:
                 run()
                 print(f"phase {k}: {time.perf_counter() - t1:.1f} s wall")
             for name, n in totals.items():
-                rows[name]["launches"] = n
+                rows[name]["launches"] = n  # the fixture rows keep 0: on no main path
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1

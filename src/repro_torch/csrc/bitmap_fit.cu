@@ -77,17 +77,31 @@ __global__ void bitmap_fit_kernel(const uint32_t* __restrict__ words,
 }  // namespace
 
 // words (n, w) int32 bit patterns, mass (n,) int32, contig (n,) bool,
-// out (n,) int32. Launches on `stream` and returns cudaGetLastError().
+// out (n,) int32. Grid and block come from the caller's launch plan
+// (kernels/bitmap_fit/plan.py); a block other than kThreads is refused.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int bitmap_fit_launch(const void* words, const void* mass,
                                  const void* contig, void* out, int n, int w,
-                                 void* stream) {
+                                 int grid, int block, void* stream) {
   if (n <= 0) return 0;
   if (w < 1 || w > kMaxWords) return (int)cudaErrorInvalidValue;
+  if (block != kThreads || grid < 1) return (int)cudaErrorInvalidConfiguration;
   const int bits = 32 * w - 1;
   const int n_steps = max(1, 32 - __builtin_clz(bits));  // bit_length(32 w - 1)
-  const int blocks = (n + kThreads - 1) / kThreads;
-  bitmap_fit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  bitmap_fit_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)words, (const int32_t*)mass, (const uint8_t*)contig,
       (int32_t*)out, n, w, n_steps);
   return (int)cudaGetLastError();
+}
+
+// Compiled attributes of kernel k (0: bitmap_fit_kernel): out[0] static
+// shared bytes, out[1] registers a thread, out[2] maxThreadsPerBlock.
+extern "C" int bitmap_fit_attrs(int k, int* out) {
+  if (k != 0) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, bitmap_fit_kernel);
+  out[0] = (int)a.sharedSizeBytes;
+  out[1] = a.numRegs;
+  out[2] = a.maxThreadsPerBlock;
+  return (int)e;
 }

@@ -252,7 +252,7 @@ __global__ void mask_kernel(Inputs in, Scratch sc, const float* __restrict__ pre
 
 }  // namespace
 
-// Number of int32 words of scratch the wrapper allocates for (p, n).
+// Number of int32 words of scratch the eight carve-outs need for (p, n).
 extern "C" int survival_scan_scratch_words(int p, int n) {
   return 6 * n + 1 + 2 * p;
 }
@@ -260,40 +260,72 @@ extern "C" int survival_scan_scratch_words(int p, int n) {
 // Columns (p,): st, node (alloc_node), tier, stick (susp_tick), sdl
 // (surv_deadline) int32; mem, ev float32; mig bool. base (n,) float32; t a
 // 0-d int32 on the device. Outputs: pressure (n,) float32; victim, resume,
-// react, expire (p,) bool. Launches 9 kernels (8 without Airlock) on
-// `stream` and returns cudaGetLastError().
+// react, expire (p,) bool. The launch plan (kernels/survival_scan/plan.py)
+// gives grid and block of each of the nine slots (init, count, scan, place,
+// fold, tier, score, slot, mask; grid 0: not launched) and the offsets of
+// the eight scratch carve-outs (cnt, cur, off, btier, bscore, bslot, eslot,
+// eval) inside the `scratch_words` words the caller allocated. A block other
+// than the compiled one, or a carve-out outside the scratch, is refused.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int survival_scan_launch(
     const void* st, const void* node, const void* mem, const void* ev,
     const void* tier, const void* mig, const void* stick, const void* sdl,
     const void* base, const void* t, void* pressure, void* victim,
     void* resume, void* react, void* expire, void* scratch, int p, int n,
     int airlock, float residual, float watermark, float safe, int t_susp,
-    int t_surv, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+    int t_surv, const int* grids, const int* blocks, const int* carve,
+    int scratch_words, void* stream) {
+  if (n <= 0 || p < 0) return (int)cudaErrorInvalidValue;
+  if (scratch_words < survival_scan_scratch_words(p, n)) return (int)cudaErrorInvalidValue;
+  const int lens[8] = {n, n, n + 1, n, n, n, p, p};
+  for (int k = 0; k < 8; ++k) {
+    if (carve[k] < 0 || carve[k] > scratch_words - lens[k]) return (int)cudaErrorInvalidValue;
+  }
+  const int want[9] = {kThreads, kThreads, kScanThreads, kThreads, kThreads,
+                       kThreads, kThreads, kThreads, kThreads};
+  for (int k = 0; k < 9; ++k) {
+    if (grids[k] < 0 || (grids[k] > 0 && blocks[k] != want[k]))
+      return (int)cudaErrorInvalidConfiguration;
+  }
   cudaStream_t s = (cudaStream_t)stream;
   Inputs in{(const int32_t*)st, (const int32_t*)node, (const float*)mem,
             (const float*)ev, (const int32_t*)tier, (const uint8_t*)mig,
             (const int32_t*)stick, (const int32_t*)sdl, (const float*)base,
             (const int32_t*)t};
   int32_t* w = (int32_t*)scratch;
-  Scratch sc{w, w + n, w + 2 * n, w + 3 * n + 1, w + 4 * n + 1, w + 5 * n + 1,
-             w + 6 * n + 1, (float*)(w + 6 * n + 1 + p)};
+  Scratch sc{w + carve[0], w + carve[1], w + carve[2], w + carve[3],
+             w + carve[4], w + carve[5], w + carve[6], (float*)(w + carve[7])};
   Params pr{p, n, airlock, t_susp, t_surv, residual, watermark, safe};
   float* press = (float*)pressure;
-  const int nb = (n + kThreads - 1) / kThreads;
-  const int pb = (p + kThreads - 1) / kThreads;
 
-  init_kernel<<<nb, kThreads, 0, s>>>(sc, n);
-  if (p > 0) count_kernel<<<pb, kThreads, 0, s>>>(in, sc, pr);
-  scan_kernel<<<1, kScanThreads, 0, s>>>(sc, n);
-  if (p > 0) place_kernel<<<pb, kThreads, 0, s>>>(in, sc, pr);
-  fold_kernel<<<nb, kThreads, 0, s>>>(in, sc, press, n);
-  if (p == 0) return (int)cudaGetLastError();
-  if (airlock) tier_kernel<<<pb, kThreads, 0, s>>>(in, sc, press, pr);
-  score_kernel<<<pb, kThreads, 0, s>>>(in, sc, press, pr);
-  slot_kernel<<<pb, kThreads, 0, s>>>(in, sc, press, pr);
-  mask_kernel<<<pb, kThreads, 0, s>>>(in, sc, press, pr, (uint8_t*)victim,
-                                      (uint8_t*)resume, (uint8_t*)react,
-                                      (uint8_t*)expire);
+  if (grids[0]) init_kernel<<<grids[0], blocks[0], 0, s>>>(sc, n);
+  if (grids[1]) count_kernel<<<grids[1], blocks[1], 0, s>>>(in, sc, pr);
+  if (grids[2]) scan_kernel<<<grids[2], blocks[2], 0, s>>>(sc, n);
+  if (grids[3]) place_kernel<<<grids[3], blocks[3], 0, s>>>(in, sc, pr);
+  if (grids[4]) fold_kernel<<<grids[4], blocks[4], 0, s>>>(in, sc, press, n);
+  if (grids[5]) tier_kernel<<<grids[5], blocks[5], 0, s>>>(in, sc, press, pr);
+  if (grids[6]) score_kernel<<<grids[6], blocks[6], 0, s>>>(in, sc, press, pr);
+  if (grids[7]) slot_kernel<<<grids[7], blocks[7], 0, s>>>(in, sc, press, pr);
+  if (grids[8])
+    mask_kernel<<<grids[8], blocks[8], 0, s>>>(in, sc, press, pr, (uint8_t*)victim,
+                                               (uint8_t*)resume, (uint8_t*)react,
+                                               (uint8_t*)expire);
   return (int)cudaGetLastError();
+}
+
+// Compiled attributes of kernel k in the slot order above: out[0] static
+// shared bytes, out[1] registers a thread, out[2] maxThreadsPerBlock.
+extern "C" int survival_scan_attrs(int k, int* out) {
+  const void* fns[9] = {(const void*)init_kernel, (const void*)count_kernel,
+                        (const void*)scan_kernel, (const void*)place_kernel,
+                        (const void*)fold_kernel, (const void*)tier_kernel,
+                        (const void*)score_kernel, (const void*)slot_kernel,
+                        (const void*)mask_kernel};
+  if (k < 0 || k >= 9) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, fns[k]);
+  out[0] = (int)a.sharedSizeBytes;
+  out[1] = a.numRegs;
+  out[2] = a.maxThreadsPerBlock;
+  return (int)e;
 }

@@ -57,16 +57,30 @@ __global__ void utility_topk_kernel(const float* __restrict__ s,
 }  // namespace
 
 // s, h, eps (p, k) float32, feas (p, k) bool -> best (p,) int32, val (p,)
-// float32. Launches on `stream` and returns cudaGetLastError().
+// float32. Grid and block come from the caller's launch plan
+// (kernels/utility_topk/plan.py); a block other than kThreads is refused.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int utility_topk_launch(const void* s, const void* h,
                                    const void* eps, const void* feas,
                                    float gamma, void* best, void* val, int p,
-                                   int k, void* stream) {
+                                   int k, int grid, int block, void* stream) {
   if (p <= 0) return 0;
   if (k < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (p + kThreads - 1) / kThreads;
-  utility_topk_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  if (block != kThreads || grid < 1) return (int)cudaErrorInvalidConfiguration;
+  utility_topk_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)s, (const float*)h, (const float*)eps,
       (const uint8_t*)feas, gamma, (int32_t*)best, (float*)val, p, k);
   return (int)cudaGetLastError();
+}
+
+// Compiled attributes of kernel k (0: utility_topk_kernel): out[0] static
+// shared bytes, out[1] registers a thread, out[2] maxThreadsPerBlock.
+extern "C" int utility_topk_attrs(int k, int* out) {
+  if (k != 0) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, utility_topk_kernel);
+  out[0] = (int)a.sharedSizeBytes;
+  out[1] = a.numRegs;
+  out[2] = a.maxThreadsPerBlock;
+  return (int)e;
 }

@@ -24,8 +24,9 @@ __global__ void zone_aggregate_kernel(const float* __restrict__ s,
                                       const float* __restrict__ h,
                                       const float* __restrict__ mask,
                                       float* __restrict__ zs,
-                                      float* __restrict__ zh, int m) {
+                                      float* __restrict__ zh, int z, int m) {
   __shared__ float acc_s[kThreads], acc_h[kThreads], acc_m[kThreads];
+  if (blockIdx.x >= z) return;  // a block past the last zone row (whole block)
   const size_t row = (size_t)blockIdx.x * m;
   float a = 0.0f, b = 0.0f, c = 0.0f;
   for (int j = threadIdx.x; j < m; j += kThreads) {
@@ -54,14 +55,30 @@ __global__ void zone_aggregate_kernel(const float* __restrict__ s,
 
 }  // namespace
 
-// s, h, mask (z, m) float32 -> zs, zh (z,) float32. Launches on `stream` and
-// returns cudaGetLastError().
+// s, h, mask (z, m) float32 -> zs, zh (z,) float32. Grid (one block per
+// zone row) and block come from the caller's launch plan
+// (kernels/zone_aggregate/plan.py); a block other than kThreads is refused.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int zone_aggregate_launch(const void* s, const void* h,
                                      const void* mask, void* zs, void* zh,
-                                     int z, int m, void* stream) {
+                                     int z, int m, int grid, int block,
+                                     void* stream) {
   if (z <= 0) return 0;
-  zone_aggregate_kernel<<<z, kThreads, 0, (cudaStream_t)stream>>>(
+  if (block != kThreads || grid < 1) return (int)cudaErrorInvalidConfiguration;
+  zone_aggregate_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)s, (const float*)h, (const float*)mask, (float*)zs,
-      (float*)zh, m);
+      (float*)zh, z, m);
   return (int)cudaGetLastError();
+}
+
+// Compiled attributes of kernel k (0: zone_aggregate_kernel): out[0] static
+// shared bytes, out[1] registers a thread, out[2] maxThreadsPerBlock.
+extern "C" int zone_aggregate_attrs(int k, int* out) {
+  if (k != 0) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, zone_aggregate_kernel);
+  out[0] = (int)a.sharedSizeBytes;
+  out[1] = a.numRegs;
+  out[2] = a.maxThreadsPerBlock;
+  return (int)e;
 }

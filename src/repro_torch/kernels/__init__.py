@@ -1,21 +1,33 @@
 """Hand-written Hopper kernels for the four control-plane hot spots.
 
 Each package ships ``ref.py`` (the plain PyTorch version, a port of the JAX
-package's ``ref.py``) and ``ops.py`` (the wrapper: a CUDA tensor launches the
-kernel built from ``csrc/<name>.cu``, a CPU tensor takes the plain version).
-Every wrapper counts its kernel launches in ``<wrapper>.launches``.
+package's ``ref.py``), ``plan.py`` (the launch plan: grid, block, shared
+memory and outputs for given shapes) and ``ops.py`` (the wrapper: a CUDA
+tensor launches the kernel built from ``csrc/<name>.cu`` under its plan, a
+CPU tensor takes the plain version). Every wrapper counts its kernel
+launches in ``<wrapper>.launches``.
 
   * ``bitmap_fit``    — per-node demand feasibility against bitmap words
     (and ``bitmap_fit_blocked``, the same kernel over zone-blocked rows)
   * ``utility_topk``  — fused DA utility scoring + candidate argmax
   * ``zone_aggregate``— per-zone mean slack / total heat
   * ``survival_scan`` — fused Airlock survival decision
+  * ``block_copy``    — a float32 block copy under any plan: the port of the
+    static analyzer's known-bad fixture kernels, on no main path
+
+``WRAPPERS``, ``PLANS`` and ``LAUNCHERS`` map each hot-path entry to its
+wrapper, its plan for the wrapper's arguments, and the launch function the
+wrapper calls (``launch(plan, outs, *args, **kw)``).
 """
 
 from repro_torch.kernels.bitmap_fit import ops as bitmap_fit
+from repro_torch.kernels.bitmap_fit import plan as _bitmap_plan
 from repro_torch.kernels.survival_scan import ops as survival_scan
+from repro_torch.kernels.survival_scan import plan as _surv_plan
 from repro_torch.kernels.utility_topk import ops as utility_topk
+from repro_torch.kernels.utility_topk import plan as _topk_plan
 from repro_torch.kernels.zone_aggregate import ops as zone_aggregate
+from repro_torch.kernels.zone_aggregate import plan as _agg_plan
 
 WRAPPERS = {
     "bitmap_fit": bitmap_fit.bitmap_fit,
@@ -24,5 +36,20 @@ WRAPPERS = {
     "zone_aggregate": zone_aggregate.zone_aggregate,
     "survival_scan": survival_scan.survival_scan,
 }
+PLANS = {
+    "bitmap_fit": _bitmap_plan.for_call,
+    "bitmap_fit_blocked": _bitmap_plan.for_blocked_call,
+    "utility_topk": _topk_plan.for_call,
+    "zone_aggregate": _agg_plan.for_call,
+    "survival_scan": _surv_plan.for_call,
+}
+LAUNCHERS = {
+    "bitmap_fit": bitmap_fit.launch,
+    "bitmap_fit_blocked": bitmap_fit.launch,
+    "utility_topk": utility_topk.launch,
+    "zone_aggregate": zone_aggregate.launch,
+    "survival_scan": survival_scan.launch,
+}
 
-__all__ = ["WRAPPERS", "bitmap_fit", "survival_scan", "utility_topk", "zone_aggregate"]
+__all__ = ["LAUNCHERS", "PLANS", "WRAPPERS", "bitmap_fit", "survival_scan", "utility_topk",
+           "zone_aggregate"]

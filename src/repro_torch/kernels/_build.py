@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NAMES = ("bitmap_fit", "utility_topk", "zone_aggregate", "survival_scan")
+NAMES = ("bitmap_fit", "utility_topk", "zone_aggregate", "survival_scan", "block_copy")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_typed: Dict[str, set] = {}  # functions of each library whose argtypes are set
 
 
 def nvcc() -> str:
@@ -96,11 +97,25 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(lib_path(name)))
+        _loaded[name] = lib
+        _typed[name] = set()
+    if not signatures.keys() <= _typed[name]:  # a caller with functions not yet typed
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
+        _typed[name] |= signatures.keys()
     return lib
+
+
+def attrs(name: str, k: int) -> Dict[str, int]:
+    """``cudaFuncGetAttributes`` of the ``k``-th ``__global__`` of
+    ``csrc/<name>.cu``, through its ``<name>_attrs`` export (the order is the
+    ``KERNELS`` tuple of the kernel's ``plan.py``)."""
+    fn = f"{name}_attrs"
+    lib = load(name, {fn: [ctypes.c_int, ctypes.c_void_p]})
+    out = (ctypes.c_int * 3)()
+    check(getattr(lib, fn)(k, out), fn)
+    return {"static_smem": out[0], "registers": out[1], "max_threads": out[2]}
 
 
 def check(err: int, name: str) -> None:

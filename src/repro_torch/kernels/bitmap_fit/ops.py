@@ -4,6 +4,7 @@ Two entry points launch the one kernel of ``csrc/bitmap_fit.cu``: the flat
 ``bitmap_fit`` over ``(N, W)`` node rows and the zone-blocked
 ``bitmap_fit_blocked`` over the ``(Z * M, W)`` rows of a ``(Z, M, W)`` block.
 Each counts its own launches, so a run can tell which entry it went through.
+Grid and block come from the entry's launch plan (``plan.py``).
 """
 
 from __future__ import annotations
@@ -13,26 +14,38 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.bitmap_fit import plan as _plan
 from repro_torch.kernels.bitmap_fit.ref import bitmap_fit_blocked_ref, bitmap_fit_ref
+from repro_torch.kernels.launch_plan import LaunchPlan
+
+__all__ = ["bitmap_fit", "bitmap_fit_blocked"]
 
 _P = ctypes.c_void_p
-_SIG = {"bitmap_fit_launch": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]}
+_I = ctypes.c_int
+_SIG = {
+    "bitmap_fit_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
 
 
-def _launch(words: torch.Tensor, mass: torch.Tensor, contig: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel over the rows of (R, W) ``words``; counts nothing."""
-    R, W = words.shape
-    _build.expect(words, torch.int32, (R, W), "bitmap_fit words")
-    _build.expect(mass, torch.int32, (R,), "bitmap_fit mass")
-    _build.expect(contig, torch.bool, (R,), "bitmap_fit contig")
-    out = torch.empty(R, dtype=torch.int32, device=words.device)
+def launch(plan: LaunchPlan, outs, words, mass, contig) -> None:
+    """Launch ``plan`` over the rows of ``words`` into ``outs`` (the plan's
+    outputs, allocated by the caller); counts nothing."""
+    shape = plan.outputs[0].shape  # (N,) flat, (Z, M) blocked
+    R, W = plan.outputs[0].numel(), words.shape[-1]
+    (out,) = outs
+    _build.expect(words, torch.int32, (*shape, W), "bitmap_fit words")
+    _build.expect(mass, torch.int32, shape, "bitmap_fit mass")
+    _build.expect(contig, torch.bool, shape, "bitmap_fit contig")
+    _build.expect(out, torch.int32, shape, "bitmap_fit out")
+    if not plan.launches:
+        return
+    (L,) = plan.launches
     lib = _build.load("bitmap_fit", _SIG)
     err = lib.bitmap_fit_launch(
         _build.ptr(words), _build.ptr(mass), _build.ptr(contig), _build.ptr(out),
-        R, W, _build.stream(words),
+        R, W, L.grid, L.block, _build.stream(words),
     )
     _build.check(err, "bitmap_fit")
-    return out
 
 
 def bitmap_fit(
@@ -45,9 +58,11 @@ def bitmap_fit(
     """
     if not words.is_cuda:
         return bitmap_fit_ref(words, mass, contig)
-    out = _launch(words, mass, contig)
+    plan = _plan.for_call(words, mass, contig)
+    outs = plan.new_outputs(words.device)
+    launch(plan, outs, words, mass, contig)
     bitmap_fit.launches += 1
-    return out
+    return outs[0]
 
 
 def bitmap_fit_blocked(
@@ -62,11 +77,11 @@ def bitmap_fit_blocked(
     """
     if not words.is_cuda:
         return bitmap_fit_blocked_ref(words, mass, contig)
-    Z, M, W = words.shape
-    _build.expect(words, torch.int32, (Z, M, W), "bitmap_fit_blocked words")
-    out = _launch(words.reshape(Z * M, W), mass.reshape(-1), contig.reshape(-1))
+    plan = _plan.for_blocked_call(words, mass, contig)
+    outs = plan.new_outputs(words.device)
+    launch(plan, outs, words, mass, contig)
     bitmap_fit_blocked.launches += 1
-    return out.reshape(Z, M)
+    return outs[0]
 
 
 bitmap_fit.launches = 0

@@ -7,15 +7,61 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.launch_plan import LaunchPlan
+from repro_torch.kernels.survival_scan import plan as _plan
 from repro_torch.kernels.survival_scan.ref import survival_scan_ref
+
+__all__ = ["survival_scan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIG = {
-    "survival_scan_launch": [_P] * 16 + [_I, _I, _I, _F, _F, _F, _I, _I, _P],
-    "survival_scan_scratch_words": [_I, _I],
+    "survival_scan_launch": [_P] * 16 + [_I, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P, _I, _P],
 }
+
+
+def launch(
+    plan: LaunchPlan, outs, st, alloc_node, mem, ev, tier, migrating, susp_tick,
+    surv_deadline, base, t, *, airlock: bool, residual: float, watermark: float,
+    safe: float, t_susp: int, t_surv: int, scratch=None,
+) -> None:
+    """Launch ``plan`` into ``outs`` (pressure, victim, resume, react,
+    expire), allocated by the caller; ``scratch`` (the plan's
+    ``scratch_words`` int32) is allocated here unless given. Counts nothing."""
+    P, N = st.shape[0], base.shape[0]
+    for x, dtype, what in (
+        (st, torch.int32, "st"),
+        (alloc_node, torch.int32, "alloc_node"),
+        (mem, torch.float32, "mem"),
+        (ev, torch.float32, "ev"),
+        (tier, torch.int32, "tier"),
+        (migrating, torch.bool, "migrating"),
+        (susp_tick, torch.int32, "susp_tick"),
+        (surv_deadline, torch.int32, "surv_deadline"),
+    ):
+        _build.expect(x, dtype, (P,), f"survival_scan {what}")
+    _build.expect(base, torch.float32, (N,), "survival_scan base")
+    _build.expect(t, torch.int32, (), "survival_scan t")
+    for x, o in zip(outs, plan.outputs):
+        _build.expect(x, o.dtype, o.shape, f"survival_scan {o.name}")
+    if scratch is None:
+        scratch = torch.empty(plan.scratch_words, dtype=torch.int32, device=st.device)
+    _build.expect(scratch, torch.int32, (plan.scratch_words,), "survival_scan scratch")
+    if plan is _plan.plan(P, N, bool(airlock)):
+        grids, blocks, carve = _plan.slot_args(P, N, bool(airlock))
+    else:  # a plan built elsewhere: launch exactly that one
+        grids, blocks, carve = _plan.pack(plan)
+    lib = _build.load("survival_scan", _SIG)
+    ptr = _build.ptr
+    err = lib.survival_scan_launch(
+        *(ptr(x) for x in (st, alloc_node, mem, ev, tier, migrating, susp_tick,
+                           surv_deadline, base, t, *outs, scratch)),
+        P, N, int(airlock), float(residual), float(watermark), float(safe),
+        int(t_susp), int(t_surv), grids, blocks, carve, plan.scratch_words,
+        _build.stream(st),
+    )
+    _build.check(err, "survival_scan")
 
 
 def survival_scan(
@@ -49,42 +95,14 @@ def survival_scan(
         airlock=airlock, residual=residual, watermark=watermark, safe=safe,
         t_susp=t_susp, t_surv=t_surv,
     )
+    args = (st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t)
     if not st.is_cuda:
-        return survival_scan_ref(
-            st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline,
-            base, t, **kw,
-        )
-    P, N = st.shape[0], base.shape[0]
-    for x, dtype, what in (
-        (st, torch.int32, "st"),
-        (alloc_node, torch.int32, "alloc_node"),
-        (mem, torch.float32, "mem"),
-        (ev, torch.float32, "ev"),
-        (tier, torch.int32, "tier"),
-        (migrating, torch.bool, "migrating"),
-        (susp_tick, torch.int32, "susp_tick"),
-        (surv_deadline, torch.int32, "surv_deadline"),
-    ):
-        _build.expect(x, dtype, (P,), f"survival_scan {what}")
-    _build.expect(base, torch.float32, (N,), "survival_scan base")
-    _build.expect(t, torch.int32, (), "survival_scan t")
-    dev = st.device
-    lib = _build.load("survival_scan", _SIG)
-    pressure = torch.empty(N, dtype=torch.float32, device=dev)
-    masks = [torch.empty(P, dtype=torch.bool, device=dev) for _ in range(4)]
-    scratch = torch.empty(
-        lib.survival_scan_scratch_words(P, N), dtype=torch.int32, device=dev
-    )
-    ptr = _build.ptr
-    err = lib.survival_scan_launch(
-        *(ptr(x) for x in (st, alloc_node, mem, ev, tier, migrating, susp_tick,
-                           surv_deadline, base, t, pressure, *masks, scratch)),
-        P, N, int(airlock), float(residual), float(watermark), float(safe),
-        int(t_susp), int(t_surv), _build.stream(st),
-    )
-    _build.check(err, "survival_scan")
+        return survival_scan_ref(*args, **kw)
+    plan = _plan.for_call(*args, **kw)
+    outs = plan.new_outputs(st.device)
+    launch(plan, outs, *args, **kw)
     survival_scan.launches += 1
-    return (pressure, *masks)
+    return tuple(outs)
 
 
 survival_scan.launches = 0

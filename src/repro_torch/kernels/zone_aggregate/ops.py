@@ -7,10 +7,36 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.launch_plan import LaunchPlan
+from repro_torch.kernels.zone_aggregate import plan as _plan
 from repro_torch.kernels.zone_aggregate.ref import zone_aggregate_ref
 
+__all__ = ["zone_aggregate"]
+
 _P = ctypes.c_void_p
-_SIG = {"zone_aggregate_launch": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]}
+_I = ctypes.c_int
+_SIG = {
+    "zone_aggregate_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+def launch(plan: LaunchPlan, outs, s_gather, h_gather, mask) -> None:
+    """Launch ``plan`` into ``outs`` (zs, zh), allocated by the caller."""
+    Z, M = s_gather.shape
+    for x, what in ((s_gather, "s_gather"), (h_gather, "h_gather"), (mask, "mask")):
+        _build.expect(x, torch.float32, (Z, M), f"zone_aggregate {what}")
+    zs, zh = outs
+    _build.expect(zs, torch.float32, (Z,), "zone_aggregate zs")
+    _build.expect(zh, torch.float32, (Z,), "zone_aggregate zh")
+    if not plan.launches:
+        return
+    (L,) = plan.launches
+    lib = _build.load("zone_aggregate", _SIG)
+    err = lib.zone_aggregate_launch(
+        _build.ptr(s_gather), _build.ptr(h_gather), _build.ptr(mask),
+        _build.ptr(zs), _build.ptr(zh), Z, M, L.grid, L.block, _build.stream(s_gather),
+    )
+    _build.check(err, "zone_aggregate")
 
 
 def zone_aggregate(
@@ -22,17 +48,9 @@ def zone_aggregate(
     """
     if not s_gather.is_cuda:
         return zone_aggregate_ref(s_gather, h_gather, mask)
-    Z, M = s_gather.shape
-    for x, what in ((s_gather, "s_gather"), (h_gather, "h_gather"), (mask, "mask")):
-        _build.expect(x, torch.float32, (Z, M), f"zone_aggregate {what}")
-    zs = torch.empty(Z, dtype=torch.float32, device=s_gather.device)
-    zh = torch.empty(Z, dtype=torch.float32, device=s_gather.device)
-    lib = _build.load("zone_aggregate", _SIG)
-    err = lib.zone_aggregate_launch(
-        _build.ptr(s_gather), _build.ptr(h_gather), _build.ptr(mask),
-        _build.ptr(zs), _build.ptr(zh), Z, M, _build.stream(s_gather),
-    )
-    _build.check(err, "zone_aggregate")
+    plan = _plan.for_call(s_gather, h_gather, mask)
+    zs, zh = plan.new_outputs(s_gather.device)
+    launch(plan, (zs, zh), s_gather, h_gather, mask)
     zone_aggregate.launches += 1
     return zs, zh
 

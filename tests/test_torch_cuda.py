@@ -187,3 +187,92 @@ def test_engine_cuda_matches_cpu(dev, airlock):
     for f in outs[0]["timeseries"]:
         np.testing.assert_array_equal(outs[1]["timeseries"][f], outs[0]["timeseries"][f], err_msg=f)
     assert outs[0]["started"] > 0
+
+
+# ---------------------------------------------------------------------------
+# launch plans on the card: block_copy and the compiled attributes
+# ---------------------------------------------------------------------------
+
+BAND = 256
+
+
+def _in_band(n, dev, fill):
+    buf = torch.full((n + 2 * BAND,), fill, dtype=torch.float32, device=dev)
+    return buf[BAND:BAND + n], buf
+
+
+@pytest.mark.parametrize("grid,offset", [(8, 0), (7, 0)])
+def test_block_copy_matches_plan_interpreter(dev, grid, offset):
+    """block_copy under the good plan and the tail-dropping plan equals the
+    plan interpreter; the unwritten tail stays NaN on both sides."""
+    from repro_torch.kernels.block_copy import block_copy, block_copy_ref
+    from repro_torch.kernels.block_copy.plan import plan
+
+    p = plan(1024, 128, grid, offset)
+    x = torch.from_numpy(np.random.default_rng(grid).normal(size=1024).astype(np.float32))
+    n0 = block_copy.launches
+    got = block_copy(x.to(dev), p).cpu()
+    assert block_copy.launches == n0 + 1
+    want = block_copy_ref(x, p)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_block_copy_overshoot_reads_past_the_end(dev):
+    """Under the overshoot plan the kernel's last block reads the guard band
+    after x, where the interpreter clamps to x's last block."""
+    from repro_torch.kernels.block_copy import block_copy_ref
+    from repro_torch.kernels.block_copy import ops as copy_ops
+    from repro_torch.kernels.block_copy.plan import plan
+
+    p = plan(1024, 128, 8, 1)
+    x, _ = _in_band(1024, dev, -7.5)
+    x.copy_(torch.arange(1024, dtype=torch.float32, device=dev))
+    out, obuf = _in_band(1024, dev, float("nan"))
+    copy_ops.launch(p, (out,), x)
+    torch.cuda.synchronize()
+    got, want = out.cpu(), block_copy_ref(x.cpu(), p)
+    torch.testing.assert_close(got[:896], want[:896], rtol=0, atol=0)
+    assert bool((got[896:] == -7.5).all())
+    torch.testing.assert_close(want[896:], x.cpu()[896:], rtol=0, atol=0)
+    assert bool(torch.isnan(obuf[:BAND]).all() and torch.isnan(obuf[-BAND:]).all())
+
+
+def test_compiled_attributes_match_plans(dev):
+    """Each kernel's static shared memory equals its plan's declaration, and
+    every plan at the reference shapes fits the per-block budget."""
+    from repro_torch.analysis.kernel_contract import GEOMETRIES, PER_BLOCK, kernel_suite
+    from repro_torch.kernels import PLANS, _build
+    from repro_torch.kernels.bitmap_fit import plan as bp
+    from repro_torch.kernels.block_copy import plan as cp
+    from repro_torch.kernels.survival_scan import plan as sp
+    from repro_torch.kernels.utility_topk import plan as tp
+    from repro_torch.kernels.zone_aggregate import plan as ap
+
+    attrs = {}
+    for mod in (bp, tp, ap, sp, cp):
+        for k, kernel in enumerate(mod.KERNELS):
+            attrs[kernel] = _build.attrs(mod.__name__.split(".")[-2], k)
+    plans = [PLANS[name](*args, **kw) for geom in GEOMETRIES.values()
+             for name, args, kw, _ in kernel_suite(geom)] + [cp.good_plan(1024, 128)]
+    for p in plans:
+        for L in p.launches:
+            a = attrs[L.kernel]
+            assert a["static_smem"] == L.static_smem, (L.kernel, a)
+            assert a["static_smem"] + L.dynamic_smem <= PER_BLOCK["smem"]
+            assert L.block <= a["max_threads"]
+
+
+def test_launcher_refuses_a_block_it_was_not_built_for(dev):
+    """The grid and block come from the plan; a block other than the
+    compiled one is refused (cudaErrorInvalidConfiguration)."""
+    import dataclasses as dc
+
+    from repro_torch.kernels.bitmap_fit import ops as bops
+
+    words = torch.zeros((300, 2), dtype=torch.int32, device=dev)
+    mass = torch.zeros(300, dtype=torch.int32, device=dev)
+    contig = torch.zeros(300, dtype=torch.bool, device=dev)
+    good = bops._plan.for_call(words, mass, contig)
+    bad = dc.replace(good, launches=(dc.replace(good.launches[0], block=128),))
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        bops.launch(bad, bad.new_outputs(dev), words, mass, contig)
