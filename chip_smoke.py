@@ -18,11 +18,18 @@ and no result line:
      kernels at 5000 nodes / 65 536 slots, the zone-blocked
      ``bitmap_fit_blocked`` at its 20 x 301 block) and Exp7's top cell of
      phase 5 (65 536 nodes / 131 072 slots, blocked at 253 x 307); time
-     kernel and plain version on the card at each;
+     kernel and plain version on the card at each; ``survival_scan`` also at
+     its corners (``repro_torch.kernel_bench.edge_cases``: signed-zero score
+     ties, +-inf scores, one node with a fifth of the slots, an empty table,
+     every slot on one node, Exp7's shape), Airlock on and off, bit-equal;
   2b. every launch under its checked plan: each kernel's compiled attributes
      (``<name>_attrs``: static shared memory, registers, maxThreadsPerBlock)
      against every plan of phase 2's shapes (static shared memory as
-     declared, within the H100's per-block budget); each entry launched
+     declared, within the H100's per-block budget and register file);
+     ``survival_scan``'s one cluster a call: the source's dynamic shared
+     memory and scratch words equal the plan's, and the card takes the
+     cluster (``cudaOccupancyMaxActiveClusters`` >= 1, the non-portable
+     attribute set past 8 CTAs); each entry launched
      through the wrapper's own launch function and plan into outputs that
      sit in sentinel-filled buffers with guard bands, at the ragged, Exp5
      and Exp7 shapes: no sentinel left inside (LC301 on the card), bands
@@ -274,6 +281,21 @@ def phase2(dev, geometries):
         checked["ragged"][name] = (case, check_kernel(name, WRAPPERS[name], refs[name], case, dev)[1])
     print("phase 2: ragged shapes (N=37, P=1029, Z=3, M=13; blocked Z=3, M=13 with "
           "zeroed padding slots) equal to the plain versions")
+    # survival_scan's corners: signed-zero ties, +-inf scores, skewed and
+    # empty tables, Exp7's shape; Airlock on and off, bit-equal
+    from repro_torch.kernel_bench import edge_cases
+
+    for cname, args in edge_cases().items():
+        for airlock in (True, False):
+            kw = dict(airlock=airlock, residual=0.3, watermark=0.9 if airlock else 1.0, safe=0.8,
+                      t_susp=80, t_surv=240)
+            case = (args, kw, 0, 0)
+            want = check_kernel("survival_scan", WRAPPERS["survival_scan"], survival_scan_ref,
+                                case, dev)[1]
+            checked[f"{cname}, airlock {'on' if airlock else 'off'}"] = {
+                "survival_scan": (case, want)}
+    print(f"phase 2: survival_scan edge cases ({', '.join(edge_cases())}), Airlock on and off: "
+          "bit-equal to the plain version")
     rows = {}
     for seed, (label, (geometry, zones)) in enumerate(geometries.items(), start=2):
         cases = kernel_cases(**geometry, seed=seed)
@@ -367,6 +389,7 @@ def phase2b(dev, checked):
     from repro_torch.kernels.block_copy import block_copy, block_copy_ref
     from repro_torch.kernels.block_copy import ops as copy_ops
     from repro_torch.kernels.block_copy import plan as copy_plan
+    from repro_torch.kernels.survival_scan import ops as surv_ops
     from repro_torch.kernels.survival_scan import plan as surv_plan
     from repro_torch.kernels.utility_topk import plan as topk_plan
     from repro_torch.kernels.zone_aggregate import plan as agg_plan
@@ -398,15 +421,33 @@ def phase2b(dev, checked):
                   f"{L.kernel}: shared memory over the H100's per-block budget")
             check(L.block <= a["max_threads"],
                   f"{L.kernel}: block {L.block} > maxThreadsPerBlock {a['max_threads']}")
+            check(a["registers"] * L.block <= 65536,
+                  f"{L.kernel}: {a['registers']} registers x {L.block} threads > 65536")
+    # survival_scan: one cluster a call, laid out as the source lays it out
+    lib = _build.load("survival_scan", {"survival_scan_scratch_words": [ctypes.c_int] * 2,
+                                        "survival_scan_smem_bytes": [ctypes.c_int] * 2})
+    clusters = set()
     for per in checked.values():
         case = per["survival_scan"][0]
         P, N = case[0][0].shape[0], case[0][8].shape[0]
-        lib = _build.load("survival_scan", {"survival_scan_scratch_words": [ctypes.c_int] * 2})
-        check(lib.survival_scan_scratch_words(P, N) == surv_plan.scratch_words(P, N),
+        plan = PLANS["survival_scan"](*case[0], **case[1])
+        (L,) = plan.launches
+        check(L.grid == L.cluster and L.cluster_nonportable == (L.cluster > 8),
+              f"survival_scan at P={P}, N={N}: grid {L.grid}, cluster {L.cluster}")
+        check(lib.survival_scan_scratch_words(P, N) == plan.scratch_words,
               f"survival_scan scratch words at P={P}, N={N}: plan and source disagree")
+        check(lib.survival_scan_smem_bytes(N, L.cluster) == L.dynamic_smem,
+              f"survival_scan shared memory at N={N}: plan and source disagree")
+        occ = surv_ops.cluster_occupancy(plan)
+        check(occ["clusters"] >= 1 and occ["max_dynamic_smem"] >= L.dynamic_smem
+              and occ["nonportable"] == int(L.cluster_nonportable),
+              f"survival_scan at N={N}: the card does not take the cluster launch: {occ}")
+        clusters.add((L.cluster, L.dynamic_smem, occ["clusters"]))
     print(f"phase 2b: {len(plans)} plans, {n_launch} launches: static shared memory as "
           f"declared, within {PER_BLOCK['static_smem']} B static / {PER_BLOCK['smem']} B "
-          f"total and maxThreadsPerBlock; survival_scan scratch words equal the source's")
+          f"total, maxThreadsPerBlock and the register file; survival_scan one cluster a "
+          f"call, shared memory and scratch words equal the source's; (cluster, dynamic "
+          f"shared memory, clusters resident at once): {sorted(clusters)}")
 
     # -- guard bands around every entry's outputs -----------------------------
     for label, per in checked.items():

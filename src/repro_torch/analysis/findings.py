@@ -178,11 +178,12 @@ _RULE_LIST = [
     Rule(
         id="LC303",
         plane="kernel",
-        summary="per-block budget exceeded (static smem > 48 KiB, static + dynamic > 227 KiB, threads > 1024)",
+        summary="per-block budget or cluster limit exceeded (static smem > 48 KiB, static + dynamic > 227 KiB, threads > 1024; cluster > 8 CTAs without the non-portable attribute, > 16, or a grid of partial clusters)",
         rationale=(
             "An H100 block has at most 227 KiB of shared memory (over 48 "
-            "KiB only as opted-in dynamic memory) and 1024 threads; a "
-            "launch over either is refused and never runs."
+            "KiB only as opted-in dynamic memory) and 1024 threads, and a "
+            "cluster at most 8 CTAs (16 with the non-portable attribute); "
+            "a launch over any of them is refused and never runs."
         ),
     ),
     Rule(

@@ -14,7 +14,10 @@ cell), and checks, per launch and operand:
     ``survival_scan``, inside ``survival_scan_scratch_words``) without
     overlapping another;
   * LC303 — the H100's per-block budget: static shared memory <= 48 KiB,
-    static + dynamic <= 227 KiB (the opt-in maximum), threads <= 1024;
+    static + dynamic <= 227 KiB (the opt-in maximum) for every CTA of a
+    cluster, threads <= 1024; and its cluster limits: at most 8 CTAs (the
+    portable size), 16 with the non-portable attribute, and a grid of whole
+    clusters;
   * LC304 — the plan's outputs have the shapes and dtypes of the ``_ref``
     twin's outputs on the CPU.
 
@@ -47,11 +50,15 @@ __all__ = [
 ]
 
 # One H100 block (CUDA's limits for compute capability 9.0): 48 KiB of
-# static shared memory, 227 KiB with opted-in dynamic memory, 1024 threads.
+# static shared memory, 227 KiB with opted-in dynamic memory, 1024 threads;
+# a thread-block cluster of at most 8 CTAs, 16 after
+# cudaFuncAttributeNonPortableClusterSizeAllowed.
 PER_BLOCK: Dict[str, int] = {
     "static_smem": 48 * 1024,
     "smem": 227 * 1024,
     "threads": 1024,
+    "cluster_portable": 8,
+    "cluster_max": 16,
 }
 
 # The JAX analyzer's geometries (repro/analysis/kernel_contract.py:62-63),
@@ -132,6 +139,19 @@ def _check_scratch(plan: LaunchPlan, ctx: str, file: str) -> List[Finding]:
     return out
 
 
+def _cluster_faults(L: Launch) -> List[str]:
+    portable, most = PER_BLOCK["cluster_portable"], PER_BLOCK["cluster_max"]
+    if not 1 <= L.cluster <= most:
+        return [f"cluster of {L.cluster} CTAs outside 1..{most}"]
+    out = []
+    if L.cluster > portable and not L.cluster_nonportable:
+        out.append(f"cluster of {L.cluster} CTAs > the portable {portable} without the "
+                   "non-portable cluster attribute")
+    if L.grid % L.cluster:
+        out.append(f"grid {L.grid} is not a whole number of clusters of {L.cluster}")
+    return out
+
+
 def check_plan(
     plan: LaunchPlan, budget_bytes: Optional[int] = None, context: str = ""
 ) -> List[Finding]:
@@ -159,6 +179,7 @@ def check_plan(
                         f"{L.dynamic_smem}) > the {budget} B budget")
         if not 1 <= L.block <= PER_BLOCK["threads"]:
             over.append(f"block of {L.block} threads outside 1..{PER_BLOCK['threads']}")
+        over.extend(_cluster_faults(L))
         for what in over:
             findings.append(Finding(rule="LC303", message=f"{ctx}: {what}", file=file))
     findings.extend(_check_scratch(plan, context, file))

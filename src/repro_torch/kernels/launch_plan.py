@@ -9,7 +9,8 @@ it and hands grid and block to the C launcher, which computes no geometry of
 its own and refuses a block size other than the one it was compiled for.
 
 The same plan is what ``repro_torch.analysis.kernel_contract`` checks on the
-CPU (coverage, bounds, the per-block budget, output shapes) and what
+CPU (coverage, bounds, the per-block budget and cluster limits, output
+shapes) and what
 ``chip_smoke.py`` holds against ``cudaFuncGetAttributes`` and guard bands on
 the card.
 
@@ -50,7 +51,10 @@ class Operand:
 
 @dataclasses.dataclass(frozen=True)
 class Launch:
-    """One kernel launch: ``kernel<<<grid, block, dynamic_smem>>>``."""
+    """One kernel launch: ``kernel<<<grid, block, dynamic_smem>>>``, in
+    clusters of ``cluster`` CTAs (``cudaLaunchAttributeClusterDimension``;
+    1: no cluster). A cluster past the portable 8 CTAs needs
+    ``cluster_nonportable`` (``cudaFuncAttributeNonPortableClusterSizeAllowed``)."""
 
     kernel: str  # the ``__global__`` function's name in the source
     grid: int
@@ -59,6 +63,8 @@ class Launch:
     guarded: bool = True  # threads past an operand's extent return before touching it
     dynamic_smem: int = 0
     static_smem: int = 0  # declared; chip_smoke.py holds it against the compiled kernel
+    cluster: int = 1
+    cluster_nonportable: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

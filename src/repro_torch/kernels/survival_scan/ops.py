@@ -17,7 +17,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIG = {
-    "survival_scan_launch": [_P] * 16 + [_I, _I, _I, _F, _F, _F, _I, _I, _P, _P, _P, _I, _P],
+    "survival_scan_launch": [_P] * 16 + [_I, _I, _I, _F, _F, _F] + [_I] * 9 + [_P],
 }
 
 
@@ -26,9 +26,10 @@ def launch(
     surv_deadline, base, t, *, airlock: bool, residual: float, watermark: float,
     safe: float, t_susp: int, t_surv: int, scratch=None,
 ) -> None:
-    """Launch ``plan`` into ``outs`` (pressure, victim, resume, react,
-    expire), allocated by the caller; ``scratch`` (the plan's
-    ``scratch_words`` int32) is allocated here unless given. Counts nothing."""
+    """Launch ``plan`` (one cluster) into ``outs`` (pressure, victim,
+    resume, react, expire), allocated by the caller; ``scratch`` (the plan's
+    ``scratch_words`` int32: the fold's entries and a word a node) is
+    allocated here unless given. Counts nothing."""
     P, N = st.shape[0], base.shape[0]
     for x, dtype, what in (
         (st, torch.int32, "st"),
@@ -49,19 +50,31 @@ def launch(
         scratch = torch.empty(plan.scratch_words, dtype=torch.int32, device=st.device)
     _build.expect(scratch, torch.int32, (plan.scratch_words,), "survival_scan scratch")
     if plan is _plan.plan(P, N, bool(airlock)):
-        grids, blocks, carve = _plan.slot_args(P, N, bool(airlock))
+        geometry = _plan.launch_args(P, N, bool(airlock))
     else:  # a plan built elsewhere: launch exactly that one
-        grids, blocks, carve = _plan.pack(plan)
+        geometry = _plan.pack(plan)
     lib = _build.load("survival_scan", _SIG)
     ptr = _build.ptr
     err = lib.survival_scan_launch(
         *(ptr(x) for x in (st, alloc_node, mem, ev, tier, migrating, susp_tick,
                            surv_deadline, base, t, *outs, scratch)),
         P, N, int(airlock), float(residual), float(watermark), float(safe),
-        int(t_susp), int(t_surv), grids, blocks, carve, plan.scratch_words,
-        _build.stream(st),
+        int(t_susp), int(t_surv), *geometry, plan.scratch_words, _build.stream(st),
     )
     _build.check(err, "survival_scan")
+
+
+def cluster_occupancy(plan: LaunchPlan) -> dict:
+    """How the card takes ``plan``'s cluster launch, with the launcher's
+    attributes set: ``clusters`` that can be resident at once
+    (``cudaOccupancyMaxActiveClusters``; 0: it cannot launch), the kernel's
+    ``max_dynamic_smem`` and ``nonportable`` attribute. Needs the card."""
+    (L,) = plan.launches
+    fn = "survival_scan_cluster_occupancy"
+    lib = _build.load("survival_scan", {fn: [_I, _I, _I, _P]})
+    out = (ctypes.c_int * 3)()
+    _build.check(getattr(lib, fn)(L.cluster, L.dynamic_smem, int(L.cluster_nonportable), out), fn)
+    return {"clusters": out[0], "max_dynamic_smem": out[1], "nonportable": out[2]}
 
 
 def survival_scan(

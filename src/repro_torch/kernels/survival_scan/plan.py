@@ -1,76 +1,96 @@
-"""Launch plan of ``csrc/survival_scan.cu``: up to nine dependent launches.
+"""Launch plan of ``csrc/survival_scan.cu``: one launch of one cluster.
 
-Slot order (the launcher's): init, count, scan, place, fold over nodes and
-slots, then tier (Airlock only), score, slot and mask over the probe table.
-The slot-wide launches are left out for an empty table, as the node
-accumulators still need their fold. The int32 scratch is carved into eight
-slices (``Carve``) whose offsets the launcher takes from here; it refuses a
-layout that leaves the scratch the wrapper allocated.
+The whole survival decision is one cluster of ``CLUSTER`` CTAs of
+``THREADS`` threads (grid == cluster). Sixteen is the H100's non-portable
+maximum, so the plan sets the non-portable attribute: the widest cluster
+streams the columns through the most SMs, keeps a thread's slots within
+``MAX_STEPS`` register-held steps up to P = 131 072, and halves each CTA's
+node range against eight. ``chip_smoke.py`` phase 2b asks the card
+(``cudaOccupancyMaxActiveClusters``) that the cluster can be resident.
+
+CTA ``c`` holds slots ``[c * S, (c + 1) * S)``, ``S = 1024 * steps`` and
+nodes ``[c * nb, (c + 1) * nb)``, ``nb = ceil(N / CLUSTER)``; its dynamic
+shared memory (:func:`smem_bytes`, the source's ``layout``) holds 12 B a
+node and the count tables. The global scratch has two carve-outs: ``ent``,
+the 16-byte (node, value, victim key) entries of the slot-ordered fold
+(four int32 words a slot), and ``info``, one mask word a node (its victim's
+slot and whether its pressure is under ``safe``). Shapes the cluster cannot
+hold are refused with the limit in the message: P past 2^17 (the victim
+key's slot field), N past :func:`max_nodes` (227 KiB of shared memory a
+CTA).
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
-from typing import Tuple
 
 import torch
 
 from repro_torch.kernels.launch_plan import Carve, Launch, LaunchPlan, Operand, Output, cdiv
 
-# the launcher's slot order, and the order of survival_scan_attrs
-KERNELS = (
-    "init_kernel", "count_kernel", "scan_kernel", "place_kernel", "fold_kernel",
-    "tier_kernel", "score_kernel", "slot_kernel", "mask_kernel",
-)
-THREADS = 256  # kThreads of csrc/survival_scan.cu
-SCAN_THREADS = 1024  # kScanThreads
-SCAN_STATIC_SMEM = SCAN_THREADS * 4  # part[kScanThreads] int32
+KERNELS = ("survival_cluster_kernel",)  # the order of survival_scan_attrs
+THREADS = 1024  # kThreads of csrc/survival_scan.cu
+WARPS = THREADS // 32
+CLUSTER = 16  # CTAs of the one cluster
+PORTABLE_CLUSTER = 8  # the largest cluster every Hopper part schedules
+MAX_STEPS = 8  # kMaxSteps: slots a thread holds
+SLOT_BITS = 17  # kSlotBits of the victim key (tier 15 | score 32 | slot 17)
+MAX_SLOTS = min(1 << SLOT_BITS, CLUSTER * THREADS * MAX_STEPS)
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may opt in to
 COLUMNS = ("st", "alloc_node", "mem", "ev", "tier", "migrating", "susp_tick", "surv_deadline")
+
+
+def smem_bytes(N: int) -> int:
+    """Dynamic shared memory of one CTA: ``survival_scan_smem_bytes``."""
+    nb, bins = cdiv(N, CLUSTER), CLUSTER * WARPS
+    return (12 * nb + 4 * WARPS * bins + 4 * CLUSTER * bins + 4 * bins + 8 * WARPS
+            + 12 * THREADS + 4 * WARPS)
+
+
+def max_nodes() -> int:
+    """The largest N whose node range fits a CTA's shared memory."""
+    return (SMEM_LIMIT - smem_bytes(0)) // 12 * CLUSTER
+
+
+def steps(P: int) -> int:
+    """Slots a thread holds: one step of 32 slots a warp at a time."""
+    return cdiv(P, CLUSTER * THREADS)
 
 
 def scratch_words(P: int, N: int) -> int:
     """Words of int32 scratch: ``survival_scan_scratch_words`` of the source."""
-    return 6 * N + 1 + 2 * P
+    return 4 * P + N
 
 
-def scratch_layout(P: int, N: int) -> Tuple[Carve, ...]:
-    sizes = (("cnt", N), ("cur", N), ("off", N + 1), ("btier", N), ("bscore", N),
-             ("bslot", N), ("eslot", P), ("eval", P))
-    out, at = [], 0
-    for name, words in sizes:
-        out.append(Carve(name, at, words))
-        at += words
-    return tuple(out)
+def scratch_layout(P: int, N: int):
+    return (Carve("ent", 0, 4 * P), Carve("info", 4 * P, N))
 
 
 @functools.lru_cache(maxsize=None)
 def plan(P: int, N: int, airlock: bool) -> LaunchPlan:
-    nb, pb = cdiv(N, THREADS), cdiv(P, THREADS)
-    cols = tuple(Operand(c, P, THREADS) for c in COLUMNS)
-    node_acc = tuple(Operand(c, N, THREADS, write=True)
-                     for c in ("cnt", "cur", "btier", "bscore", "bslot"))
-    masks = tuple(Operand(m, P, THREADS, write=True)
-                  for m in ("victim", "resume", "react", "expire"))
-    launches = [
-        Launch("init_kernel", nb, THREADS, node_acc),
-        Launch("count_kernel", pb, THREADS, cols),
-        Launch("scan_kernel", 1, SCAN_THREADS,
-               (Operand("cnt", N, N), Operand("off", N + 1, N + 1, write=True)),
-               static_smem=SCAN_STATIC_SMEM),
-        Launch("place_kernel", pb, THREADS, cols),
-        Launch("fold_kernel", nb, THREADS,
-               (Operand("base", N, THREADS), Operand("pressure", N, THREADS, write=True))),
-        Launch("tier_kernel", pb, THREADS, cols),
-        Launch("score_kernel", pb, THREADS, cols),
-        Launch("slot_kernel", pb, THREADS, cols),
-        Launch("mask_kernel", pb, THREADS, cols + masks),
-    ]
-    launches = [L for L in launches if L.grid > 0 and (airlock or L.kernel != "tier_kernel")]
+    """The one launch at (P, N). Airlock changes what the kernel computes,
+    not its geometry."""
+    if N < 1:
+        raise ValueError(f"survival_scan: N = {N}: the cluster needs at least one node")
+    if P > MAX_SLOTS:
+        raise ValueError(
+            f"survival_scan: P = {P} slots > {MAX_SLOTS}, the most one cluster takes "
+            f"(victim key slot field {SLOT_BITS} bits; {CLUSTER} x {THREADS} threads x "
+            f"{MAX_STEPS} slots)")
+    smem = smem_bytes(N)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"survival_scan: N = {N} nodes need {smem} B of shared memory a CTA > "
+            f"{SMEM_LIMIT} B; the largest N a cluster of {CLUSTER} holds is {max_nodes()}")
+    S, nb = steps(P) * THREADS, cdiv(N, CLUSTER)
+    ops = tuple(Operand(c, P, S) for c in COLUMNS)
+    ops += (Operand("base", N, nb), Operand("pressure", N, nb, write=True))
+    ops += tuple(Operand(m, P, S, write=True) for m in ("victim", "resume", "react", "expire"))
     return LaunchPlan(
         entry="survival_scan",
         source="survival_scan",
-        launches=tuple(launches),
+        launches=(Launch("survival_cluster_kernel", CLUSTER, THREADS, ops, dynamic_smem=smem,
+                         cluster=CLUSTER, cluster_nonportable=CLUSTER > PORTABLE_CLUSTER),),
         outputs=(Output("pressure", (N,), torch.float32),
                  *(Output(m, (P,), torch.bool) for m in ("victim", "resume", "react", "expire"))),
         scratch_words=scratch_words(P, N),
@@ -79,17 +99,15 @@ def plan(P: int, N: int, airlock: bool) -> LaunchPlan:
 
 
 def pack(p: LaunchPlan):
-    """``p`` as the launcher takes it: grids and blocks per slot (grid 0: not
-    launched) and the scratch offsets, as ctypes int arrays."""
-    by_name = {L.kernel: L for L in p.launches}
-    arr = ctypes.c_int * len(KERNELS)
-    grids = arr(*(by_name[k].grid if k in by_name else 0 for k in KERNELS))
-    blocks = arr(*(by_name[k].block if k in by_name else 0 for k in KERNELS))
-    return grids, blocks, (ctypes.c_int * len(p.scratch))(*(c.offset for c in p.scratch))
+    """``p`` as the launcher takes it: (grid, block, cluster, non-portable,
+    dynamic shared memory, steps)."""
+    (L,) = p.launches
+    return (L.grid, L.block, L.cluster, int(L.cluster_nonportable), L.dynamic_smem,
+            L.operands[0].rows_per_block // L.block)
 
 
 @functools.lru_cache(maxsize=None)
-def slot_args(P: int, N: int, airlock: bool):
+def launch_args(P: int, N: int, airlock: bool):
     """:func:`pack` of :func:`plan`, cached by shape (a plan hashes slowly)."""
     return pack(plan(P, N, airlock))
 

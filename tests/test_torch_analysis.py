@@ -58,6 +58,7 @@ DYNAMIC_FIXTURES = {
     "bad_mode_parity.py": {"LC204", "LC304"},
     "bad_signature_cachekey.py": {"LC201"},
     "bad_launch_tail.py": {"LC301", "LC302", "LC303"},
+    "bad_cluster.py": {"LC303"},
 }
 ALL_FIXTURES = sorted(set(STATIC_FIXTURES) | set(DYNAMIC_FIXTURES))
 
@@ -206,12 +207,14 @@ def test_trace_records_every_hot_path_entry():
 # ---------------------------------------------------------------------------
 
 
-def _plan(grid=4, block=256, first=0, guarded=True, static=0, dynamic=0, scratch=None):
+def _plan(grid=4, block=256, first=0, guarded=True, static=0, dynamic=0, scratch=None,
+          cluster=1, nonportable=False):
     ops = (Operand("x", 1000, 256, first=first), Operand("y", 1000, 256, write=True))
     carve = scratch or ()
     return LaunchPlan(
         entry="toy", source="toy",
-        launches=(Launch("toy_kernel", grid, block, ops, guarded, dynamic, static),),
+        launches=(Launch("toy_kernel", grid, block, ops, guarded, dynamic, static, cluster,
+                         nonportable),),
         outputs=(Output("y", (1000,), torch.float32),),
         scratch_words=10 if carve else 0, scratch=carve,
     )
@@ -228,6 +231,12 @@ def _plan(grid=4, block=256, first=0, guarded=True, static=0, dynamic=0, scratch
     (dict(grid=0), ["LC301"]),
     (dict(scratch=(Carve("a", 0, 6), Carve("b", 5, 5))), ["LC302"]),  # overlap
     (dict(scratch=(Carve("a", 0, 6), Carve("b", 6, 5))), ["LC302"]),  # past the end
+    (dict(grid=8, cluster=8), []),  # the portable cluster
+    (dict(grid=16, cluster=16), ["LC303"]),  # past 8 without the non-portable attribute
+    (dict(grid=16, cluster=16, nonportable=True), []),
+    (dict(grid=32, cluster=32, nonportable=True), ["LC303"]),  # past 16
+    (dict(grid=6, cluster=4), ["LC303"]),  # a partial cluster
+    (dict(grid=16, cluster=16, dynamic=228 * 1024), ["LC303", "LC303"]),  # each CTA's budget too
 ])
 def test_check_plan_rules(kw, rules):
     assert sorted(f.rule for f in kernel_contract.check_plan(_plan(**kw))) == rules
@@ -251,16 +260,34 @@ def test_main_path_geometries_match_init_numpy():
 
 
 def test_survival_scan_plan_scratch_and_slots():
+    """One launch of one cluster at every shape; its shared memory, scratch
+    and the slots a thread holds; an empty table; shapes past the limits."""
     from repro_torch.kernels.survival_scan import plan as sp
 
     p = sp.plan(1029, 37, True)
-    assert [L.kernel for L in p.launches] == list(sp.KERNELS)
-    assert p.scratch[-1].offset + p.scratch[-1].words == p.scratch_words == sp.scratch_words(1029, 37)
-    grids, blocks, carve = sp.slot_args(1029, 37, False)
-    assert list(grids)[5] == 0 and list(blocks)[2] == sp.SCAN_THREADS  # no tier launch
-    assert list(carve) == [c.offset for c in p.scratch]
-    empty = sp.plan(0, 37, True)  # an empty table still folds the node accumulators
-    assert [L.kernel for L in empty.launches] == ["init_kernel", "scan_kernel", "fold_kernel"]
+    (L,) = p.launches
+    assert [L.kernel] == list(sp.KERNELS)
+    assert (L.grid, L.block, L.cluster, L.cluster_nonportable) == (16, 1024, 16, True)
+    assert L.static_smem == 0 and L.dynamic_smem == sp.smem_bytes(37)
+    assert p.scratch_words == sp.scratch_words(1029, 37) == 4 * 1029 + 37
+    assert [(c.name, c.offset, c.words) for c in p.scratch] == [
+        ("ent", 0, 4 * 1029), ("info", 4 * 1029, 37)]
+    assert sp.launch_args(1029, 37, False) == (16, 1024, 16, 1, sp.smem_bytes(37), 1)
+    assert sp.pack(p) == sp.launch_args(1029, 37, True)
+    for g in kernel_contract.GEOMETRIES.values():
+        (L,) = sp.plan(g["P"], g["N"], True).launches
+        assert L.dynamic_smem <= kernel_contract.PER_BLOCK["smem"]
+        assert L.operands[0].rows_per_block * L.grid >= g["P"]
+    assert sp.launch_args(131072, 65536, True)[-1] == sp.MAX_STEPS  # Exp7: 8 slots a thread
+    empty = sp.plan(0, 37, True)  # an empty table: one launch still writes pressure = base
+    assert len(empty.launches) == 1 and empty.scratch_words == 37  # the mask words
+    assert sp.launch_args(0, 37, True)[-1] == 0
+    assert not kernel_contract.check_plan(empty)
+    with pytest.raises(ValueError, match="131072"):
+        sp.plan(sp.MAX_SLOTS + 1, 37, True)
+    with pytest.raises(ValueError, match=str(sp.max_nodes())):
+        sp.plan(1029, sp.max_nodes() + 1, True)
+    assert sp.smem_bytes(sp.max_nodes()) <= sp.SMEM_LIMIT < sp.smem_bytes(sp.max_nodes() + 16)
 
 
 def test_plans_are_cached_by_shape():

@@ -146,17 +146,50 @@ def _survival_args(seed, P, N):
     )
 
 
+EDGE_CASES = ("zero_ties", "inf_scores", "fifth_on_one", "all_empty", "all_on_one", "exp7")
+
+
 @pytest.mark.parametrize("airlock", [False, True])
-@pytest.mark.parametrize("P,N", [(1, 1), (777, 33), (2000, 7), (65536, 5000)])
-def test_survival_scan_matches_plain(dev, airlock, P, N):
+@pytest.mark.parametrize("case", ["1x1", "777x33", "2000x7", "65536x5000", *EDGE_CASES])
+def test_survival_scan_matches_plain(dev, airlock, case):
+    """One cluster launch a call, bit-equal to the plain version, at random
+    tables and at the design's corners (``repro_torch.kernel_bench.
+    edge_cases``): scores tied at -0.0 / +0.0, +-inf scores, one node with a
+    fifth of the slots, an empty table, every slot on one node, and Exp7's
+    shape (131 072 slots on 65 536 nodes)."""
+    from repro_torch.kernel_bench import edge_cases
+
+    if case in EDGE_CASES:
+        args = edge_cases()[case]
+    else:
+        P, N = map(int, case.split("x"))
+        args = _survival_args(P + N, P, N)
     kw = dict(
         airlock=airlock, residual=0.3, watermark=0.9 if airlock else 1.0,
         safe=0.8, t_susp=80, t_surv=240,
     )
-    want, got = _both(survival_scan.survival_scan, _survival_args(P + N, P, N), kw, dev)
+    n0 = survival_scan.survival_scan.launches
+    want, got = _both(survival_scan.survival_scan, args, kw, dev)
+    assert survival_scan.survival_scan.launches == n0 + 1
     for name, w, g in zip(("pressure", "victim", "resume", "react", "expire"), want, got):
         # pressure is summed in slot order on both sides: bit-equal
         torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+
+
+def test_survival_scan_is_one_device_kernel(dev):
+    """A call is one launch of one cluster (torch.profiler sees one kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [a.to(dev) for a in _survival_args(3, 65536, 5000)]
+    kw = dict(airlock=True, residual=0.3, watermark=0.9, safe=0.8, t_susp=80, t_surv=240)
+    survival_scan.survival_scan(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        survival_scan.survival_scan(*args, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [n for n in names if "survival" in n]
+    assert len(kernels) == 1, names
 
 
 def test_wrapper_raises_on_wrong_dtype(dev):
@@ -260,6 +293,26 @@ def test_compiled_attributes_match_plans(dev):
             assert a["static_smem"] == L.static_smem, (L.kernel, a)
             assert a["static_smem"] + L.dynamic_smem <= PER_BLOCK["smem"]
             assert L.block <= a["max_threads"]
+
+
+def test_survival_scan_cluster_fits_the_card(dev):
+    """At every shape of kernel_contract.GEOMETRIES the one cluster can be
+    resident, with the plan's dynamic shared memory and, past 8 CTAs, the
+    non-portable attribute; its registers fit 1024 threads a block."""
+    from repro_torch.analysis.kernel_contract import GEOMETRIES
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.survival_scan import ops as sops
+    from repro_torch.kernels.survival_scan import plan as sp
+
+    regs = _build.attrs("survival_scan", 0)["registers"]
+    assert regs * sp.THREADS <= 65536, regs
+    for g in GEOMETRIES.values():
+        p = sp.plan(g["P"], g["N"], True)
+        (L,) = p.launches
+        occ = sops.cluster_occupancy(p)
+        assert occ["clusters"] >= 1, (g, occ)
+        assert occ["max_dynamic_smem"] >= L.dynamic_smem, (g, occ)
+        assert occ["nonportable"] == int(L.cluster > 8), occ
 
 
 def test_launcher_refuses_a_block_it_was_not_built_for(dev):
