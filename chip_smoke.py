@@ -17,37 +17,50 @@ and no result line:
      every main path gives it: the Exp5 geometry of phases 3 and 6 (flat
      kernels at 5000 nodes / 65 536 slots, the zone-blocked
      ``bitmap_fit_blocked`` at its 20 x 301 block) and Exp7's top cell of
-     phase 5 (65 536 nodes / 131 072 slots, blocked at 253 x 307); time
-     kernel and plain version on the card at each; ``survival_scan`` also at
-     its corners (``repro_torch.kernel_bench.edge_cases``: signed-zero score
-     ties, +-inf scores, one node with a fifth of the slots, an empty table,
-     every slot on one node, Exp7's shape), Airlock on and off, bit-equal;
+     phase 5 (65 536 nodes / 131 072 slots, blocked at 253 x 307), there
+     ``bitmap_fit_rounds`` on the inputs the flat engine's own tick gives it
+     (Exp5's tick 200, Exp7's tick 99; what they hold is printed); time
+     kernel and plain version on the card at each, and ``bitmap_fit_rounds``
+     against the one-round ``bitmap_fit`` launches it replaces;
+     ``survival_scan`` also at its corners
+     (``repro_torch.kernel_bench.edge_cases``: signed-zero score ties, +-inf
+     scores, one node with a fifth of the slots, an empty table, every slot
+     on one node, Exp7's shape), Airlock on and off, bit-equal;
+     ``bitmap_fit_rounds`` at its own (``rounds_edge_cases``: E_v ties,
+     +-inf, signed-zero and NaN E_v, throttled nodes, fewer queued probes
+     than rounds, demands of 0 and past the atoms, 48 atoms and 3 or 8 words
+     a node, both policies, every probe queued at Exp7's shape), bit-equal,
+     the NaN case also to the plain version on the card;
   2b. every launch under its checked plan: each kernel's compiled attributes
      (``<name>_attrs``: static shared memory, registers, maxThreadsPerBlock)
      against every plan of phase 2's shapes (static shared memory as
      declared, within the H100's per-block budget and register file);
-     ``survival_scan``'s one cluster a call: the source's dynamic shared
-     memory and scratch words equal the plan's, and the card takes the
-     cluster (``cudaOccupancyMaxActiveClusters`` >= 1, the non-portable
-     attribute set past 8 CTAs); each entry launched
+     ``survival_scan``'s and ``bitmap_fit_rounds``' one cluster a call: the
+     source's dynamic shared memory and scratch words equal the plan's, and
+     the card takes the cluster (``cudaOccupancyMaxActiveClusters`` >= 1,
+     the non-portable attribute set past 8 CTAs); each entry launched
      through the wrapper's own launch function and plan into outputs that
      sit in sentinel-filled buffers with guard bands, at the ragged, Exp5
      and Exp7 shapes: no sentinel left inside (LC301 on the card), bands
      untouched (LC302), equal to the plain version; ``block_copy`` (the
      port of the analyzer's fixture kernels) under the good plan and the
-     three bad plans of ``tests/fixtures/torch_analysis/bad_launch_tail.py``,
+     three bad plans of ``tests/fixtures/torch_analysis/bad_launch_tail.py``:
+     one device kernel a call (one kernel node of a captured CUDA graph,
+     ``kernel_bench.graph_nodes``), its NaN tail its own,
      against the plan interpreter, timed beside ``Tensor.clone``;
   3. run the flat engine on the card at the Exp5 geometry (5000 nodes,
      65 536 probe slots, memory dynamics on), Airlock off then on, 800
-     ticks each; check the launch counts, the task-conservation identity and
-     the host syncs;
+     ticks each; check the launch counts (one ``bitmap_fit_rounds`` a tick,
+     no one-round ``bitmap_fit``), the task-conservation identity and the
+     host syncs;
   4. run 64-node configs on the CPU (plain versions) and on the card
      (kernels) with the same draws and compare every integer metric and the
      per-tick timeseries: Exp5 Airlock off and on, the six scenario presets
      with Airlock on, and storm through the zone-sharded engine;
   5. Exp7's top cell (65 536 nodes, 131 072 slots, 100 ticks): the flat
      engine and the zone-sharded engine with the same draws; ticks/s, the
-     traffic model, equal outputs, blocked launches = 3 x ticks;
+     traffic model, equal outputs, blocked launches = 3 x ticks on the
+     sharded run;
   6. the storm scenario at Exp6's full geometry (5000 nodes, 65 536 slots,
      memory on) through the zone-sharded engine, Airlock off then on: node
      failures, kills only without Airlock, task conservation;
@@ -85,11 +98,11 @@ FP32_OPS_PER_S = 67e12  # H100 SXM outside the tensor cores
 TICKS = 800
 PARITY_TICKS = 400
 SCENARIO_TICKS = 200  # phase 4's scenario presets
-EXP7_NODES = 65536  # bench_exp7_scale.py --full, top cell
 EXP7_TICKS = 100  # bench_exp7_scale.py NUM_TICKS
 STORM_TICKS = 2400
 REPLACES = {
     "bitmap_fit": "src/repro/kernels/bitmap_fit/kernel.py:117",
+    "bitmap_fit_rounds": "src/repro/kernels/bitmap_fit/kernel.py:117",  # redesigned
     "bitmap_fit_blocked": "src/repro/kernels/bitmap_fit/ops.py:40",
     "utility_topk": "src/repro/kernels/utility_topk/kernel.py:67",
     "zone_aggregate": "src/repro/kernels/zone_aggregate/kernel.py:47",
@@ -97,6 +110,7 @@ REPLACES = {
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["bitmap_fit_blocked"] = "src/repro_torch/csrc/bitmap_fit.cu"  # same kernel
+SOURCES["bitmap_fit_rounds"] = "src/repro_torch/csrc/bitmap_fit.cu"  # same source
 
 
 class SmokeFailure(Exception):
@@ -159,6 +173,26 @@ def kernel_cases(N, P, K, Z, M, W, seed):
     )
     return {"bitmap_fit": bitmap, "utility_topk": topk, "zone_aggregate": agg,
             "survival_scan": surv}
+
+
+def rounds_work(args, kw, want):
+    """(bytes, operations) ``bitmap_fit_rounds`` must move and do on these
+    inputs, from the plain version's outputs: st of every slot; node, ev and
+    the node's throttled flag of each queued slot; mass and contig of each
+    winner; the words of each node with a winner; every output once. About
+    ten integer operations a slot or cascade step, a few hundred a winner."""
+    from repro_torch.core.state import QUEUED
+
+    st = args[0]
+    N, W = args[5].shape
+    R = kw["rounds"]
+    winner = want[0]
+    queued = int((st == QUEUED).sum())
+    wins = int((winner >= 0).sum())
+    live = int((winner >= 0).any(0).sum()) if R else 0
+    out_bytes = R * N * (4 + 1 + 4 * W) + st.shape[0] * 5
+    nbytes = 4 * st.shape[0] + 9 * queued + 5 * wins + 4 * W * live + out_bytes
+    return nbytes, 10 * (st.shape[0] + queued * R) + 400 * wins
 
 
 def blocked_case(member, mask, W, seed):
@@ -260,22 +294,32 @@ def check_kernel(name, wrapper, ref, case, dev):
 def phase2(dev, geometries):
     """Each kernel entry against its plain version at a ragged shape, then at
     every main-path geometry (``geometries``: label -> (kernel_cases kwargs,
-    (zone members, zone mask))). The table's row of a kernel is timed at the
-    first geometry, the one of the most launches (phases 3 and 6)."""
+    (zone members, zone mask), (config, tick))); ``bitmap_fit_rounds`` there
+    on the inputs the flat engine's tick ``tick`` of a run of that config
+    gives it. The table's row of a kernel is timed at the first geometry,
+    the one of the most launches (phases 3 and 6)."""
     from repro_torch.core.state import densify_zones
     from repro_torch.kernels import WRAPPERS
-    from repro_torch.kernels.bitmap_fit import bitmap_fit_blocked_ref, bitmap_fit_ref
+    from repro_torch.kernels.bitmap_fit import (
+        bitmap_fit_blocked_ref,
+        bitmap_fit_ref,
+        bitmap_fit_rounds_ref,
+    )
     from repro_torch.kernels.survival_scan import survival_scan_ref
     from repro_torch.kernels.utility_topk import utility_topk_ref
     from repro_torch.kernels.zone_aggregate import zone_aggregate_ref
 
     refs = {"bitmap_fit": bitmap_fit_ref, "bitmap_fit_blocked": bitmap_fit_blocked_ref,
-            "utility_topk": utility_topk_ref, "zone_aggregate": zone_aggregate_ref,
-            "survival_scan": survival_scan_ref}
+            "bitmap_fit_rounds": bitmap_fit_rounds_ref, "utility_topk": utility_topk_ref,
+            "zone_aggregate": zone_aggregate_ref, "survival_scan": survival_scan_ref}
     # ragged small shape first: tails that are no multiple of a block
     ragged = kernel_cases(N=37, P=1029, K=8, Z=3, M=13, W=2, seed=1)
     member, mask = densify_zones(np.array([0, 13, 20], np.int32), np.array([13, 7, 10], np.int32))
     ragged["bitmap_fit_blocked"] = blocked_case(member, mask, W=2, seed=1)
+    from repro_torch.kernel_bench import rounds_inputs
+
+    # bytes and operations of bitmap_fit_rounds follow from the data: None
+    ragged["bitmap_fit_rounds"] = (*rounds_inputs(37, 1029, 2, seed=1), None, None)
     checked = {"ragged": {}}
     for name, case in ragged.items():
         checked["ragged"][name] = (case, check_kernel(name, WRAPPERS[name], refs[name], case, dev)[1])
@@ -296,22 +340,48 @@ def phase2(dev, geometries):
                 "survival_scan": (case, want)}
     print(f"phase 2: survival_scan edge cases ({', '.join(edge_cases())}), Airlock on and off: "
           "bit-equal to the plain version")
+    # bitmap_fit_rounds' corners: E_v ties, +-inf / signed-zero / NaN E_v,
+    # throttled nodes, fewer queued probes than rounds, demands of 0 and past
+    # the atoms, 48 atoms and 3 or 8 words a node, both policies, every probe
+    # queued at Exp7's shape; bit-equal. The plain version on the card gives
+    # the NaN case's answer too (its scatter-max propagates NaN, as the CPU's)
+    from repro_torch.kernel_bench import rounds_edge_cases
+
+    for cname, (args, kw) in rounds_edge_cases().items():
+        case = (args, kw, 0, 0)
+        want = check_kernel("bitmap_fit_rounds", WRAPPERS["bitmap_fit_rounds"],
+                            bitmap_fit_rounds_ref, case, dev)[1]
+        if cname == "nan":
+            on_card = [w.cpu() for w in bitmap_fit_rounds_ref(*to_dev(args, dev), **kw)]
+            compare("bitmap_fit_rounds (the plain version on the card)", on_card, want)
+        checked[f"rounds {cname}"] = {"bitmap_fit_rounds": (case, want)}
+    print(f"phase 2: bitmap_fit_rounds edge cases ({', '.join(rounds_edge_cases())}): bit-equal "
+          "to the plain version (NaN: on the CPU and on the card)")
     rows = {}
-    for seed, (label, (geometry, zones)) in enumerate(geometries.items(), start=2):
+    from repro_torch.profile_tick import print_traffic, rounds_traffic, tick_rounds
+
+    for seed, (label, (geometry, zones, (cfg, tick))) in enumerate(geometries.items(), start=2):
         cases = kernel_cases(**geometry, seed=seed)
         cases["bitmap_fit_blocked"] = blocked_case(*zones, W=geometry["W"], seed=seed)
+        calls = tick_rounds(cfg, tick, 1, device=dev)
+        print_traffic(f"{label}, tick {tick}", rounds_traffic(calls))
+        args, kw, _ = calls[0]
+        cases["bitmap_fit_rounds"] = (tuple(a.cpu() for a in args), kw, None, None)
         print(f"phase 2 [{label}]: {geometry}, blocked (Z, M) = {tuple(zones[0].shape)}")
         checked[label] = {}
+        times = {}
+        cfg_rounds = cases["bitmap_fit_rounds"][1]["rounds"]
         for name, case in cases.items():
             err, want = check_kernel(name, WRAPPERS[name], refs[name], case, dev)
             checked[label][name] = (case, want)
             args = to_dev(case[0], dev)
             kw = case[1]
+            nbytes, nops = rounds_work(case[0], kw, want) if case[2] is None else case[2:4]
             ms = device_ms(lambda: WRAPPERS[name](*args, **kw))
             plain_ms = device_ms(lambda: refs[name](*args, **kw))
             eager_ms = call_ms(lambda: WRAPPERS[name](*args, **kw))
-            bytes_ms = case[2] / HBM_BYTES_PER_S * 1e3
-            ops_ms = case[3] / FP32_OPS_PER_S * 1e3
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = nops / FP32_OPS_PER_S * 1e3
             row = dict(
                 name=name, route="cuda", source=SOURCES[name],
                 replaces=REPLACES[name], launches=0, max_abs_err=err, ms=ms,
@@ -323,6 +393,10 @@ def phase2(dev, geometries):
                   f"device time: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
                   f"{row['bound_ms']:.7f} ms ({row['bound_by']}); "
                   f"eager call with launch {eager_ms:.6f} ms")
+            times[name] = ms
+        print(f"phase 2 [{label}]: bitmap_fit_rounds {times['bitmap_fit_rounds']:.6f} ms a tick "
+              f"against {cfg_rounds} one-round bitmap_fit launches, "
+              f"{cfg_rounds * times['bitmap_fit']:.6f} ms")
     return rows, checked
 
 
@@ -385,6 +459,7 @@ def phase2b(dev, checked):
     Returns the table rows of the three fixture kernels."""
     from repro_torch.analysis.kernel_contract import PER_BLOCK, audit_launch_plan
     from repro_torch.kernels import LAUNCHERS, PLANS, _build
+    from repro_torch.kernels.bitmap_fit import ops as bitmap_ops
     from repro_torch.kernels.bitmap_fit import plan as bitmap_plan
     from repro_torch.kernels.block_copy import block_copy, block_copy_ref
     from repro_torch.kernels.block_copy import ops as copy_ops
@@ -428,6 +503,8 @@ def phase2b(dev, checked):
                                         "survival_scan_smem_bytes": [ctypes.c_int] * 2})
     clusters = set()
     for per in checked.values():
+        if "survival_scan" not in per:
+            continue
         case = per["survival_scan"][0]
         P, N = case[0][0].shape[0], case[0][8].shape[0]
         plan = PLANS["survival_scan"](*case[0], **case[1])
@@ -443,11 +520,33 @@ def phase2b(dev, checked):
               and occ["nonportable"] == int(L.cluster_nonportable),
               f"survival_scan at N={N}: the card does not take the cluster launch: {occ}")
         clusters.add((L.cluster, L.dynamic_smem, occ["clusters"]))
+    # bitmap_fit_rounds: one cluster a call, its scratch as the source's, and
+    # the card takes the cluster of the instantiation for the node's words
+    lib = _build.load("bitmap_fit", {"bitmap_fit_rounds_scratch_words": [ctypes.c_int] * 2})
+    round_clusters = set()
+    for per in checked.values():
+        if "bitmap_fit_rounds" not in per:
+            continue
+        args, kw = per["bitmap_fit_rounds"][0][:2]
+        plan = PLANS["bitmap_fit_rounds"](*args, **kw)
+        (L,) = plan.launches
+        N, W = args[5].shape
+        check(L.grid == L.cluster and L.cluster_nonportable == (L.cluster > 8)
+              and L.kernel == f"bitmap_fit_rounds_kernel<{(W + 1) // 2}>",
+              f"bitmap_fit_rounds at N={N}, W={W}: {L.kernel}, grid {L.grid}, cluster {L.cluster}")
+        check(lib.bitmap_fit_rounds_scratch_words(N, kw["rounds"]) == plan.scratch_words,
+              f"bitmap_fit_rounds scratch words at N={N}: plan and source disagree")
+        occ = bitmap_ops.rounds_cluster_occupancy(plan)
+        check(occ["clusters"] >= 1 and occ["nonportable"] == int(L.cluster_nonportable),
+              f"bitmap_fit_rounds at W={W}: the card does not take the cluster launch: {occ}")
+        round_clusters.add((L.kernel, L.cluster, occ["clusters"]))
     print(f"phase 2b: {len(plans)} plans, {n_launch} launches: static shared memory as "
           f"declared, within {PER_BLOCK['static_smem']} B static / {PER_BLOCK['smem']} B "
-          f"total, maxThreadsPerBlock and the register file; survival_scan one cluster a "
-          f"call, shared memory and scratch words equal the source's; (cluster, dynamic "
-          f"shared memory, clusters resident at once): {sorted(clusters)}")
+          f"total, maxThreadsPerBlock and the register file; survival_scan and "
+          f"bitmap_fit_rounds one cluster a call, shared memory and scratch words equal the "
+          f"source's; survival_scan (cluster, dynamic shared memory, clusters resident at "
+          f"once): {sorted(clusters)}; bitmap_fit_rounds (kernel, cluster, clusters resident "
+          f"at once): {sorted(round_clusters)}")
 
     # -- guard bands around every entry's outputs -----------------------------
     for label, per in checked.items():
@@ -456,7 +555,7 @@ def phase2b(dev, checked):
             plan = PLANS[name](*args, **kw)
             views = [guarded(o.shape, o.dtype, dev) for o in plan.outputs]
             extra = {}
-            if name == "survival_scan":
+            if plan.scratch_words:  # survival_scan, bitmap_fit_rounds
                 scratch, sbuf = guarded((plan.scratch_words,), torch.int32, dev)
                 extra["scratch"] = scratch
             LAUNCHERS[name](plan, [v for v, _ in views], *args, **kw, **extra)
@@ -467,9 +566,9 @@ def phase2b(dev, checked):
                                  "(LC301 on the card)")
                 check(touched == 0, f"[{label}] {name} {o.name}: {touched} guard-band elements "
                                     "written (LC302 on the card)")
-            if name == "survival_scan":
+            if plan.scratch_words:
                 check(sentinel_hits(sbuf, torch.int32)[1] == 0,
-                      f"[{label}] survival_scan wrote outside its scratch (LC302 on the card)")
+                      f"[{label}] {name} wrote outside its scratch (LC302 on the card)")
             compare(name, [v.cpu() for v, _ in views], want)
         print(f"phase 2b [{label}]: every entry's outputs fully written, guard bands "
               f"untouched, equal to the plain versions")
@@ -485,12 +584,21 @@ def phase2b(dev, checked):
     got = block_copy(x, good).cpu()
     check(torch.equal(got, xc) and torch.equal(got, block_copy_ref(xc, good)),
           "block_copy under the good plan differs from its plain version")
+    from repro_torch.kernel_bench import graph_nodes
+
     rows = {}
+    for fname, plan in (("good", good), *((f, p) for f, (p, _) in fixture_plans.items())):
+        nodes = graph_nodes(lambda: block_copy(x, plan))
+        check(nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0},
+              f"block_copy [{fname}]: a call captured in a CUDA graph gives {nodes}")
+    print("phase 2b: block_copy is one device kernel a call under the good plan and each bad "
+          "one (one kernel node, no memset, in a captured CUDA graph)")
     for fname, (plan, budget) in fixture_plans.items():
-        out, obuf = guarded((n,), torch.float32, dev, fill=float("nan"))
+        # a finite band and output: the NaN tail must be the kernel's own
+        out, obuf = guarded((n,), torch.float32, dev, fill=-3.25)
         copy_ops.launch(plan, (out,), x)
         torch.cuda.synchronize()
-        check(bool(torch.isnan(obuf[:BAND]).all() and torch.isnan(obuf[-BAND:]).all()),
+        check(bool((obuf[:BAND] == -3.25).all() and (obuf[-BAND:] == -3.25).all()),
               f"block_copy [{fname}] wrote a guard band")
         got, want = out.cpu(), block_copy_ref(xc, plan)
         rules = sorted({f.rule for f in audit_launch_plan(plan, name=fname, budget_bytes=budget)})
@@ -528,6 +636,9 @@ def phase2b(dev, checked):
               f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, clone {library_ms:.6f} ms, "
               f"bound {rows[fname]['bound_ms']:.7f} ms (bytes)")
     smoke = block_copy.launches
+    good_ms, clone_ms = device_ms(lambda: block_copy(x, good)), device_ms(lambda: x.clone())
+    print(f"phase 2b: block_copy [good plan]: device time: kernel {good_ms:.6f} ms, clone "
+          f"{clone_ms:.6f} ms")
     for row in rows.values():
         row["smoke_launches"] = smoke
     print(f"phase 2b: block_copy wrapper launches in this phase: {smoke}")
@@ -576,10 +687,11 @@ def drive(eng, s, draws, ticks):
 
 
 def want_launches(cfg, ticks, sharded):
-    fit = cfg.arb_rounds * ticks
-    return {"bitmap_fit": 0 if sharded else fit, "bitmap_fit_blocked": fit if sharded else 0,
-            "utility_topk": ticks, "zone_aggregate": ticks,
-            "survival_scan": ticks if cfg.memory.enabled else 0}
+    """The flat tick runs its rounds as one bitmap_fit_rounds, the sharded
+    tick one bitmap_fit_blocked a round; the one-round bitmap_fit on none."""
+    return {"bitmap_fit": 0, "bitmap_fit_blocked": cfg.arb_rounds * ticks if sharded else 0,
+            "bitmap_fit_rounds": 0 if sharded else ticks, "utility_topk": ticks,
+            "zone_aggregate": ticks, "survival_scan": ticks if cfg.memory.enabled else 0}
 
 
 def check_run(tag, out, launches, want):
@@ -693,22 +805,10 @@ def phase4(dev, gloo):
 # ---------------------------------------------------------------------------
 
 
-def exp7_config(num_nodes=EXP7_NODES):
-    """``benchmarks/common.py`` ``bench_cfg(num_nodes=...)``, the config of
-    each cell of ``benchmarks/bench_exp7_scale.py`` (stationary, memory off)."""
-    from repro_torch.core import LaminarConfig
-
-    cap = 1 << max(13, (num_nodes * 8 - 1).bit_length())
-    return LaminarConfig(
-        num_nodes=num_nodes, zone_size=min(256, max(32, num_nodes // 8)),
-        probe_capacity=min(cap, 1 << 17), max_arrivals_per_tick=512, horizon_ms=800.0,
-        rho=0.8,
-    )
-
-
 def phase5(dev, totals):
     from repro_torch.core.engine import LaminarEngine
     from repro_torch.parallel.engine_mesh import ZoneShardedEngine
+    from repro_torch.profile_tick import exp7_config
 
     cfg = exp7_config()
     flat = LaminarEngine(cfg, device=dev)
@@ -788,7 +888,7 @@ def main() -> int:
 
     from repro_torch.core.state import init_numpy
     from repro_torch.kernels import WRAPPERS, _build
-    from repro_torch.profile_tick import exp5_config
+    from repro_torch.profile_tick import WARMUP_TICKS, exp5_config, exp7_config
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -808,14 +908,18 @@ def main() -> int:
                 print(f"  {name}: {'; '.join(regs)}")
 
             geometries = {}
-            for label, cfg in (("Exp5", exp5_config(False, full=True, ticks=TICKS)),
-                               ("Exp7", exp7_config())):
+            # bitmap_fit_rounds takes the inputs of one tick of the main
+            # path: Exp5's tick 200 (profile_tick's), Exp7's last
+            for label, cfg, tick in (
+                    ("Exp5", exp5_config(False, full=True, ticks=TICKS), WARMUP_TICKS),
+                    ("Exp7", exp7_config(), EXP7_TICKS - 1)):
                 geo = init_numpy(cfg, 0)
                 Z, M = geo["zmember"].shape
                 geometries[label] = (
                     dict(N=cfg.num_nodes, P=cfg.probe_capacity, K=cfg.candidate_k, Z=Z, M=M,
                          W=cfg.atoms_per_node // 32),
                     (geo["zmember"], geo["zmask"]),
+                    (cfg, tick),
                 )
             rows, checked = phase2(dev, geometries)
             t1 = time.perf_counter()

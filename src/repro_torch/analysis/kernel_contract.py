@@ -231,12 +231,16 @@ def compare_output_avals(
 def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]]:
     """(entry, args, kwargs, ref_fn) for every hot-path entry at ``geom``, on
     ``meta`` tensors."""
-    from repro_torch.kernels.bitmap_fit import bitmap_fit_blocked_ref, bitmap_fit_ref
+    from repro_torch.kernels.bitmap_fit import (
+        bitmap_fit_blocked_ref,
+        bitmap_fit_ref,
+        bitmap_fit_rounds_ref,
+    )
     from repro_torch.kernels.survival_scan import survival_scan_ref
     from repro_torch.kernels.utility_topk import utility_topk_ref
     from repro_torch.kernels.zone_aggregate import zone_aggregate_ref
 
-    N, W, P, K, Z, M = (geom[k] for k in ("N", "W", "P", "K", "Z", "M"))
+    N, W, A, P, K, Z, M = (geom[k] for k in ("N", "W", "A", "P", "K", "Z", "M"))
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
 
     def z(shape, dtype):
@@ -249,6 +253,9 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
         ("bitmap_fit", (z((N, W), i32), z((N,), i32), z((N,), b8)), {}, bitmap_fit_ref),
         ("bitmap_fit_blocked", (z((Z, M, W), i32), z((Z, M), i32), z((Z, M), b8)), {},
          bitmap_fit_blocked_ref),
+        ("bitmap_fit_rounds", (z((P,), i32), z((P,), i32), z((P,), f32), z((P,), i32),
+                               z((P,), b8), z((N, W), i32), z((N,), b8)),
+         dict(rounds=3, atoms=A, policy="best"), bitmap_fit_rounds_ref),
         ("utility_topk", (z((P, K), f32), z((P, K), f32), z((P, K), f32), z((P, K), b8), 1.0),
          {}, utility_topk_ref),
         ("zone_aggregate", (z((Z, M), f32), z((Z, M), f32), z((Z, M), f32)), {},

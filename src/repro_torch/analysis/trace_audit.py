@@ -3,7 +3,7 @@
 Records, with a ``TorchDispatchMode``, every aten op of one tick of
 ``engine.make_step`` and of the making of that tick's draws
 (``TorchDraws.tick``), because a CUDA graph of the tick would capture both.
-The five hot-path entries are stubbed while the audit runs: each builds the
+The six hot-path entries are stubbed while the audit runs: each builds the
 launch plan its wrapper would build, is recorded as one ``kernel.<entry>``
 op, and returns zeros of its plan's outputs, the counterpart of
 ``jax.eval_shape`` over ``pallas_call``. The audit so sees the tick as it
@@ -196,7 +196,7 @@ class OpRecorder(TorchDispatchMode):
 
 @contextlib.contextmanager
 def stub_hotpath(recorder: Optional[OpRecorder] = None):
-    """Replace the five hot-path wrappers by their plans' outputs (zeros).
+    """Replace the six hot-path wrappers by their plans' outputs (zeros).
 
     ``core.hotpath`` looks each wrapper up on its ops module at call time,
     so patching the module attribute reaches every call site."""
@@ -374,6 +374,7 @@ def _hotpath_cases(cfg: LaminarConfig, s: Any):
         ("bitmap_fit", hotpath.bitmap_fit, (z(N, W, dtype=i32), z(N, dtype=i32), z(N, dtype=b8))),
         ("bitmap_fit_blocked", hotpath.bitmap_fit_blocked,
          (z(Z, M, W, dtype=i32), z(Z, M, dtype=i32), z(Z, M, dtype=b8))),
+        ("bitmap_fit_rounds", hotpath.bitmap_fit_rounds, (cfg, s, z(N, dtype=b8))),
         ("utility_topk", hotpath.utility_topk, (z(P, K), z(P, K), z(P, K), z(P, K, dtype=b8), 1.0)),
         ("zone_aggregate", hotpath.zone_aggregate, (z(Z, M), z(Z, M), z(Z, M))),
         ("survival_scan", hotpath.survival_scan, (cfg, s)),

@@ -47,6 +47,54 @@ def _free_atoms_at(
     return free | acc[:-1]
 
 
+def elect(st: torch.Tensor, node: torch.Tensor, ev: torch.Tensor, throttled: torch.Tensor):
+    """One round's winner per node: the queued probe (``st == QUEUED``, its
+    node not throttled) of the highest E_v, then the highest slot among
+    those tied (a two-stage scatter-max), none where that E_v is not finite.
+
+    Returns (winner (P,) bool, wslot (N,) int32 with -1 for no winner). The
+    plain version of ``bitmap_fit_rounds`` runs it too."""
+    P, N = st.shape[0], throttled.shape[0]
+    dev = st.device
+    node_c = torch.clamp(node, 0, N - 1)
+    node_x = torch.clamp(node, 0, N).long()
+    queued = (st == QUEUED) & ~throttled[node_c]
+    # E_v ties must still elect exactly ONE probe per node
+    slot = torch.arange(P, dtype=torch.int32, device=dev)
+    score = torch.where(queued, ev, -torch.inf)
+    tgt = torch.where(queued, node, N).long()
+    best = torch.full((N + 1,), -torch.inf, dtype=torch.float32, device=dev)
+    best.scatter_reduce_(0, tgt, score, "amax")
+    top_ev = queued & (score == best[node_x]) & torch.isfinite(score)
+    # among equal-E_v toppers, take the max slot index (unique per node)
+    wslot = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+    wslot.scatter_reduce_(
+        0, torch.where(top_ev, node, N).long(), torch.where(top_ev, slot, -1), "amax"
+    )
+    winner = top_ev & (slot == wslot[node_x])
+    return winner, wslot[:N]
+
+
+def alloc_round(
+    bits: torch.Tensor,
+    mass: torch.Tensor,
+    contig: torch.Tensor,
+    fit: torch.Tensor,
+    has_w: torch.Tensor,
+    policy: str,
+):
+    """One round's allocation per node for its winner's demand (``mass``,
+    ``contig``) on the (N, A) free bit plane. ``fit`` is the fit test's
+    0/1 on the node's words; a node is feasible where it has a winner, the
+    test passes and the policy finds atoms. Returns (taken words (N, W),
+    feas (N,), the bit plane without the taken atoms). The plain version
+    of ``bitmap_fit_rounds`` runs it too."""
+    alloc_bits, feas = bitmap.alloc_for_class(bits, mass, contig, policy=policy)
+    feas = feas & (fit != 0) & has_w
+    taken = alloc_bits & feas[:, None]
+    return bitmap.pack_bits(taken), feas, bits & ~taken
+
+
 def arbitrate(
     cfg: LaminarConfig,
     s: SimState,
@@ -61,58 +109,80 @@ def arbitrate(
 
     ``plane`` (the sharded engine's ``MeshPlane``) computes feasibility and
     allocation on the rank's zone block and gathers the per-node result
-    words; ``bits`` is then the plane's blocked bit plane.
+    words; ``bits`` is then the plane's blocked bit plane: the sharded
+    tick's round. The flat tick runs all its rounds at once
+    (:func:`arbitrate_rounds`), so the flat branch (``plane=None``, with the
+    one-round ``bitmap_fit``) runs in no tick: it is the reference the tests
+    hold ``arbitrate_rounds`` to, round by round.
     """
     P = s.st.shape[0]
     N = cfg.num_nodes
-    dev = s.st.device
     node_c = torch.clamp(s.node, 0, N - 1)
-    node_x = torch.clamp(s.node, 0, N).long()
-
-    queued = (s.st == QUEUED) & ~throttled[node_c]
-    # winner by E_v with an exact integer tiebreak (two-stage scatter-max):
-    # E_v ties must still elect exactly ONE probe per node
-    slot = torch.arange(P, dtype=torch.int32, device=dev)
-    score = torch.where(queued, s.ev, -torch.inf)
-    tgt = torch.where(queued, s.node, N).long()
-    best = torch.full((N + 1,), -torch.inf, dtype=torch.float32, device=dev)
-    best.scatter_reduce_(0, tgt, score, "amax")
-    top_ev = queued & (score == best[node_x]) & torch.isfinite(score)
-    # among equal-E_v toppers, take the max slot index (unique per node)
-    wslot = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
-    wslot.scatter_reduce_(
-        0, torch.where(top_ev, s.node, N).long(), torch.where(top_ev, slot, -1), "amax"
-    )
-    winner = top_ev & (slot == wslot[node_x])
-    has_w = wslot[:N] >= 0
-    ws = torch.clamp(wslot[:N], 0, P - 1)
+    # winner by E_v with an exact integer tiebreak (two-stage scatter-max)
+    winner, wslot = elect(s.st, s.node, s.ev, throttled)
+    has_w = wslot >= 0
+    ws = torch.clamp(wslot, 0, P - 1)
 
     # feasibility against the TRUE residual bitmap, computed once per node
     # for its winner's demand: the bitmap_fit hot-path op, on the words that
-    # are kept in step with the ``bits`` plane across rounds. The AND below
-    # is a guard: a kernel fault could only reject admissions.
+    # are kept in step with the ``bits`` plane across rounds. The AND in
+    # alloc_round is a guard: a kernel fault could only reject admissions.
     if plane is None:
         w_mass = s.mass[ws]
         w_contig = s.contig[ws]
-        feas_hot = hotpath.bitmap_fit(s.free, w_mass, w_contig) != 0
-        alloc_bits, feas_n = bitmap.alloc_for_class(
-            bits, w_mass, w_contig, policy=cfg.alloc_policy
+        fit = hotpath.bitmap_fit(s.free, w_mass, w_contig)
+        alloc_words_n, feas_n, bits = alloc_round(
+            bits, w_mass, w_contig, fit, has_w, cfg.alloc_policy
         )
-        feas_n = feas_n & feas_hot & has_w
-        taken = alloc_bits & feas_n[:, None]
-        alloc_words_n = bitmap.pack_bits(taken)
-        bits = bits & ~taken
     else:
         alloc_words_n, feas_n, bits = plane.alloc_round(cfg, s, bits, ws, has_w)
-    free = s.free & ~alloc_words_n
-
     admit = winner & feas_n[node_c]
-    reject = winner & ~admit
+    s = _admissions(
+        cfg, s, winner, admit, alloc_words_n[node_c], s.free & ~alloc_words_n,
+        count(throttled),
+    )
+    return s, bits
 
-    # --- state transitions ---------------------------------------------
+
+def arbitrate_rounds(cfg: LaminarConfig, s: SimState, throttled: torch.Tensor) -> SimState:
+    """All ``cfg.arb_rounds`` admission rounds of the flat tick in one call:
+    the same state as that many :func:`arbitrate` calls.
+
+    A round's winner leaves the queue whether it is admitted or not, and
+    nothing the election reads changes between rounds, so one
+    ``bitmap_fit_rounds`` (one kernel launch on the card) computes every
+    round's winners, feasibility and allocations, and each probe's
+    transition is applied once, for the round it won.
+    """
+    N = cfg.num_nodes
+    R = cfg.arb_rounds
+    node_c = torch.clamp(s.node, 0, N - 1)
+    _, _, alloc, won, admit = hotpath.bitmap_fit_rounds(cfg, s, throttled)
+    # each probe's taken words: its node's row of the round it won
+    flat = alloc.reshape(R * N, -1)
+    probe_alloc = flat[torch.clamp(won, min=0) * N + node_c]
+    # the rounds take disjoint atoms, so the int32 sum of their words is their OR
+    taken = torch.sum(alloc, dim=0, dtype=torch.int32)
+    return _admissions(
+        cfg, s, won >= 0, admit, probe_alloc, s.free & ~taken, R * count(throttled)
+    )
+
+
+def _admissions(
+    cfg: LaminarConfig,
+    s: SimState,
+    winner: torch.Tensor,
+    admit: torch.Tensor,
+    probe_alloc: torch.Tensor,
+    free: torch.Tensor,
+    throttled_rounds: torch.Tensor,
+) -> SimState:
+    """The state transitions of elected probes: ``winner`` (P,) elected,
+    ``admit`` (P,) admitted, ``probe_alloc`` (P, W) the words an admitted
+    probe took, ``free`` the node words after the allocations."""
+    reject = winner & ~admit
     st = s.st
     migrating = s.migrating
-    probe_alloc = alloc_words_n[node_c]  # (P, W) gather
 
     # ordinary admission -> two-phase reservation (atoms held logically)
     prim = admit & ~migrating
@@ -163,9 +233,9 @@ def arbitrate(
     m = m._replace(
         op_arb=m.op_arb + count(winner),
         infeasible_winner=m.infeasible_winner + count(reject),
-        throttled_rounds=m.throttled_rounds + count(throttled),
+        throttled_rounds=m.throttled_rounds + throttled_rounds,
     )
-    s = s._replace(
+    return s._replace(
         st=st,
         free=free,
         alloc=alloc,
@@ -178,7 +248,6 @@ def arbitrate(
         pull_deadline=pull_deadline,
         metrics=m,
     )
-    return s, bits
 
 
 def pending_stage(cfg: LaminarConfig, s: SimState) -> SimState:

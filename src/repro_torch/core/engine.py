@@ -8,7 +8,8 @@ the paper's control path:
     transitions -> completions -> scenario disruption -> node-view build ->
     Z-HAF reports -> TEG refresh -> arrivals -> probe movement
     (+ regeneration) -> TEG dispatch -> DA addressing -> node arbitration
-    (xN rounds) -> pending stage -> absolute timeout
+    (arb_rounds rounds, one bitmap_fit_rounds on the flat tick) -> pending
+    stage -> absolute timeout
 
 The tick asks nothing of the host: no ``.item()``, no ``torch.nonzero``, no
 boolean-mask indexing, so on CUDA the host only enqueues work. The scenario's
@@ -158,7 +159,6 @@ def make_step(cfg: LaminarConfig, plane=None):
         # ---- true node state, computed once per tick ---------------------------
         if plane is None:
             view = zhaf.build_view(cfg, s)
-            bits = view.bits
         else:
             view, bits = plane.build_view(cfg, s)
 
@@ -180,9 +180,13 @@ def make_step(cfg: LaminarConfig, plane=None):
         else:
             throttled = torch.zeros(cfg.num_nodes, dtype=torch.bool, device=s.st.device)
         # multiple admission rounds per tick: after each reservation the node
-        # removes the winner's atoms and proceeds to the next feasible candidate
-        for _ in range(cfg.arb_rounds):
-            s, bits = arbiter.arbitrate(cfg, s, throttled, bits, plane)
+        # removes the winner's atoms and proceeds to the next feasible
+        # candidate; the flat tick runs them all in one bitmap_fit_rounds
+        if plane is None:
+            s = arbiter.arbitrate_rounds(cfg, s, throttled)
+        else:
+            for _ in range(cfg.arb_rounds):
+                s, bits = arbiter.arbitrate(cfg, s, throttled, bits, plane)
         s = arbiter.pending_stage(cfg, s)
         s = arbiter.timeouts(cfg, s)
 

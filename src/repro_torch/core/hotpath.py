@@ -1,8 +1,10 @@
 """Hot-path kernel dispatch, a port of ``repro.core.hotpath``.
 
 The four measured control-plane operations go through this module:
-bitmap feasibility (``arbiter``; ``bitmap_fit_blocked`` for the zone
-blocks of the sharded engine), utility scoring + candidate argmax
+bitmap feasibility (``arbiter``: ``bitmap_fit_rounds``, every arbitration
+round of the flat tick in one launch; ``bitmap_fit`` for one round;
+``bitmap_fit_blocked`` for the zone blocks of the sharded engine), utility
+scoring + candidate argmax
 (``da``), zone aggregation (``teg``) and the fused Airlock survival scan
 (``engine``). Each forwards to its kernel package, whose wrapper dispatches
 by device: a CUDA tensor launches the hand-written Hopper kernel (or the
@@ -25,6 +27,7 @@ from repro_torch.kernels.zone_aggregate import ops as _agg_ops
 __all__ = [
     "bitmap_fit",
     "bitmap_fit_blocked",
+    "bitmap_fit_rounds",
     "survival_scan",
     "utility_topk",
     "zone_aggregate",
@@ -53,6 +56,20 @@ def bitmap_fit_blocked(
     """Zone-blocked feasibility: ``(Z, M, W)`` words, ``(Z, M)`` demand ->
     ``(Z, M)`` int32; the zone-sharded engine's entry for its zone block."""
     return _bitmap_ops.bitmap_fit_blocked(words, mass, contig)
+
+
+def bitmap_fit_rounds(cfg: LaminarConfig, s, throttled: torch.Tensor):
+    """Every one of the ``cfg.arb_rounds`` arbitration rounds of the flat tick:
+    the election, the fit test and the allocation on the true words.
+
+    Returns ``(winner (R, N), feas (R, N), alloc (R, N, W), round (P,),
+    admit (P,))``: each round's winner slot (-1: none), whether it was
+    admitted and the words it took; each probe's round won (-1: none) and
+    admission."""
+    return _bitmap_ops.bitmap_fit_rounds(
+        s.st, s.node, s.ev, s.mass, s.contig, s.free, throttled,
+        rounds=cfg.arb_rounds, atoms=cfg.atoms_per_node, policy=cfg.alloc_policy,
+    )
 
 
 def utility_topk(

@@ -1,7 +1,8 @@
 """Device time of ``survival_scan`` on the card, by launch, and against an
-earlier design built from another source.
+earlier design built from another source; or of ``bitmap_fit_rounds``.
 
     python -m repro_torch.kernel_bench [--parent PATH] [--phases] [--out FILE]
+    python -m repro_torch.kernel_bench --rounds [--parent PATH] [--out FILE]
 
 At the survival_scan shapes of ``chip_smoke.py`` phase 2 (Exp5: 5000 nodes,
 65 536 probe slots; Exp7's top cell: 65 536 nodes, 131 072 slots), Airlock
@@ -23,6 +24,19 @@ on and off, with the inputs phase 2 draws (seeded numpy):
     each CTA takes at the ends of the phases and around each cluster
     barrier; and the graph-replay ms of that build.
 
+With ``--rounds``, ``bitmap_fit_rounds`` instead, on the inputs the flat
+engine's tick really gives it (``profile_tick.tick_rounds``): Exp5 (kernel
+OOM and Airlock, ticks 200 to 219, as ``profile_tick`` reads them) and
+Exp7's top cell (ticks 80 to 99 of its 100). For each, what the tick gives
+the rounds (``profile_tick.rounds_traffic``: queued slots, winners, free
+runs of the nodes that reach the allocation), then the graph-replay device
+ms of one call, the median over the 20 ticks' inputs, of the port's kernel
+and, with ``--parent PATH``, of another ``bitmap_fit.cu`` with the same
+``bitmap_fit_rounds_launch`` (checked equal to the port's outputs on every
+tick), in the order parent, port, port, parent; and the plain version's on
+the last tick. The inputs and corner cases of its tests
+(``rounds_inputs``, ``rounds_edge_cases``) live here too.
+
 Prints one line per measurement, the card's name and power limit, and writes
 the numbers as JSON to ``--out`` (default ``build/kernel_bench.json``).
 Needs a CUDA card and ``nvcc``; exits non-zero without them.
@@ -40,6 +54,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import profile_tick
+from repro_torch.core.state import QUEUED
 from repro_torch.kernels import _build
 from repro_torch.kernels.launch_plan import cdiv
 from repro_torch.kernels.survival_scan import ops as surv_ops
@@ -113,6 +129,96 @@ def edge_cases(seed: int = 0) -> dict:
             + (torch.tensor(300, dtype=torch.int32),) for name, c in out.items()}
 
 
+def rounds_inputs(N: int, P: int, W: int = 2, atoms: int | None = None, seed: int = 0,
+                  queued: float = 0.02, policy: str = "best", rounds: int = 3):
+    """``bitmap_fit_rounds`` inputs (CPU tensors) and keywords at one shape:
+    ``queued`` of the slots queued on random nodes, E_v from a few values (so
+    ties happen), demands of 1 to 16 atoms and some up to the node's atoms,
+    a fifth contiguous, node words from full to sparse (no bit past
+    ``atoms``), a tenth of the nodes throttled."""
+    A = 32 * W if atoms is None else atoms
+    rng = np.random.default_rng(seed)
+    st = np.where(rng.uniform(size=P) < queued, QUEUED,
+                  rng.choice([0, 2, 5, 6], size=P)).astype(np.int32)
+    node = rng.integers(0, N, P).astype(np.int32)
+    ev = (rng.choice([24.0, 48.0, 96.0, 256.0], P)
+          * rng.choice([1.0, 1.0, 1.5], P)).astype(np.float32)
+    mass = np.where(rng.uniform(size=P) < 0.9, rng.integers(1, 17, P),
+                    rng.integers(1, A + 1, P)).astype(np.int32)
+    contig = rng.uniform(size=P) < 0.2
+    bits = rng.uniform(size=(N, A)) < rng.choice([0.3, 0.7, 0.95, 1.0], size=(N, 1))
+    throttled = rng.uniform(size=N) < 0.1
+    return rounds_tensors(st, node, ev, mass, contig, bits, throttled, W), dict(
+        rounds=rounds, atoms=A, policy=policy)
+
+
+def rounds_tensors(st, node, ev, mass, contig, bits, throttled, W):
+    """numpy columns and an (N, A) bool plane -> the kernel's CPU tensors."""
+    N, A = bits.shape
+    plane = np.zeros((N, 32 * W), bool)
+    plane[:, :A] = bits
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)  # bit k of word w: atom 32 w + k
+    words = (plane.reshape(N, W, 32) * weights).sum(-1).astype(np.uint32)
+    t = torch.from_numpy
+    return (t(np.asarray(st, np.int32)), t(np.asarray(node, np.int32)),
+            t(np.asarray(ev, np.float32)), t(np.asarray(mass, np.int32)),
+            t(np.asarray(contig, bool)), t(words.view(np.int32)), t(np.asarray(throttled, bool)))
+
+
+def rounds_edge_cases(seed: int = 0) -> dict:
+    """``bitmap_fit_rounds`` inputs (CPU tensors, keywords) at the corners of
+    its design, by name: E_v ties (the slot tiebreak); +-inf and signed-zero
+    E_v; a queued NaN; half the nodes throttled; nodes with fewer queued
+    probes than rounds and one node with every probe queued on it;
+    contiguous and dispersed demands of 0 and past the node's atoms; 48
+    atoms a node; 3 and 8 words a node; the "first" policy; and every probe
+    queued at Exp7's shape."""
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def base(N, P, W=2, atoms=None, **kw):
+        args, k = rounds_inputs(N, P, W, atoms, seed=int(rng.integers(1 << 30)), **kw)
+        return [a.numpy().copy() for a in args], k
+
+    def put(name, cols, kw):
+        out[name] = (tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in cols), kw)
+
+    cols, kw = base(64, 4096, queued=0.5)
+    cols[2][:] = rng.choice([48.0, 96.0], 4096)  # two values only: ties everywhere
+    put("ev_ties", cols, kw)
+    cols, kw = base(64, 4096, queued=0.3)
+    cols[2][:] = rng.choice(np.array([np.inf, -np.inf, 0.0, -0.0, 24.0, -24.0], np.float32),
+                            4096, p=[0.01, 0.2, 0.3, 0.3, 0.1, 0.09])
+    put("inf_and_signed_zero", cols, kw)
+    cols, kw = base(64, 4096, queued=0.3)
+    cols[2][rng.permutation(4096)[:12]] = np.nan
+    put("nan", cols, kw)
+    cols, kw = base(300, 8192, queued=0.2)
+    cols[6][:] = rng.uniform(size=300) < 0.5
+    put("half_throttled", cols, kw)
+    cols, kw = base(37, 1029, queued=0.0)
+    st, node = cols[0], cols[1]
+    for n, k in ((0, 1), (1, 2), (2, 3), (3, 4)):  # fewer queued probes than rounds, and more
+        idx = rng.permutation(np.nonzero(st != QUEUED)[0])[:k]
+        st[idx], node[idx] = QUEUED, n
+    put("few_queued", cols, kw)
+    cols, kw = base(37, 1029, queued=1.0)
+    cols[1][:] = 5  # every probe queued on one node
+    cols[6][:] = False
+    put("all_on_one", cols, kw)
+    cols, kw = base(64, 4096, queued=0.5)
+    cols[3][:] = rng.choice([0, 1, 64, 65, 200, 3], 4096)
+    cols[4][:] = rng.uniform(size=4096) < 0.5
+    put("mass_0_and_past_atoms", cols, kw)
+    put("atoms_48", *base(100, 2048, W=2, atoms=48, queued=0.3))
+    put("words_3", *base(100, 2048, W=3, atoms=80, queued=0.3))
+    put("words_8", *base(100, 2048, W=8, queued=0.3))
+    put("first_fit", *base(300, 8192, queued=0.2, policy="first"))
+    put("first_fit_words_8", *base(100, 2048, W=8, queued=0.3, policy="first"))
+    put("exp7_all_queued", *base(65536, 131072, queued=1.0))
+    return out
+
+
 def graph_ms(fn, reps=20, rounds=5) -> float:
     """Device ms of one call: ``reps`` calls in one CUDA graph, replayed."""
     side = torch.cuda.Stream()
@@ -136,6 +242,34 @@ def graph_ms(fn, reps=20, rounds=5) -> float:
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b) / reps)
     return float(np.median(out))
+
+
+def graph_nodes(fn) -> dict:
+    """The device work one call of ``fn`` enqueues: the call captured in a
+    CUDA graph (``torch.cuda.graph``), its nodes counted by type through
+    ``libcuda`` (``cuGraphGetNodes``): ``kernel``, ``memset``, ``memcpy``
+    and ``other``. Warms ``fn`` up first, outside the capture."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+    kinds = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0}
+    names = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        kinds[names.get(t.value, "other")] += 1
+    g.reset()
+    return kinds
 
 
 def per_kernel_ms(fn, calls=50) -> dict:
@@ -247,9 +381,61 @@ def port_call(args, airlock: bool):
     return outs
 
 
+ROUNDS_CELLS = {  # label: (config, first recorded tick)
+    "Exp5 kernel-OOM": (lambda: profile_tick.exp5_config(False), profile_tick.WARMUP_TICKS),
+    "Exp5 Airlock": (lambda: profile_tick.exp5_config(True), profile_tick.WARMUP_TICKS),
+    "Exp7": (profile_tick.exp7_config, profile_tick.EXP7_TICKS - 20),
+}
+
+
+def rounds_bench(dev, parent_path: Path | None = None) -> list:
+    """``bitmap_fit_rounds`` rows of ``--rounds`` (see the module docstring)."""
+    from repro_torch.kernels.bitmap_fit import bitmap_fit_rounds_ref
+    from repro_torch.kernels.bitmap_fit import ops as fit_ops
+    from repro_torch.kernels.bitmap_fit import plan as fit_plan
+
+    _build.build(["bitmap_fit"])
+    libs = {"port": None}
+    if parent_path is not None:
+        libs["parent"] = build_lib(parent_path, "parent_rounds")
+        libs["parent"].bitmap_fit_rounds_launch.argtypes = fit_ops._SIG["bitmap_fit_rounds_launch"]
+    order = ["parent", "port", "port", "parent"] if parent_path is not None else ["port"]
+    rows = []
+    for label, (make_cfg, first) in ROUNDS_CELLS.items():
+        cfg = make_cfg()
+        calls = profile_tick.tick_rounds(cfg, first, 20, device=dev)
+        traffic = profile_tick.rounds_traffic(calls)
+        profile_tick.print_traffic(f"{label}, ticks {first} to {first + 19}", traffic)
+        times = [[] for _ in order]
+        for args, kw, outs in calls:
+            plan = fit_plan.for_rounds_call(*args, **kw)
+            got = plan.new_outputs(dev)
+            for name, lib in libs.items():
+                fit_ops.launch_rounds(plan, got, *args, **kw, lib=lib)
+                if not all(torch.equal(g, w) for g, w in zip(got, outs)):
+                    print(f"{label}: {name} differs from the tick's outputs", file=sys.stderr)
+                    raise SystemExit(1)
+            for i, name in enumerate(order):
+                times[i].append(graph_ms(
+                    lambda: fit_ops.launch_rounds(plan, got, *args, **kw, lib=libs[name])))
+        args, kw, _ = calls[-1]
+        row = dict(cell=label, N=cfg.num_nodes, P=cfg.probe_capacity, traffic=traffic,
+                   graph_ms=[(name, float(np.median(t))) for name, t in zip(order, times)],
+                   plain_ms=graph_ms(lambda: bitmap_fit_rounds_ref(*args, **kw)))
+        rows.append(row)
+        print(f"{label} N={cfg.num_nodes} P={cfg.probe_capacity}: graph-replay device ms of one "
+              f"call, median over the 20 ticks, in order: "
+              + ", ".join(f"{n} {t:.6f}" for n, t in row["graph_ms"])
+              + f"; plain version {row['plain_ms']:.6f} (last tick)", flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", type=Path, help="survival_scan.cu of the nine-launch design")
+    ap.add_argument("--parent", type=Path,
+                    help="survival_scan.cu of the nine-launch design (with --rounds: "
+                         "another bitmap_fit.cu)")
+    ap.add_argument("--rounds", action="store_true", help="bitmap_fit_rounds instead")
     ap.add_argument("--phases", action="store_true",
                     help="cycles by phase of the cluster kernel (an instrumented build)")
     ap.add_argument("--out", type=Path, default=Path("build/kernel_bench.json"))
@@ -258,12 +444,14 @@ def main(argv=None) -> int:
         print("kernel_bench: CUDA is not available", file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
-    _build.build(["survival_scan"])
-    parent = Parent(args.parent) if args.parent else None
-    phases = Phases() if args.phases else None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable"
+    if args.rounds:
+        return write(args.out, card, rounds_bench(dev, args.parent))
+    _build.build(["survival_scan"])
+    parent = Parent(args.parent) if args.parent else None
+    phases = Phases() if args.phases else None
     rows = []
     for seed, (label, (N, P)) in enumerate(GEOMETRIES.items(), start=2):
         a = inputs(N, P, seed, dev)
@@ -301,10 +489,14 @@ def main(argv=None) -> int:
                       f"{row['phases_build_ms']:.6f} ms a call): "
                       + ", ".join(f"{k} {v}" for k, v in c.items()) + f"; sum {sum(c.values())}")
             rows.append(row)
+    return write(args.out, card, rows)
+
+
+def write(out: Path, card: str, rows: list) -> int:
     print(card)
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps({"card": card, "torch": torch.__version__,
-                                    "cuda": torch.version.cuda, "rows": rows}, indent=1))
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"card": card, "torch": torch.__version__,
+                               "cuda": torch.version.cuda, "rows": rows}, indent=1))
     return 0
 
 

@@ -8,7 +8,9 @@ CPU tensor takes the plain version). Every wrapper counts its kernel
 launches in ``<wrapper>.launches``.
 
   * ``bitmap_fit``    — per-node demand feasibility against bitmap words
-    (and ``bitmap_fit_blocked``, the same kernel over zone-blocked rows)
+    (and ``bitmap_fit_blocked``, the same kernel over zone-blocked rows;
+    ``bitmap_fit_rounds``, every arbitration round of the flat tick in one
+    cluster launch)
   * ``utility_topk``  — fused DA utility scoring + candidate argmax
   * ``zone_aggregate``— per-zone mean slack / total heat
   * ``survival_scan`` — fused Airlock survival decision
@@ -32,6 +34,7 @@ from repro_torch.kernels.zone_aggregate import plan as _agg_plan
 WRAPPERS = {
     "bitmap_fit": bitmap_fit.bitmap_fit,
     "bitmap_fit_blocked": bitmap_fit.bitmap_fit_blocked,
+    "bitmap_fit_rounds": bitmap_fit.bitmap_fit_rounds,
     "utility_topk": utility_topk.utility_topk,
     "zone_aggregate": zone_aggregate.zone_aggregate,
     "survival_scan": survival_scan.survival_scan,
@@ -39,6 +42,7 @@ WRAPPERS = {
 PLANS = {
     "bitmap_fit": _bitmap_plan.for_call,
     "bitmap_fit_blocked": _bitmap_plan.for_blocked_call,
+    "bitmap_fit_rounds": _bitmap_plan.for_rounds_call,
     "utility_topk": _topk_plan.for_call,
     "zone_aggregate": _agg_plan.for_call,
     "survival_scan": _surv_plan.for_call,
@@ -46,6 +50,7 @@ PLANS = {
 LAUNCHERS = {
     "bitmap_fit": bitmap_fit.launch,
     "bitmap_fit_blocked": bitmap_fit.launch,
+    "bitmap_fit_rounds": bitmap_fit.launch_rounds,
     "utility_topk": utility_topk.launch,
     "zone_aggregate": zone_aggregate.launch,
     "survival_scan": survival_scan.launch,

@@ -1,7 +1,22 @@
-"""Launch plans of ``csrc/bitmap_fit.cu``: one thread per row of words.
+"""Launch plans of ``csrc/bitmap_fit.cu``.
 
-Both entries launch the one kernel: ``bitmap_fit`` over the ``(N, W)`` node
-rows, ``bitmap_fit_blocked`` over the ``(Z * M, W)`` rows of a zone block.
+``bitmap_fit`` and ``bitmap_fit_blocked`` launch ``bitmap_fit_kernel``, one
+thread per row of words: the ``(N, W)`` node rows, or the ``(Z * M, W)``
+rows of a zone block.
+
+``bitmap_fit_rounds`` is one launch of one cluster of ``CLUSTER`` CTAs of
+``ROUND_THREADS`` threads (grid == cluster) that runs every arbitration
+round of a tick, instantiated for the node's words held as ``ceil(W / 2)``
+64-bit registers. CTA ``c`` owns the probe slots ``[c * pc, (c + 1) * pc)``,
+``pc = ceil(P / CLUSTER)``, and the nodes ``[c * nb, (c + 1) * nb)``, ``nb
+= ceil(N / CLUSTER)``; each warp gathers the keys of its queued probes in
+``ROUND_STATIC_SMEM`` bytes of static shared memory. The int32 scratch holds
+one carve-out, ``keys``: ``R`` 64-bit election keys a node (slot ``r`` of
+node ``n`` at key ``r * N + n``). ``mass`` and
+``contig`` are read at the winners' slots (data-dependent rows, not
+listed). Shapes past the kernel's limits are refused with the limit in the
+message: more than ``MAX_WORDS`` words a node, more atoms than the words
+hold, more than ``MAX_ROUNDS`` rounds.
 """
 
 from __future__ import annotations
@@ -11,10 +26,18 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.launch_plan import Launch, LaunchPlan, Operand, Output, cdiv
+from repro_torch.kernels.launch_plan import Carve, Launch, LaunchPlan, Operand, Output, cdiv
 
-KERNELS = ("bitmap_fit_kernel",)  # the order of bitmap_fit_attrs
+# the order of bitmap_fit_attrs: the rounds kernel for 1 to 4 64-bit words a node
+KERNELS = ("bitmap_fit_kernel", *(f"bitmap_fit_rounds_kernel<{nw}>" for nw in (1, 2, 3, 4)))
 THREADS = 256  # kThreads of csrc/bitmap_fit.cu
+ROUND_THREADS = 512  # kRoundThreads
+CLUSTER = 16  # CTAs of the rounds' one cluster
+PORTABLE_CLUSTER = 8  # the largest cluster every Hopper part schedules
+MAX_WORDS = 8  # kMaxWords: 256 atoms a node
+MAX_ROUNDS = 8  # kMaxRounds
+CHUNK = 8  # kChunk: steps of 32 slots a warp gathers before its cascades
+ROUND_STATIC_SMEM = (ROUND_THREADS // 32) * CHUNK * 32 * 8  # the gathered 64-bit keys
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,3 +67,56 @@ def for_blocked_call(words, mass, contig) -> LaunchPlan:
     """The plan of ``bitmap_fit_blocked``: (Z, M, W) words, (Z, M) out."""
     Z, M = words.shape[0], words.shape[1]
     return plan("bitmap_fit_blocked", Z * M, (Z, M))
+
+
+def rounds_scratch_words(N: int, R: int) -> int:
+    """Int32 words of scratch: ``bitmap_fit_rounds_scratch_words``."""
+    return 2 * N * R
+
+
+@functools.lru_cache(maxsize=None)
+def rounds_plan(P: int, N: int, W: int, R: int, atoms: int) -> LaunchPlan:
+    """The one launch of ``bitmap_fit_rounds`` at (P, N, W, R, atoms). The
+    allocation policy changes what the kernel computes, not its geometry."""
+    if N < 1:
+        raise ValueError(f"bitmap_fit_rounds: N = {N}: the cluster needs at least one node")
+    if not 1 <= W <= MAX_WORDS:
+        raise ValueError(f"bitmap_fit_rounds: W = {W} words a node; the kernel holds 1 to "
+                         f"{MAX_WORDS} ({32 * MAX_WORDS} atoms) in registers")
+    if not 1 <= atoms <= 32 * W:
+        raise ValueError(f"bitmap_fit_rounds: {atoms} atoms a node do not fit {W} words "
+                         f"(1 to {32 * W})")
+    if not 0 <= R <= MAX_ROUNDS:
+        raise ValueError(f"bitmap_fit_rounds: {R} rounds; one launch runs 0 to {MAX_ROUNDS}")
+    pc, nb = cdiv(P, CLUSTER), cdiv(N, CLUSTER)
+    ops = tuple(Operand(c, P, pc) for c in ("st", "node", "ev"))
+    ops += (Operand("words", N, nb), Operand("throttled", N, nb))
+    ops += tuple(Operand(o, N, nb, write=True) for o in ("winner", "feas", "alloc"))
+    ops += tuple(Operand(o, P, pc, write=True) for o in ("round", "admit"))
+    keys = rounds_scratch_words(N, R)
+    return LaunchPlan(
+        entry="bitmap_fit_rounds",
+        source="bitmap_fit",
+        launches=(Launch(f"bitmap_fit_rounds_kernel<{cdiv(W, 2)}>", CLUSTER, ROUND_THREADS, ops,
+                         static_smem=ROUND_STATIC_SMEM, cluster=CLUSTER,
+                         cluster_nonportable=CLUSTER > PORTABLE_CLUSTER),),
+        outputs=(Output("winner", (R, N), torch.int32), Output("feas", (R, N), torch.bool),
+                 Output("alloc", (R, N, W), torch.int32), Output("round", (P,), torch.int32),
+                 Output("admit", (P,), torch.bool)),
+        scratch_words=keys,
+        scratch=(Carve("keys", 0, keys),),
+    )
+
+
+def for_rounds_call(st, node, ev, mass, contig, words, throttled, *, rounds: int, atoms: int,
+                    **_) -> LaunchPlan:
+    """The plan of ``bitmap_fit_rounds``."""
+    return rounds_plan(st.shape[0], words.shape[0], words.shape[1], int(rounds), int(atoms))
+
+
+def pack(p: LaunchPlan):
+    """A rounds plan as the launcher takes it: (grid, block, cluster,
+    non-portable, probe slots a CTA, nodes a CTA)."""
+    (L,) = p.launches
+    return (L.grid, L.block, L.cluster, int(L.cluster_nonportable),
+            L.operands[0].rows_per_block, L.operands[3].rows_per_block)

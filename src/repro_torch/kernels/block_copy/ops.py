@@ -1,8 +1,9 @@
 """block_copy wrapper: the CUDA kernel for a CUDA tensor, else the plain version.
 
 The kernel runs the plan it is given, good or bad; the plain version is the
-plan interpreter (``ref.py``). The output starts as NaN where the plan
-writes no block of it, as under the interpreter.
+plan interpreter (``ref.py``). The output is NaN where the plan writes no
+block of it, as under the interpreter: the kernel fills that tail in the
+same launch.
 """
 
 from __future__ import annotations
@@ -12,7 +13,6 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.block_copy import plan as _plan
 from repro_torch.kernels.block_copy.ref import block_copy_ref
 from repro_torch.kernels.launch_plan import LaunchPlan
 
@@ -21,12 +21,13 @@ __all__ = ["block_copy"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {
-    "block_copy_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "block_copy_launch": [_P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I, _P],
 }
 
 
 def launch(plan: LaunchPlan, outs, x) -> None:
-    """Launch ``plan`` from ``x`` into ``outs`` (out,), allocated by the caller."""
+    """Launch ``plan`` from ``x`` into ``outs`` (out,), allocated by the
+    caller; the launch also sets to NaN what no block of the plan writes."""
     (L,) = plan.launches
     src, dst = L.operands
     _build.expect(x, torch.float32, (src.rows,), "block_copy x")
@@ -35,7 +36,7 @@ def launch(plan: LaunchPlan, outs, x) -> None:
     B = dst.rows_per_block
     lib = _build.load("block_copy", _SIG)
     err = lib.block_copy_launch(
-        _build.ptr(x), _build.ptr(out), B, src.first // B, L.grid, L.block,
+        _build.ptr(x), _build.ptr(out), B, src.first // B, dst.rows, L.grid, L.block,
         L.dynamic_smem, _build.stream(x),
     )
     _build.check(err, "block_copy")
@@ -47,8 +48,6 @@ def block_copy(x: torch.Tensor, plan: LaunchPlan) -> torch.Tensor:
     if not x.is_cuda:
         return block_copy_ref(x, plan)
     (out,) = plan.new_outputs(x.device)
-    if _plan.unwritten(plan):
-        out.fill_(float("nan"))
     launch(plan, (out,), x)
     block_copy.launches += 1
     return out

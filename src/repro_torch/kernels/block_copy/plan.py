@@ -42,16 +42,3 @@ def good_plan(n: int, block_elems: int) -> LaunchPlan:
     if n % block_elems:
         raise ValueError(f"{n} elements do not tile into blocks of {block_elems}")
     return plan(n, block_elems, n // block_elems)
-
-
-@functools.lru_cache(maxsize=None)
-def unwritten(p: LaunchPlan) -> bool:
-    """Whether some output element is written by no block of ``p``."""
-    (L,) = p.launches
-    out = L.operands[1]
-    hit = [False] * out.rows
-    for b in range(L.grid):
-        lo, hi = out.span(b)
-        for i in range(max(lo, 0), min(hi, out.rows)):
-            hit[i] = True
-    return not all(hit)

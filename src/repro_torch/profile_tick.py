@@ -5,10 +5,14 @@
 Runs the engine on CUDA at the Exp5 geometry (``exp5_config(full=True)``),
 warms it up for 200 ticks, then reports, per tick of a 20-tick window: the host wall time to enqueue the tick
 and to finish it, the number of device kernels, the summed device kernel
-time (so the device's busy and idle shares of the wall time), and the ops
-that take the most host time and the kernels that take the most device time
-(``torch.profiler``). ``--sharded`` runs the tick of the zone-sharded engine
-on a one-rank NCCL group instead of the flat tick. It needs a CUDA card and
+time (so the device's busy and idle shares of the wall time), each
+hand-written kernel's device time and launches, and the ops that take the
+most host time and the kernels that take the most device time
+(``torch.profiler``). On the flat tick it then records what the tick gives
+``bitmap_fit_rounds`` over 20 more ticks (:func:`rounds_traffic`: queued
+slots, winners, and the free runs of each node whose winner reaches the
+allocation). ``--sharded`` runs the tick of the zone-sharded engine on a
+one-rank NCCL group instead of the flat tick. It needs a CUDA card and
 exits non-zero without one.
 """
 
@@ -19,8 +23,10 @@ import os
 import sys
 import tempfile
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
+from contextlib import contextmanager
 
+import numpy as np
 import torch
 
 from repro_torch.core import LaminarConfig, MemoryConfig
@@ -28,6 +34,11 @@ from repro_torch.core.engine import LaminarEngine, make_step
 
 WARMUP_TICKS = 200  # past the start-up transient: the probe table has filled
 WINDOW_TICKS = 20
+EXP7_NODES = 65536  # bench_exp7_scale.py --full, top cell
+EXP7_TICKS = 100  # bench_exp7_scale.py NUM_TICKS
+# the port's hand-written kernels, as the profiler names them
+HAND_WRITTEN = ("bitmap_fit_rounds_kernel", "bitmap_fit_kernel", "utility_topk_kernel",
+                "zone_aggregate_kernel", "survival_cluster_kernel")
 
 
 def exp5_config(airlock: bool, full: bool = True, ticks: int = 2400) -> LaminarConfig:
@@ -49,6 +60,114 @@ def exp5_config(airlock: bool, full: bool = True, ticks: int = 2400) -> LaminarC
         horizon_ms=ticks * 0.5, rho=0.8, airlock=airlock,
         memory=MemoryConfig(enabled=True),
     )
+
+
+def exp7_config(num_nodes: int = EXP7_NODES) -> LaminarConfig:
+    """``benchmarks/common.py`` ``bench_cfg(num_nodes=...)``, the config of
+    each cell of ``benchmarks/bench_exp7_scale.py`` (stationary, memory off)."""
+    cap = 1 << max(13, (num_nodes * 8 - 1).bit_length())
+    return LaminarConfig(
+        num_nodes=num_nodes, zone_size=min(256, max(32, num_nodes // 8)),
+        probe_capacity=min(cap, 1 << 17), max_arrivals_per_tick=512, horizon_ms=800.0,
+        rho=0.8,
+    )
+
+
+@contextmanager
+def recording_rounds():
+    """Record every ``hotpath.bitmap_fit_rounds`` call made while the block
+    runs, into the list it yields: ``(args, kw, outputs)``, ``args`` the
+    kernel's seven columns as the call gave them (copies), ``kw`` its
+    keywords."""
+    from repro_torch.core import hotpath
+
+    real = hotpath.bitmap_fit_rounds
+    calls = []
+
+    def record(cfg, s, throttled):
+        out = real(cfg, s, throttled)
+        args = (s.st, s.node, s.ev, s.mass, s.contig, s.free, throttled)
+        kw = dict(rounds=cfg.arb_rounds, atoms=cfg.atoms_per_node, policy=cfg.alloc_policy)
+        calls.append((tuple(a.clone() for a in args), kw, out))
+        return out
+
+    hotpath.bitmap_fit_rounds = record
+    try:
+        yield calls
+    finally:
+        hotpath.bitmap_fit_rounds = real
+
+
+def tick_rounds(cfg: LaminarConfig, warmup: int, ticks: int, device="cuda", seed: int = 0):
+    """The ``bitmap_fit_rounds`` calls of the flat engine's ticks ``warmup``
+    to ``warmup + ticks - 1`` of a run from ``seed`` (``recording_rounds``)."""
+    eng = LaminarEngine(cfg, device=device)
+    s, lam = eng.init(seed)
+    draws = eng.draws(lam, s.zstart.shape[0], seed=seed)
+    step = make_step(cfg)
+    for t in range(warmup):
+        s, _ = step(s, draws.tick(t))
+    with recording_rounds() as calls:
+        for t in range(warmup, warmup + ticks):
+            s, _ = step(s, draws.tick(t))
+    return calls
+
+
+def rounds_traffic(calls) -> dict:
+    """What the recorded ``bitmap_fit_rounds`` calls were given, a call on
+    average: probe slots, queued slots (and those on unthrottled nodes),
+    winners (by round) and admissions; and the free runs, on the words of
+    that round, of each node whose winner passes the fit test and so
+    reaches the allocation (the kernel walks them): a count of such nodes
+    by free runs, for contiguous and for dispersed demands."""
+    from repro_torch.core.bitmap import unpack_bits
+    from repro_torch.core.state import QUEUED
+    from repro_torch.kernels.bitmap_fit import bitmap_fit_ref
+
+    n = len(calls)
+    sums = Counter()
+    runs = {"contiguous": Counter(), "dispersed": Counter()}
+    for args, kw, outs in calls:
+        st, node, _, mass, contig, words, throttled = args
+        winner, feas, alloc = outs[:3]
+        N = words.shape[0]
+        queued = st == QUEUED
+        sums["slots"] += st.shape[0]
+        sums["queued"] += int(queued.sum())
+        sums["queued_open"] += int((queued & ~throttled[node.clamp(0, N - 1)]).sum())
+        for r in range(kw["rounds"]):
+            live = winner[r] >= 0
+            ws = winner[r].clamp(min=0)
+            reach = live & (bitmap_fit_ref(words, mass[ws], contig[ws]) != 0)
+            bits = unpack_bits(words, kw["atoms"])
+            starts = bits.clone()
+            starts[:, 1:] &= ~bits[:, :-1]
+            nruns = starts.sum(1)
+            sums[f"winners_round{r}"] += int(live.sum())
+            sums["admitted"] += int(feas[r].sum())
+            sums["reach_alloc"] += int(reach.sum())
+            for kind, sel in (("contiguous", reach & contig[ws]), ("dispersed", reach & ~contig[ws])):
+                vals, cnt = np.unique(nruns[sel].cpu().numpy(), return_counts=True)
+                runs[kind].update(dict(zip(vals.tolist(), cnt.tolist())))
+            words = words & ~alloc[r]
+    out = {k: v / n for k, v in sums.items()}
+    out["winners"] = sum(v for k, v in out.items() if k.startswith("winners_round"))
+    out["queued_share"] = sums["queued"] / sums["slots"]
+    out["free_runs"] = {kind: dict(sorted(c.items())) for kind, c in runs.items()}
+    out["calls"] = n
+    return out
+
+
+def print_traffic(label: str, tr: dict) -> None:
+    print(f"rounds traffic [{label}], a tick over {tr['calls']} ticks: "
+          f"{tr['queued']:.1f} of {tr['slots']:.0f} slots queued "
+          f"({tr['queued_share']:.4%}; {tr['queued_open']:.1f} on unthrottled nodes); "
+          f"winners {tr['winners']:.1f} ("
+          + ", ".join(f"round {k[-1]} {v:.1f}" for k, v in tr.items()
+                      if k.startswith("winners_round"))
+          + f"), admitted {tr['admitted']:.1f}, reaching the allocation "
+          f"{tr['reach_alloc']:.1f}; those nodes by free runs, over all ticks: "
+          f"{tr['free_runs']}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -128,12 +247,24 @@ def profile(airlock: bool, engine_cls) -> int:
               f"(idle {1 - busy / wall:.1%})")
         for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
             print(f"  device {us / n:9.1f} us/tick  {name[:90]}")
+        for kname in HAND_WRITTEN:
+            hits = [(e.time_range.elapsed_us()) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and kname in e.name]
+            print(f"  hand-written {kname}: {len(hits) / n:.1f} launches/tick, "
+                  f"{sum(hits) / n:.3f} us/tick device time")
     ka = prof.key_averages()
     cpu_ops = sorted(ka, key=lambda e: -e.self_cpu_time_total)
     n_ops = sum(e.count for e in ka if e.key.startswith("aten::"))
     print(f"host: {n_ops / n:.0f} aten ops/tick (nested ones included)")
     for e in cpu_ops[:12]:
         print(f"  host {e.self_cpu_time_total / n:9.1f} us/tick self, {e.count / n:6.1f} calls/tick  {e.key[:70]}")
+    if engine_cls is LaminarEngine:
+        with recording_rounds() as calls:
+            for _ in range(n):
+                s, _ = step(s, draws.tick(t))
+                t += 1
+        print_traffic(f"Exp5, {'airlock' if airlock else 'kernel-oom'}, ticks {t - n} to {t - 1}",
+                      rounds_traffic(calls))
     return 0
 
 

@@ -86,6 +86,72 @@ def test_bitmap_fit_blocked_matches_plain(dev, Z, M, W):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _rounds_cases():
+    from repro_torch.kernel_bench import rounds_edge_cases, rounds_inputs
+
+    cases = dict(rounds_edge_cases())
+    for label, (N, P) in {"ragged": (37, 1029), "exp5": (5000, 65536),
+                          "exp7": (65536, 131072)}.items():
+        for policy in ("best", "first"):
+            cases[f"{label}-{policy}"] = rounds_inputs(N, P, seed=N, policy=policy)
+    return cases
+
+
+ROUNDS_CASES = ("ev_ties", "inf_and_signed_zero", "nan", "half_throttled", "few_queued",
+                "all_on_one", "mass_0_and_past_atoms", "atoms_48", "words_3", "words_8",
+                "first_fit", "first_fit_words_8", "exp7_all_queued", "ragged-best",
+                "ragged-first", "exp5-best", "exp5-first", "exp7-best", "exp7-first")
+
+
+@pytest.mark.parametrize("case", ROUNDS_CASES)
+def test_bitmap_fit_rounds_matches_plain(dev, case):
+    """One launch a call, bit-equal to R rounds of the plain version (on CPU
+    copies, and for the NaN case also on the card, whose scatter-max must
+    agree), at the corner cases of ``kernel_bench.rounds_edge_cases`` and at
+    ragged, Exp5 and Exp7 shapes under both policies."""
+    args, kw = _rounds_cases()[case]
+    n0, f0 = bitmap_fit.bitmap_fit_rounds.launches, bitmap_fit.bitmap_fit.launches
+    want, got = _both(bitmap_fit.bitmap_fit_rounds, args, kw, dev)
+    assert bitmap_fit.bitmap_fit_rounds.launches == n0 + 1
+    assert bitmap_fit.bitmap_fit.launches == f0
+    names = ("winner", "feas", "alloc", "round", "admit")
+    for name, w, g in zip(names, want, got):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+    if case == "nan":
+        plain_cuda = bitmap_fit.bitmap_fit_rounds_ref(*[a.to(dev) for a in args], **kw)
+        for name, w, g in zip(names, plain_cuda, got):
+            torch.testing.assert_close(g, w.cpu(), rtol=0, atol=0, msg=name)
+    assert int((want[0] >= 0).sum()) > 0
+
+
+def test_bitmap_fit_rounds_is_one_device_kernel(dev):
+    """A call captured in a CUDA graph is one kernel node and nothing else."""
+    from repro_torch.kernel_bench import graph_nodes, rounds_inputs
+
+    args, kw = rounds_inputs(5000, 65536, seed=3)
+    args = [a.to(dev) for a in args]
+    nodes = graph_nodes(lambda: bitmap_fit.bitmap_fit_rounds(*args, **kw))
+    assert nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0}, nodes
+
+
+def test_bitmap_fit_rounds_cluster_fits_the_card(dev):
+    """At every shape of kernel_contract.GEOMETRIES, and for 1 to 8 words a
+    node, the one cluster can be resident with the non-portable attribute;
+    registers fit 512 threads a block."""
+    from repro_torch.analysis.kernel_contract import GEOMETRIES
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bitmap_fit import ops as bops
+    from repro_torch.kernels.bitmap_fit import plan as bp
+
+    for k in range(1, len(bp.KERNELS)):
+        regs = _build.attrs("bitmap_fit", k)["registers"]
+        assert regs * bp.ROUND_THREADS <= 65536, (bp.KERNELS[k], regs)
+    for W in (1, 2, 3, 8):
+        for g in GEOMETRIES.values():
+            occ = bops.rounds_cluster_occupancy(bp.rounds_plan(g["P"], g["N"], W, 3, 32 * W))
+            assert occ["clusters"] >= 1 and occ["nonportable"] == 1, (W, g, occ)
+
+
 @pytest.mark.parametrize("P,K", [(1, 4), (777, 8), (65536, 8)])
 def test_utility_topk_matches_plain(dev, P, K):
     rng = np.random.default_rng(P * K)
@@ -222,6 +288,21 @@ def test_engine_cuda_matches_cpu(dev, airlock):
     assert outs[0]["started"] > 0
 
 
+def test_flat_tick_launches_bitmap_fit_rounds_once(dev):
+    """The flat tick runs its arbitration rounds as one bitmap_fit_rounds
+    launch and never the one-round bitmap_fit."""
+    cfg = dataclasses.replace(SMALL_EXP5, airlock=True)
+    eng = LaminarEngine(cfg, device=dev)
+    s, lam = eng.init(0)
+    draws = eng.draws(lam, s.zstart.shape[0], 0)
+    counters = (bitmap_fit.bitmap_fit_rounds, bitmap_fit.bitmap_fit,
+                bitmap_fit.bitmap_fit_blocked)
+    before = [c.launches for c in counters]
+    eng.simulate(s, draws, 30)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [30, 0, 0]
+
+
 # ---------------------------------------------------------------------------
 # launch plans on the card: block_copy and the compiled attributes
 # ---------------------------------------------------------------------------
@@ -248,6 +329,38 @@ def test_block_copy_matches_plan_interpreter(dev, grid, offset):
     assert block_copy.launches == n0 + 1
     want = block_copy_ref(x, p)
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def _copy_plans():
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels.block_copy.plan import good_plan
+
+    path = Path(__file__).resolve().parent / "fixtures" / "torch_analysis" / "bad_launch_tail.py"
+    spec = importlib.util.spec_from_file_location("bad_launch_tail", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return {"good": good_plan(1024, 128), **{k: p for k, (p, _) in mod.PLANS.items()}}
+
+
+@pytest.mark.parametrize("name", ["good", "tail_dropping_grid", "index_map_overshoot",
+                                  "vmem_over_budget"])
+def test_block_copy_is_one_device_kernel(dev, name):
+    """A call is one kernel under every plan (its NaN tail filled in the same
+    launch: no memset node), and equals the plan interpreter where the plan
+    stays inside x, NaN tail included."""
+    from repro_torch.kernel_bench import graph_nodes
+    from repro_torch.kernels.block_copy import block_copy, block_copy_ref
+
+    p = _copy_plans()[name]
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=1024).astype(np.float32)).to(dev)
+    nodes = graph_nodes(lambda: block_copy(x, p))
+    assert nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0}, nodes
+    got = block_copy(x, p)
+    if name != "index_map_overshoot":  # that one reads past x (see below)
+        torch.testing.assert_close(got.cpu(), block_copy_ref(x.cpu(), p), rtol=0, atol=0,
+                                   equal_nan=True)
 
 
 def test_block_copy_overshoot_reads_past_the_end(dev):
