@@ -18,10 +18,13 @@ and no result line:
      kernels at 5000 nodes / 65 536 slots, the zone-blocked
      ``bitmap_fit_blocked`` at its 20 x 301 block) and Exp7's top cell of
      phase 5 (65 536 nodes / 131 072 slots, blocked at 253 x 307), there
-     ``bitmap_fit_rounds`` on the inputs the flat engine's own tick gives it
-     (Exp5's tick 200, Exp7's tick 99; what they hold is printed); time
-     kernel and plain version on the card at each, and ``bitmap_fit_rounds``
-     against the one-round ``bitmap_fit`` launches it replaces;
+     ``bitmap_fit_rounds``, ``utility_topk_address`` (the DA addressing
+     step in one launch) and ``zone_aggregate_members`` (the TEG refresh in
+     one launch; also without its select, as the sharded tick calls it) on
+     the inputs the flat engine's own tick gives them (Exp5's tick 200,
+     Exp7's tick 99; what they hold is printed); time kernel and plain
+     version on the card at each, and ``bitmap_fit_rounds`` against the
+     one-round ``bitmap_fit`` launches it replaces;
      ``survival_scan`` also at its corners
      (``repro_torch.kernel_bench.edge_cases``: signed-zero score ties, +-inf
      scores, one node with a fifth of the slots, an empty table, every slot
@@ -31,6 +34,12 @@ and no result line:
      than rounds, demands of 0 and past the atoms, 48 atoms and 3 or 8 words
      a node, both policies, every probe queued at Exp7's shape), bit-equal,
      the NaN case also to the plain version on the card;
+     ``utility_topk_address`` at its own (``address_edge_cases``: no slot
+     and every slot addressing, every candidate infeasible, score ties,
+     node -1, empty zones, migrating probes that Fast-Fail, bounces into
+     another zone, stale reports, no projection, K = 5), every output
+     bit-equal on every input, a mismatched slot printed with its score
+     gap;
   2b. every launch under its checked plan: each kernel's compiled attributes
      (``<name>_attrs``: static shared memory, registers, maxThreadsPerBlock)
      against every plan of phase 2's shapes (static shared memory as
@@ -50,9 +59,11 @@ and no result line:
      against the plan interpreter, timed beside ``Tensor.clone``;
   3. run the flat engine on the card at the Exp5 geometry (5000 nodes,
      65 536 probe slots, memory dynamics on), Airlock off then on, 800
-     ticks each; check the launch counts (one ``bitmap_fit_rounds`` a tick,
-     no one-round ``bitmap_fit``), the task-conservation identity and the
-     host syncs;
+     ticks each; check the launch counts (one ``bitmap_fit_rounds``, one
+     ``utility_topk_address`` and one ``zone_aggregate_members`` a tick; no
+     one-round ``bitmap_fit`` and no tile ``utility_topk`` or
+     ``zone_aggregate``), the task-conservation identity and the host
+     syncs;
   4. run 64-node configs on the CPU (plain versions) and on the card
      (kernels) with the same draws and compare every integer metric and the
      per-tick timeseries: Exp5 Airlock off and on, the six scenario presets
@@ -105,12 +116,19 @@ REPLACES = {
     "bitmap_fit_rounds": "src/repro/kernels/bitmap_fit/kernel.py:117",  # redesigned
     "bitmap_fit_blocked": "src/repro/kernels/bitmap_fit/ops.py:40",
     "utility_topk": "src/repro/kernels/utility_topk/kernel.py:67",
+    "utility_topk_address": "src/repro/kernels/utility_topk/kernel.py:67",  # redesigned
     "zone_aggregate": "src/repro/kernels/zone_aggregate/kernel.py:47",
+    "zone_aggregate_members": "src/repro/kernels/zone_aggregate/kernel.py:47",  # redesigned
     "survival_scan": "src/repro/kernels/survival_scan/kernel.py:241",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["bitmap_fit_blocked"] = "src/repro_torch/csrc/bitmap_fit.cu"  # same kernel
 SOURCES["bitmap_fit_rounds"] = "src/repro_torch/csrc/bitmap_fit.cu"  # same source
+SOURCES["utility_topk_address"] = "src/repro_torch/csrc/utility_topk.cu"  # same source
+SOURCES["zone_aggregate_members"] = "src/repro_torch/csrc/zone_aggregate.cu"  # same kernel
+# the entries whose outputs must equal the plain version's bit for bit, the
+# floats included (the others' float outputs: rtol 1e-5)
+EXACT = ("survival_scan", "utility_topk_address")
 
 
 class SmokeFailure(Exception):
@@ -175,6 +193,87 @@ def kernel_cases(N, P, K, Z, M, W, seed):
             "survival_scan": surv}
 
 
+def members_case(member, mask, seed, t=None, every=20):
+    """zone_aggregate_members inputs on a zone geometry ((Z, M) members and
+    validity): reported slack and heat of the nodes, and with ``t`` the old
+    table for the refresh select; bytes and operations None (from the data)."""
+    rng = np.random.default_rng(seed)
+    Z = member.shape[0]
+    N = int(member.max()) + 1
+
+    def f(n):
+        return torch.from_numpy(rng.uniform(0, 64, n).astype(np.float32))
+
+    args = (f(N), f(N), torch.from_numpy(member), torch.from_numpy(mask))
+    if t is not None:
+        args += (torch.tensor(t, dtype=torch.int32), f(Z), f(Z))
+    return args, dict(every=every), None, None
+
+
+def members_work(args, kw):
+    """(bytes, operations) of zone_aggregate_members on these inputs: on a
+    refresh tick (or without the select) the member index and mask of every
+    slot, S and H of each distinct member, the tick, the table out; off a
+    refresh tick the tick, the old table and the table out."""
+    member = args[2]
+    Z, M = member.shape
+    if len(args) > 4 and int(args[4]) % kw["every"] != 0:
+        return 4 + 16 * Z, Z
+    return (8 * Z * M + 8 * int(member.unique().numel()) + 8 * Z + (4 if len(args) > 4 else 0),
+            6 * Z * M)
+
+
+def address_work(args, kw, want):
+    """(bytes, operations) of utility_topk_address on these inputs: st,
+    node, zone, timer and patience of every slot read once and the five
+    written; of each addressing slot also migrating, mass, contig and its
+    2K - 1 draws; the zone start and count of each distinct zone addressed
+    from; the reported view (with derivatives when projecting) of each
+    distinct sampled candidate, the true view of each distinct launchpad,
+    the zone id of each distinct bounce target; the tick and the counts.
+    About forty operations a candidate."""
+    from repro_torch.core.state import ADDRESSING, BOUNCING
+    from repro_torch.kernels.utility_topk.ref import address_view
+
+    P, K = args[9].shape
+    active = args[0] == ADDRESSING
+    A = int(active.sum())
+    here, cand = address_view(*args, **kw)[:2]
+    bounced = active & (want[0] == BOUNCING)
+    per_node = 24 if kw["projection"] else 16
+    nbytes = (40 * P + A * (6 + 4 * (2 * K - 1)) + 8 * int(args[2][active].unique().numel())
+              + per_node * int(cand[active][:, 1:].unique().numel())
+              + 12 * int(here[active].unique().numel())
+              + 4 * int(want[1][bounced].unique().numel()) + 4 + 12)
+    return nbytes, 40 * A * K + 4 * P
+
+
+def address_mismatches(args, kw, got, want, limit=8):
+    """Print the slots whose outputs differ from the plain version's, each
+    with its score gap: the best score less the runner-up's, and the best
+    less the launchpad's score plus the margin (a near-tie shows as a gap
+    of an ulp or so)."""
+    from repro_torch.kernels.utility_topk.ref import address_view, utility_topk_ref
+
+    bad = torch.zeros(args[0].shape[0], dtype=torch.bool)
+    for g, w in zip(got[:5], want[:5]):
+        bad |= g != w
+    rows = bad.nonzero().flatten()[:limit]
+    if not len(rows):
+        return
+    here, cand, s_eff, h_eff, feas, eps = address_view(*args, **kw)
+    best, val = utility_topk_ref(s_eff, h_eff, eps, feas, kw["gamma"])
+    score = torch.where(feas, torch.log2(1.0 + s_eff.clamp(min=0))
+                        - kw["gamma"] * torch.log2(1.0 + h_eff.clamp(min=0)) + eps, -3.0e38)
+    top2 = score.topk(2, dim=1).values if score.shape[1] > 1 else score.repeat(1, 2)
+    for i in rows.tolist():
+        print(f"  slot {i}: kernel (st, node, zone, timer, patience) "
+              f"{[float(g[i]) for g in got[:5]]}, plain {[float(w[i]) for w in want[:5]]}; "
+              f"best {int(best[i])} score {float(val[i])!r}, gap to the runner-up "
+              f"{float(top2[i, 0] - top2[i, 1])!r}, gap to the launchpad + margin "
+              f"{float(val[i] - (score[i, 0] + kw['stay_margin']))!r}")
+
+
 def rounds_work(args, kw, want):
     """(bytes, operations) ``bitmap_fit_rounds`` must move and do on these
     inputs, from the plain version's outputs: st of every slot; node, ev and
@@ -211,6 +310,18 @@ def blocked_case(member, mask, W, seed):
             t(np.where(valid, mass[member], 0).astype(np.int32)), t(valid & contig[member]))
     R = Z * M  # the kernel reads every slot, padding included
     return args, {}, R * (4 * W + 4 + 1 + 4), R * (40 + 10 * W)
+
+
+def work(name, case, want):
+    """(bytes, operations) a kernel entry must move and do on a case: from
+    the case where its shapes fix them, else from the data."""
+    if case[2] is not None:
+        return case[2:4]
+    if name == "bitmap_fit_rounds":
+        return rounds_work(case[0], case[1], want)
+    if name == "utility_topk_address":
+        return address_work(case[0], case[1], want)
+    return members_work(case[0], case[1])
 
 
 def to_dev(args, dev):
@@ -270,10 +381,11 @@ def compare(name, got, want):
         if w.dtype.is_floating_point:
             e = float((g - w).abs().max()) if w.numel() else 0.0
             err = max(err, e)
-            # survival_scan's pressure is summed in slot order on both sides:
-            # exact; utility_topk (log2f vs the CPU log2) and zone_aggregate
+            # survival_scan's pressure is summed in slot order on both sides
+            # and utility_topk_address's patience is plain arithmetic: exact;
+            # utility_topk (log2f vs the CPU log2) and zone_aggregate(_members)
             # (summation order) are held to rtol 1e-5
-            tol = 0.0 if name == "survival_scan" else 1e-5
+            tol = 0.0 if name in EXACT else 1e-5
             check(torch.allclose(g, w, rtol=tol, atol=tol),
                   f"{name} output {i}: max abs err {e} beyond rtol {tol}")
         else:
@@ -284,10 +396,13 @@ def compare(name, got, want):
 
 def check_kernel(name, wrapper, ref, case, dev):
     """The wrapper on the card against its plain version on CPU copies;
-    returns (max abs err, the plain version's outputs)."""
+    returns (max abs err, the plain version's outputs). A mismatched slot of
+    utility_topk_address is printed with its score gap."""
     args, kw = case[0], case[1]
     got = [g.cpu() for g in as_tuple(wrapper(*to_dev(args, dev), **kw))]  # waits
     want = as_tuple(ref(*args, **kw))
+    if name == "utility_topk_address":
+        address_mismatches(args, kw, got, want)
     return compare(name, got, want), want
 
 
@@ -306,12 +421,16 @@ def phase2(dev, geometries):
         bitmap_fit_rounds_ref,
     )
     from repro_torch.kernels.survival_scan import survival_scan_ref
-    from repro_torch.kernels.utility_topk import utility_topk_ref
-    from repro_torch.kernels.zone_aggregate import zone_aggregate_ref
+    from repro_torch.kernel_bench import address_edge_cases, address_inputs, address_kw
+    from repro_torch.kernels.utility_topk import utility_topk_address_ref, utility_topk_ref
+    from repro_torch.kernels.zone_aggregate import zone_aggregate_members_ref, zone_aggregate_ref
 
     refs = {"bitmap_fit": bitmap_fit_ref, "bitmap_fit_blocked": bitmap_fit_blocked_ref,
             "bitmap_fit_rounds": bitmap_fit_rounds_ref, "utility_topk": utility_topk_ref,
-            "zone_aggregate": zone_aggregate_ref, "survival_scan": survival_scan_ref}
+            "utility_topk_address": utility_topk_address_ref,
+            "zone_aggregate": zone_aggregate_ref,
+            "zone_aggregate_members": zone_aggregate_members_ref,
+            "survival_scan": survival_scan_ref}
     # ragged small shape first: tails that are no multiple of a block
     ragged = kernel_cases(N=37, P=1029, K=8, Z=3, M=13, W=2, seed=1)
     member, mask = densify_zones(np.array([0, 13, 20], np.int32), np.array([13, 7, 10], np.int32))
@@ -320,6 +439,9 @@ def phase2(dev, geometries):
 
     # bytes and operations of bitmap_fit_rounds follow from the data: None
     ragged["bitmap_fit_rounds"] = (*rounds_inputs(37, 1029, 2, seed=1), None, None)
+    ragged["utility_topk_address"] = (address_inputs(37, 1029, 8, 3, seed=1, addressing=0.3),
+                                      address_kw(), None, None)
+    ragged["zone_aggregate_members"] = members_case(member, mask, seed=1, t=40)
     checked = {"ragged": {}}
     for name, case in ragged.items():
         checked["ragged"][name] = (case, check_kernel(name, WRAPPERS[name], refs[name], case, dev)[1])
@@ -357,17 +479,35 @@ def phase2(dev, geometries):
         checked[f"rounds {cname}"] = {"bitmap_fit_rounds": (case, want)}
     print(f"phase 2: bitmap_fit_rounds edge cases ({', '.join(rounds_edge_cases())}): bit-equal "
           "to the plain version (NaN: on the CPU and on the card)")
+    # utility_topk_address's corners: no slot / every slot addressing, every
+    # candidate infeasible, score ties, node -1, empty zones, migrating
+    # probes that Fast-Fail, bounces into another zone, stale reports, no
+    # projection, K = 5; every output bit-equal
+    for cname, (args, kw) in address_edge_cases().items():
+        case = (args, kw, None, None)
+        want = check_kernel("utility_topk_address", WRAPPERS["utility_topk_address"],
+                            utility_topk_address_ref, case, dev)[1]
+        checked[f"address {cname}"] = {"utility_topk_address": (case, want)}
+    print(f"phase 2: utility_topk_address edge cases ({', '.join(address_edge_cases())}): "
+          "bit-equal to the plain version on every output")
     rows = {}
-    from repro_torch.profile_tick import print_traffic, rounds_traffic, tick_rounds
+    from repro_torch.core.state import ADDRESSING
+    from repro_torch.profile_tick import print_traffic, rounds_traffic, tick_calls
 
+    recorded = ("bitmap_fit_rounds", "utility_topk_address", "zone_aggregate_members")
     for seed, (label, (geometry, zones, (cfg, tick))) in enumerate(geometries.items(), start=2):
         cases = kernel_cases(**geometry, seed=seed)
         cases["bitmap_fit_blocked"] = blocked_case(*zones, W=geometry["W"], seed=seed)
-        calls = tick_rounds(cfg, tick, 1, device=dev)
-        print_traffic(f"{label}, tick {tick}", rounds_traffic(calls))
-        args, kw, _ = calls[0]
-        cases["bitmap_fit_rounds"] = (tuple(a.cpu() for a in args), kw, None, None)
-        print(f"phase 2 [{label}]: {geometry}, blocked (Z, M) = {tuple(zones[0].shape)}")
+        calls = tick_calls(cfg, tick, 1, recorded, device=dev)
+        print_traffic(f"{label}, tick {tick}", rounds_traffic(calls["bitmap_fit_rounds"]))
+        for name in recorded:  # the engine's own tick's inputs
+            ((args, kw, _),) = calls[name]
+            cases[name] = (tuple(a.cpu() for a in args), kw, None, None)
+        args, kw = cases["utility_topk_address"][:2]
+        every = cases["zone_aggregate_members"][1]["every"]
+        print(f"phase 2 [{label}]: {geometry}, blocked (Z, M) = {tuple(zones[0].shape)}; "
+              f"tick {tick}: {int((args[0] == ADDRESSING).sum())} of {args[0].shape[0]} slots "
+              f"addressing, a refresh tick: {tick % every == 0}")
         checked[label] = {}
         times = {}
         cfg_rounds = cases["bitmap_fit_rounds"][1]["rounds"]
@@ -376,7 +516,7 @@ def phase2(dev, geometries):
             checked[label][name] = (case, want)
             args = to_dev(case[0], dev)
             kw = case[1]
-            nbytes, nops = rounds_work(case[0], kw, want) if case[2] is None else case[2:4]
+            nbytes, nops = work(name, case, want)
             ms = device_ms(lambda: WRAPPERS[name](*args, **kw))
             plain_ms = device_ms(lambda: refs[name](*args, **kw))
             eager_ms = call_ms(lambda: WRAPPERS[name](*args, **kw))
@@ -397,6 +537,13 @@ def phase2(dev, geometries):
         print(f"phase 2 [{label}]: bitmap_fit_rounds {times['bitmap_fit_rounds']:.6f} ms a tick "
               f"against {cfg_rounds} one-round bitmap_fit launches, "
               f"{cfg_rounds * times['bitmap_fit']:.6f} ms")
+        # the sharded tick's call: the rank's zone rows without the select
+        case = (cases["zone_aggregate_members"][0][:4], {}, None, None)
+        want = check_kernel("zone_aggregate_members", WRAPPERS["zone_aggregate_members"],
+                            zone_aggregate_members_ref, case, dev)[1]
+        checked[f"{label}, no select"] = {"zone_aggregate_members": (case, want)}
+        print(f"phase 2 [{label}]: zone_aggregate_members without the select (the sharded "
+              f"tick's call) on tick {tick}'s inputs: equal to the plain version")
     return rows, checked
 
 
@@ -688,10 +835,14 @@ def drive(eng, s, draws, ticks):
 
 def want_launches(cfg, ticks, sharded):
     """The flat tick runs its rounds as one bitmap_fit_rounds, the sharded
-    tick one bitmap_fit_blocked a round; the one-round bitmap_fit on none."""
+    tick one bitmap_fit_blocked a round; the one-round bitmap_fit on none.
+    Both ticks address with one utility_topk_address and refresh with one
+    zone_aggregate_members; the tile entries utility_topk and zone_aggregate
+    run on none."""
     return {"bitmap_fit": 0, "bitmap_fit_blocked": cfg.arb_rounds * ticks if sharded else 0,
-            "bitmap_fit_rounds": 0 if sharded else ticks, "utility_topk": ticks,
-            "zone_aggregate": ticks, "survival_scan": ticks if cfg.memory.enabled else 0}
+            "bitmap_fit_rounds": 0 if sharded else ticks, "utility_topk": 0,
+            "utility_topk_address": ticks, "zone_aggregate": 0, "zone_aggregate_members": ticks,
+            "survival_scan": ticks if cfg.memory.enabled else 0}
 
 
 def check_run(tag, out, launches, want):
@@ -948,9 +1099,9 @@ def main() -> int:
     )
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
           else f"nvidia-smi unavailable (rc {smi.returncode})")
-    # one card driven: the script's process group has one rank
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -237,8 +237,8 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
         bitmap_fit_rounds_ref,
     )
     from repro_torch.kernels.survival_scan import survival_scan_ref
-    from repro_torch.kernels.utility_topk import utility_topk_ref
-    from repro_torch.kernels.zone_aggregate import zone_aggregate_ref
+    from repro_torch.kernels.utility_topk import utility_topk_address_ref, utility_topk_ref
+    from repro_torch.kernels.zone_aggregate import zone_aggregate_members_ref, zone_aggregate_ref
 
     N, W, A, P, K, Z, M = (geom[k] for k in ("N", "W", "A", "P", "K", "Z", "M"))
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
@@ -249,6 +249,14 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
     surv_kw = dict(airlock=True, residual=0.3, watermark=0.9, safe=0.8, t_susp=80, t_surv=240)
     cols = (z((P,), i32), z((P,), i32), z((P,), f32), z((P,), f32), z((P,), i32),
             z((P,), b8), z((P,), i32), z((P,), i32), z((N,), f32), z((), i32))
+    # utility_topk_address: the probe columns, the draws, zones, nodes, tick
+    address = (*(z((P,), i32) for _ in range(4)), z((P,), f32), z((P,), b8), z((P,), i32),
+               z((P,), b8), z((P, K - 1), f32), z((P, K), f32), z((Z,), i32), z((Z,), i32),
+               z((N,), i32), z((N,), f32), z((N,), f32), z((N,), f32), z((N,), i32),
+               *(z((N,), f32) for _ in range(5)), z((), i32))
+    address_kw = dict(gamma=1.0, sigma=0.5, stay_margin=1.0, eval_cost=3.0, bounce_cost=6.0,
+                      fastfail_floor=1.0, projection=True, tau=10.0, dt_ms=0.5,
+                      degrade_after_ms=50.0, degrade_halflife_ms=50.0)
     return [
         ("bitmap_fit", (z((N, W), i32), z((N,), i32), z((N,), b8)), {}, bitmap_fit_ref),
         ("bitmap_fit_blocked", (z((Z, M, W), i32), z((Z, M), i32), z((Z, M), b8)), {},
@@ -258,8 +266,12 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
          dict(rounds=3, atoms=A, policy="best"), bitmap_fit_rounds_ref),
         ("utility_topk", (z((P, K), f32), z((P, K), f32), z((P, K), f32), z((P, K), b8), 1.0),
          {}, utility_topk_ref),
+        ("utility_topk_address", address, address_kw, utility_topk_address_ref),
         ("zone_aggregate", (z((Z, M), f32), z((Z, M), f32), z((Z, M), f32)), {},
          zone_aggregate_ref),
+        ("zone_aggregate_members", (z((N,), f32), z((N,), f32), z((Z, M), i32), z((Z, M), f32),
+                                    z((), i32), z((Z,), f32), z((Z,), f32)), dict(every=20),
+         zone_aggregate_members_ref),
         ("survival_scan", cols, surv_kw, survival_scan_ref),
         ("survival_scan", cols, dict(surv_kw, airlock=False), survival_scan_ref),
     ]

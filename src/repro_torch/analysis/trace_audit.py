@@ -3,7 +3,7 @@
 Records, with a ``TorchDispatchMode``, every aten op of one tick of
 ``engine.make_step`` and of the making of that tick's draws
 (``TorchDraws.tick``), because a CUDA graph of the tick would capture both.
-The six hot-path entries are stubbed while the audit runs: each builds the
+The eight hot-path entries are stubbed while the audit runs: each builds the
 launch plan its wrapper would build, is recorded as one ``kernel.<entry>``
 op, and returns zeros of its plan's outputs, the counterpart of
 ``jax.eval_shape`` over ``pallas_call``. The audit so sees the tick as it
@@ -46,7 +46,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.analysis.findings import Finding
-from repro_torch.core import engine, hotpath
+from repro_torch.core import engine, hotpath, zhaf
 from repro_torch.core.config import BaselineConfig, LaminarConfig, MemoryConfig, WorkloadConfig
 from repro_torch.core.draws import TorchDraws
 from repro_torch.kernels import PLANS, WRAPPERS
@@ -196,7 +196,7 @@ class OpRecorder(TorchDispatchMode):
 
 @contextlib.contextmanager
 def stub_hotpath(recorder: Optional[OpRecorder] = None):
-    """Replace the six hot-path wrappers by their plans' outputs (zeros).
+    """Replace the eight hot-path wrappers by their plans' outputs (zeros).
 
     ``core.hotpath`` looks each wrapper up on its ops module at call time,
     so patching the module attribute reaches every call site."""
@@ -376,7 +376,12 @@ def _hotpath_cases(cfg: LaminarConfig, s: Any):
          (z(Z, M, W, dtype=i32), z(Z, M, dtype=i32), z(Z, M, dtype=b8))),
         ("bitmap_fit_rounds", hotpath.bitmap_fit_rounds, (cfg, s, z(N, dtype=b8))),
         ("utility_topk", hotpath.utility_topk, (z(P, K), z(P, K), z(P, K), z(P, K, dtype=b8), 1.0)),
+        ("utility_topk_address", hotpath.utility_topk_address,
+         (cfg, s, TorchDraws(cfg, 1.0, Z, seed=0, device="cpu").tick(0),
+          zhaf.build_view(cfg, s))),
         ("zone_aggregate", hotpath.zone_aggregate, (z(Z, M), z(Z, M), z(Z, M))),
+        ("zone_aggregate_members", hotpath.zone_aggregate_members,
+         (s.rep_S, s.rep_H, s.zmember, s.zmask, s.t, s.zS, s.zH)),
         ("survival_scan", hotpath.survival_scan, (cfg, s)),
         ("survival_scan[kernel OOM]", hotpath.survival_scan,
          (dataclasses.replace(cfg, airlock=False), s)),

@@ -27,7 +27,6 @@ from repro_torch.core.state import (
     SimState,
     count,
 )
-from repro_torch.core.utility import unified_utility
 
 
 def _dissipate_st(s: SimState, mask: torch.Tensor) -> torch.Tensor:
@@ -90,68 +89,16 @@ def address(
     """One bounded addressing round for every kinetic DA (st == ADDRESSING).
 
     Candidate 0 is the current launchpad; k-1 more are sampled uniformly inside
-    the Zone. If j* is the launchpad we enqueue locally; otherwise one bounce.
+    the Zone and evaluated against the projected Z-HAF field. If j* is the
+    launchpad we enqueue locally; otherwise one bounce. The whole round is the
+    ``utility_topk_address`` hot-path op (one kernel launch on CUDA).
     """
-    active = s.st == ADDRESSING
-
-    zc = torch.clamp(s.zcount[s.zone], min=1).to(torch.float32)
-    cand = s.zstart[s.zone][:, None] + torch.floor(d.cand_u * zc[:, None]).to(torch.int32)
-    cand = torch.clamp(cand, 0, cfg.num_nodes - 1)
-    here = torch.clamp(s.node, min=0)
-    cand = torch.cat([here[:, None], cand], dim=1)
-
-    s_eff, h_eff, run_eff = zhaf.project(cfg, s, cand)
-    # Candidate 0 is the node the DA stands on: it is evaluated against TRUE
-    # local state (the projections are fresh tensors, written in place)
-    s_eff[:, 0] = view.s_true[here]
-    h_eff[:, 0] = view.h_true[here]
-    run_eff[:, 0] = view.run_true[here]
-    mass_f = s.mass.to(torch.float32)[:, None]
-    feas = torch.where(s.contig[:, None], run_eff >= mass_f, s_eff >= mass_f)
-
-    # fused utility scoring + candidate argmax: the utility_topk hot-path op
-    eps = cfg.addr_noise_sigma * d.addr_eps
-    best, best_score = hotpath.utility_topk(
-        s_eff, h_eff, eps, feas, cfg.gamma_repulsion
-    )
-
-    any_feas = torch.any(feas, dim=1)
-    target = torch.gather(cand, 1, best[:, None].long())[:, 0]
-
-    # Controlled sub-optimality: a feasible launchpad is "sufficiently good"
-    # unless a remote candidate beats it by more than stay_margin bits. On
-    # CUDA best_score comes from the kernel and here_score from torch's own
-    # elementwise ops: the kernel repeats them exactly (see utility.py).
-    here_ok = feas[:, 0]
-    here_score = torch.where(
-        here_ok,
-        unified_utility(s_eff[:, 0], h_eff[:, 0], cfg.gamma_repulsion) + eps[:, 0],
-        -torch.inf,
-    )
-    prefer_here = here_ok & (best_score <= here_score + cfg.stay_margin)
-    target = torch.where(prefer_here, here, target)
-
-    stay = active & any_feas & (target == s.node)
-    bounce = active & any_feas & (target != s.node)
-
-    patience = torch.where(active, s.patience - cfg.eval_cost, s.patience)
-    patience = torch.where(bounce, patience - cfg.bounce_cost, patience)
-
-    st = torch.where(stay, QUEUED, s.st)
-    st = torch.where(bounce, BOUNCING, st)
-    node = torch.where(bounce, target, s.node)
-    timer = torch.where(bounce, 1, s.timer)  # single hop
-    zone = torch.where(bounce, s.zone_id[target], s.zone)
-
-    # Fast-Fail: patience below the floor dissipates the probe locally.
-    ff = active & (patience < cfg.fastfail_floor)
-    st = torch.where(ff, _dissipate_st(s._replace(st=st), ff), st)
-
+    st, node, zone, timer, patience, counts = hotpath.utility_topk_address(cfg, s, d, view)
     m = s.metrics
     m = m._replace(
-        op_eval=m.op_eval + count(active),
-        op_bounce=m.op_bounce + count(bounce & ~ff),
-        fastfail=m.fastfail + count(ff),
+        op_eval=m.op_eval + counts[0],
+        op_bounce=m.op_bounce + counts[1],
+        fastfail=m.fastfail + counts[2],
     )
     return s._replace(
         st=st, node=node, zone=zone, timer=timer, patience=patience, metrics=m

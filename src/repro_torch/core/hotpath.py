@@ -4,12 +4,15 @@ The four measured control-plane operations go through this module:
 bitmap feasibility (``arbiter``: ``bitmap_fit_rounds``, every arbitration
 round of the flat tick in one launch; ``bitmap_fit`` for one round;
 ``bitmap_fit_blocked`` for the zone blocks of the sharded engine), utility
-scoring + candidate argmax
-(``da``), zone aggregation (``teg``) and the fused Airlock survival scan
-(``engine``). Each forwards to its kernel package, whose wrapper dispatches
-by device: a CUDA tensor launches the hand-written Hopper kernel (or the
-wrapper raises), a CPU tensor takes the plain PyTorch version. There is no
-configuration switch and no fallback from one to the other.
+scoring + candidate argmax (``da``: ``utility_topk_address``, the whole
+addressing step in one launch; ``utility_topk`` on scored tiles), zone
+aggregation (``teg``: ``zone_aggregate_members``, the whole refresh in one
+launch; ``zone_aggregate`` on gathered tiles) and the fused Airlock
+survival scan (``engine``). Each forwards to its kernel package, whose
+wrapper dispatches by device: a CUDA tensor launches the hand-written
+Hopper kernel (or the wrapper raises), a CPU tensor takes the plain
+PyTorch version. There is no configuration switch and no fallback from
+one to the other.
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ __all__ = [
     "bitmap_fit_rounds",
     "survival_scan",
     "utility_topk",
+    "utility_topk_address",
     "zone_aggregate",
+    "zone_aggregate_members",
 ]
 
 # the survival_scan kernel package hardcodes the state-machine codes to stay
@@ -83,9 +88,41 @@ def utility_topk(
     return _topk_ops.utility_topk(s_pred, h_pred, eps, feasible, gamma)
 
 
+def address_params(cfg: LaminarConfig) -> dict:
+    """The keywords ``utility_topk_address`` takes from the config."""
+    return dict(
+        gamma=cfg.gamma_repulsion, sigma=cfg.addr_noise_sigma, stay_margin=cfg.stay_margin,
+        eval_cost=cfg.eval_cost, bounce_cost=cfg.bounce_cost,
+        fastfail_floor=cfg.fastfail_floor, projection=cfg.projection,
+        tau=cfg.sense_delay_ms, dt_ms=cfg.dt_ms, degrade_after_ms=cfg.degrade_after_ms,
+        degrade_halflife_ms=cfg.degrade_halflife_ms,
+    )
+
+
+def utility_topk_address(cfg: LaminarConfig, s, d, view):
+    """One DA addressing round (``core.da.address``) for every probe with
+    ``st == ADDRESSING``, reading the draws ``d`` and the true node view
+    ``view``. Returns the new ``(st, node, zone, timer, patience)`` (P,) and
+    the int32 counts ``(op_eval, op_bounce, fastfail)``."""
+    return _topk_ops.utility_topk_address(
+        s.st, s.node, s.zone, s.timer, s.patience, s.migrating, s.mass, s.contig,
+        d.cand_u, d.addr_eps, s.zstart, s.zcount, s.zone_id,
+        s.rep_S, s.rep_H, s.rep_run, s.rep_t, s.dS, s.dH,
+        view.s_true, view.h_true, view.run_true, s.t, **address_params(cfg),
+    )
+
+
 def zone_aggregate(s_gather: torch.Tensor, h_gather: torch.Tensor, mask: torch.Tensor):
     """Per-zone (mean slack, total heat) from densified node gathers."""
     return _agg_ops.zone_aggregate(s_gather, h_gather, mask)
+
+
+def zone_aggregate_members(rep_S, rep_H, member, mask, t=None, zS=None, zH=None, *,
+                           every: int = 1):
+    """Per-zone (mean slack, total heat) of the node vectors over the
+    ``(Z, M)`` zone members; given the tick ``t``, the old ``zS``, ``zH``
+    are kept where ``t % every != 0`` (decided on the device)."""
+    return _agg_ops.zone_aggregate_members(rep_S, rep_H, member, mask, t, zS, zH, every=every)
 
 
 def survival_scan(cfg: LaminarConfig, s):

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import hotpath, zhaf
+from repro_torch.core import hotpath
 from repro_torch.core.config import LaminarConfig
 from repro_torch.core.draws import Draws
 from repro_torch.core.state import ROUTING, SimState
@@ -52,20 +52,22 @@ def scatter_rows(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
 def refresh(cfg: LaminarConfig, s: SimState, plane=None) -> SimState:
     """Refresh T_global (zone aggregates) from the Z-HAF reported view.
 
-    The segmented reduction is the zone_aggregate hot-path op; it runs every
-    tick and its result is kept on refresh ticks. ``plane`` (the sharded
-    engine's ``MeshPlane``) reduces the rank's zone rows and gathers the
-    (Z,) table. It too runs every tick, selected by ``torch.where``:
-    deciding on the host whether the tick is due would wait for the device,
-    and ranks must all call the collective or none.
+    The gather over the zone members, the segmented reduction and the
+    refresh-tick select are the ``zone_aggregate_members`` hot-path op (one
+    kernel launch on CUDA); it decides from the device tick whether the tick
+    is due, since deciding on the host would wait for the device.
+    ``plane`` (the sharded engine's ``MeshPlane``) reduces the rank's zone
+    rows and gathers the (Z,) table every tick, selected by ``torch.where``:
+    ranks must all call the collective or none.
     """
     every = cfg.ticks(cfg.teg_refresh_ms)
-    due = (s.t % every) == 0
     if plane is None:
-        s_gather, h_gather, mask = zhaf.zone_gather(s)
-        zS, zH = hotpath.zone_aggregate(s_gather, h_gather, mask)
-    else:
-        zS, zH = plane.zone_aggregates(cfg, s)
+        zS, zH = hotpath.zone_aggregate_members(
+            s.rep_S, s.rep_H, s.zmember, s.zmask, s.t, s.zS, s.zH, every=every
+        )
+        return s._replace(zS=zS, zH=zH)
+    zS, zH = plane.zone_aggregates(cfg, s)
+    due = (s.t % every) == 0
     return s._replace(zS=torch.where(due, zS, s.zS), zH=torch.where(due, zH, s.zH))
 
 

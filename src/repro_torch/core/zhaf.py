@@ -1,9 +1,11 @@
 """Z-HAF: Zone Holographic Availability Field (§III-E, §IV-B).
 
 A port of ``repro.core.zhaf``: the per-node reported (stale) state view with
-staggered, jittered node reports subject to packet loss; smoothed first-order
-derivatives and Taylor projection ``S_pred = max(0, S + tau_i * S_dot)``; and
-the short-project / long-degrade missing-data rule.
+staggered, jittered node reports subject to packet loss and smoothed
+first-order derivatives. The reading side, the Taylor projection ``S_pred =
+max(0, S + tau_i * S_dot)`` and the short-project / long-degrade
+missing-data rule applied to a DA's candidates, is part of the addressing
+step, ``repro_torch.kernels.utility_topk`` (``utility_topk_address``).
 """
 
 from __future__ import annotations
@@ -43,12 +45,6 @@ def build_view(cfg: LaminarConfig, s: SimState) -> NodeView:
     return NodeView(bits, s_true, h_true, run_true)
 
 
-def zone_gather(s: SimState):
-    """Densify the reported per-node view into (Z, M) zone-member tiles
-    (the gather side of the zone_aggregate hot-path op)."""
-    return s.rep_S[s.zmember], s.rep_H[s.zmember], s.zmask
-
-
 def report(cfg: LaminarConfig, s: SimState, d: Draws, view: NodeView) -> SimState:
     """Fire due node reports (base interval + Gaussian jitter, 1% loss)."""
     due = s.t >= s.next_rep
@@ -78,25 +74,3 @@ def report(cfg: LaminarConfig, s: SimState, d: Draws, view: NodeView) -> SimStat
         dH=torch.where(delivered, dH_new, s.dH),
         next_rep=next_rep,
     )
-
-
-def project(cfg: LaminarConfig, s: SimState, node_idx: torch.Tensor):
-    """Projected + degrade-adjusted (S_pred, H_pred) for gathered node indices."""
-    rep_S = s.rep_S[node_idx]
-    rep_H = s.rep_H[node_idx]
-    rep_run = s.rep_run[node_idx]
-
-    if cfg.projection:
-        tau = cfg.sense_delay_ms
-        s_pred = torch.clamp(rep_S + tau * s.dS[node_idx], min=0.0)
-        h_pred = torch.clamp(rep_H + tau * s.dH[node_idx], min=0.0)
-    else:
-        s_pred, h_pred = rep_S, rep_H
-
-    age_ms = (s.t - s.rep_t[node_idx]).to(torch.float32) * cfg.dt_ms
-    over = torch.clamp(age_ms - cfg.degrade_after_ms, min=0.0)
-    factor = torch.exp2(-over / cfg.degrade_halflife_ms)
-    s_eff = s_pred * factor
-    h_eff = h_pred / torch.clamp(factor, min=1e-6)
-    run_eff = rep_run * factor
-    return s_eff, h_eff, run_eff

@@ -1,73 +1,102 @@
-// zone_aggregate: per-zone masked mean slack and total heat.
+// zone_aggregate: per-zone masked mean slack and total heat, gathered from
+// the node vectors by the zone member index; on the flat tick the whole TEG
+// refresh (the gather, the reduction and the refresh-tick select) in one
+// launch.
 //
 // Replaces the TPU kernel src/repro/kernels/zone_aggregate/kernel.py
-// (zone_aggregate_pallas, body _agg_kernel).
+// (zone_aggregate_pallas, body _agg_kernel), and the gathers and selects
+// around it (repro/core/teg.py refresh, repro/core/zhaf.py zone_gather).
 //
-// For each zone row of the (Z, M) gathered tiles:
-//   zs = sum(S * m) / max(sum(m), 1),   zh = sum(H * m).
+// For each zone row z of the (Z, M) member index and mask:
+//   zs = sum(S[member] * m) / max(sum(m), 1),   zh = sum(H[member] * m).
+// With the refresh select (t given): on a tick with t % every != 0 the old
+// table (zs_old, zh_old) is copied instead and nothing is gathered. Two
+// entries share the one kernel body: zone_aggregate_members over the node
+// vectors (N,) and a member index, and the TPU kernel's own function,
+// zone_aggregate, over (Z, M) gathered tiles, where a null member index
+// means the identity over the flattened tiles.
 //
-// Bound: bytes (3 Z M floats in, 2 Z out). Z is small (20 zones at the
-// paper's Exp5 geometry), so the card is far from full either way. Design:
-// one block per zone row; each thread strides the row and keeps three partial
-// sums, then a shared-memory tree folds them in a fixed order, so the result
-// does not change from run to run. The order differs from PyTorch's CPU sum,
-// which is why the plain version is held to rtol 1e-5, not bit equality.
+// Bound: bytes (member and mask of the Z M slots, S and H of the members
+// once each, 2 Z out), but Z is small (20 zones of 301 at the paper's Exp5
+// geometry): a few microseconds of launch are the time. Design: a warp a
+// zone row, ceil(Z / 32) CTAs of up to 32 warps (one CTA at Exp5). Each lane
+// strides the row and keeps three partial sums; a fixed-order
+// __shfl_xor_sync fold joins them, so there is no shared memory and no
+// block barrier, and the sums do not change from run to run. The order
+// differs from PyTorch's CPU sum, which is why the plain version is held to
+// rtol 1e-5, not bit equality.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 1024;  // 32 warps: 32 zone rows a CTA
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void zone_aggregate_kernel(const float* __restrict__ s,
-                                      const float* __restrict__ h,
-                                      const float* __restrict__ mask,
-                                      float* __restrict__ zs,
-                                      float* __restrict__ zh, int z, int m) {
-  __shared__ float acc_s[kThreads], acc_h[kThreads], acc_m[kThreads];
-  if (blockIdx.x >= z) return;  // a block past the last zone row (whole block)
-  const size_t row = (size_t)blockIdx.x * m;
+__global__ void __launch_bounds__(kMaxThreads)
+zone_aggregate_kernel(const float* __restrict__ s, const float* __restrict__ h,
+                      const int32_t* __restrict__ member,
+                      const float* __restrict__ mask,
+                      const int32_t* __restrict__ t, int every,
+                      const float* __restrict__ zs_old,
+                      const float* __restrict__ zh_old, float* __restrict__ zs,
+                      float* __restrict__ zh, int z, int m) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= z) return;  // a warp past the last zone row (the whole warp)
+  // x mod every == 0 under C's and Python's sign rules alike
+  if (t != nullptr && *t % every != 0) {  // not a refresh tick: keep the table
+    if (lane == 0) {
+      zs[row] = zs_old[row];
+      zh[row] = zh_old[row];
+    }
+    return;
+  }
+  const size_t base = (size_t)row * m;
   float a = 0.0f, b = 0.0f, c = 0.0f;
-  for (int j = threadIdx.x; j < m; j += kThreads) {
-    const float mk = mask[row + j];
-    a = __fadd_rn(a, __fmul_rn(s[row + j], mk));
-    b = __fadd_rn(b, __fmul_rn(h[row + j], mk));
+  for (int j = lane; j < m; j += 32) {
+    const float mk = mask[base + j];
+    const size_t src = member != nullptr ? (size_t)member[base + j] : base + j;
+    a = __fadd_rn(a, __fmul_rn(s[src], mk));
+    b = __fadd_rn(b, __fmul_rn(h[src], mk));
     c = __fadd_rn(c, mk);
   }
-  acc_s[threadIdx.x] = a;
-  acc_h[threadIdx.x] = b;
-  acc_m[threadIdx.x] = c;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half /= 2) {
-    if (threadIdx.x < half) {
-      acc_s[threadIdx.x] = __fadd_rn(acc_s[threadIdx.x], acc_s[threadIdx.x + half]);
-      acc_h[threadIdx.x] = __fadd_rn(acc_h[threadIdx.x], acc_h[threadIdx.x + half]);
-      acc_m[threadIdx.x] = __fadd_rn(acc_m[threadIdx.x], acc_m[threadIdx.x + half]);
-    }
-    __syncthreads();
+  for (int off = 16; off > 0; off >>= 1) {
+    a = __fadd_rn(a, __shfl_xor_sync(kFull, a, off));
+    b = __fadd_rn(b, __shfl_xor_sync(kFull, b, off));
+    c = __fadd_rn(c, __shfl_xor_sync(kFull, c, off));
   }
-  if (threadIdx.x == 0) {
-    zs[blockIdx.x] = __fdiv_rn(acc_s[0], fmaxf(acc_m[0], 1.0f));
-    zh[blockIdx.x] = acc_h[0];
+  if (lane == 0) {
+    zs[row] = __fdiv_rn(a, fmaxf(c, 1.0f));
+    zh[row] = b;
   }
 }
 
 }  // namespace
 
-// s, h, mask (z, m) float32 -> zs, zh (z,) float32. Grid (one block per
-// zone row) and block come from the caller's launch plan
-// (kernels/zone_aggregate/plan.py); a block other than kThreads is refused.
-// Launches on `stream` and returns cudaGetLastError().
+// s, h: the node vectors (member given) or the (z, m) tiles (member null);
+// member (z, m) int32 or null; mask (z, m) float32; t a device int32
+// scalar or null (no refresh select; then every, zs_old, zh_old are not
+// read) -> zs, zh (z,) float32. Grid and block come from the caller's launch
+// plan (kernels/zone_aggregate/plan.py): whole warps, at most kMaxThreads,
+// a warp for every zone row, else refused. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int zone_aggregate_launch(const void* s, const void* h,
-                                     const void* mask, void* zs, void* zh,
-                                     int z, int m, int grid, int block,
-                                     void* stream) {
+                                     const void* member, const void* mask,
+                                     const void* t, int every,
+                                     const void* zs_old, const void* zh_old,
+                                     void* zs, void* zh, int z, int m, int grid,
+                                     int block, void* stream) {
   if (z <= 0) return 0;
-  if (block != kThreads || grid < 1) return (int)cudaErrorInvalidConfiguration;
+  if (m < 0 || (t != nullptr && every < 1)) return (int)cudaErrorInvalidValue;
+  if (block < 32 || block > kMaxThreads || block % 32 != 0 || grid < 1 ||
+      (long long)grid * (block / 32) < z)
+    return (int)cudaErrorInvalidConfiguration;
   zone_aggregate_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)s, (const float*)h, (const float*)mask, (float*)zs,
-      (float*)zh, z, m);
+      (const float*)s, (const float*)h, (const int32_t*)member,
+      (const float*)mask, (const int32_t*)t, every, (const float*)zs_old,
+      (const float*)zh_old, (float*)zs, (float*)zh, z, m);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,10 @@
 """Device time of ``survival_scan`` on the card, by launch, and against an
-earlier design built from another source; or of ``bitmap_fit_rounds``.
+earlier design built from another source; or of ``bitmap_fit_rounds``; or
+of ``utility_topk_address`` and ``zone_aggregate_members``.
 
     python -m repro_torch.kernel_bench [--parent PATH] [--phases] [--out FILE]
     python -m repro_torch.kernel_bench --rounds [--parent PATH] [--out FILE]
+    python -m repro_torch.kernel_bench --address [--parent PATH] [--out FILE]
 
 At the survival_scan shapes of ``chip_smoke.py`` phase 2 (Exp5: 5000 nodes,
 65 536 probe slots; Exp7's top cell: 65 536 nodes, 131 072 slots), Airlock
@@ -37,6 +39,21 @@ tick), in the order parent, port, port, parent; and the plain version's on
 the last tick. The inputs and corner cases of its tests
 (``rounds_inputs``, ``rounds_edge_cases``) live here too.
 
+With ``--address``, ``utility_topk_address`` (the DA addressing step in one
+launch) on the same 20 ticks of the same cells: what the tick gives it
+(:func:`address_traffic`: addressing slots, the warps that hold one, the
+sampled candidates whose reports are stale), the graph-replay device ms of
+one call, the median over the 20 ticks, of the port's kernel and, with
+``--parent PATH``, of another ``utility_topk.cu`` with the same
+``utility_topk_address_launch`` (checked equal to the tick's outputs), in
+the order parent, port, port, parent; the plain version's on the last
+tick; and ``zone_aggregate_members``' (the TEG refresh in one launch),
+the median over the refresh ticks and over the others. First the tile
+entry ``utility_topk`` of the port and of the parent (a source that lacks
+the addressing entry, such as an older one, is timed on the tile alone).
+Its inputs and corner cases (``address_inputs``, ``address_edge_cases``)
+live here too.
+
 Prints one line per measurement, the card's name and power limit, and writes
 the numbers as JSON to ``--out`` (default ``build/kernel_bench.json``).
 Needs a CUDA card and ``nvcc``; exits non-zero without them.
@@ -60,6 +77,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.launch_plan import cdiv
 from repro_torch.kernels.survival_scan import ops as surv_ops
 from repro_torch.kernels.survival_scan import plan as surv_plan
+from repro_torch.kernels.utility_topk.ref import address_view
 
 GEOMETRIES = {"Exp5": (5000, 65536), "Exp7": (65536, 131072)}  # (N, P)
 KW = dict(residual=0.3, watermark=0.9, safe=0.8, t_susp=80, t_surv=240)
@@ -216,6 +234,116 @@ def rounds_edge_cases(seed: int = 0) -> dict:
     put("first_fit", *base(300, 8192, queued=0.2, policy="first"))
     put("first_fit_words_8", *base(100, 2048, W=8, queued=0.3, policy="first"))
     put("exp7_all_queued", *base(65536, 131072, queued=1.0))
+    return out
+
+
+def address_inputs(N: int, P: int, K: int = 8, Z: int | None = None, seed: int = 0,
+                   addressing: float = 0.01, t: int = 400) -> tuple:
+    """``utility_topk_address`` inputs (CPU tensors, in the entry's order) at
+    one shape: ``addressing`` of the slots ADDRESSING, the rest in other
+    states; zones of random sizes tiling the N nodes; reported slack and
+    heat with derivatives, reports up to 200 ticks old at tick ``t`` (past
+    ``degrade_after_ms`` for some); true views near the reports; demands of
+    1 to 16 atoms, a fifth contiguous; a tenth of the probes migrating;
+    patience from 0 to 40. Keywords: :func:`address_kw`."""
+    rng = np.random.default_rng(seed)
+    Z = Z or max(1, N // 256)
+    cuts = np.sort(rng.choice(np.arange(1, N), size=Z - 1, replace=False)) if Z > 1 else []
+    zstart = np.concatenate([[0], cuts]).astype(np.int32)
+    zcount = np.diff(np.concatenate([zstart, [N]])).astype(np.int32)
+    zone_id = np.repeat(np.arange(Z, dtype=np.int32), zcount)
+    st = np.where(rng.uniform(size=P) < addressing, 2,
+                  rng.choice([0, 1, 3, 4, 6, 7], size=P)).astype(np.int32)
+    zone = rng.integers(0, Z, P).astype(np.int32)
+    node = (zstart[zone] + (rng.uniform(size=P) * zcount[zone]).astype(np.int32)).astype(np.int32)
+    rep_S = rng.integers(0, 65, N).astype(np.float32)
+    s_true = np.clip(rep_S + rng.integers(-4, 5, N), 0, 64).astype(np.float32)
+    rep_run = np.minimum(rep_S, rng.integers(0, 65, N)).astype(np.float32)
+    rep_H = rng.integers(0, 12, N).astype(np.float32)
+    cols = dict(
+        st=st, node=node, zone=zone, timer=rng.integers(0, 5, P).astype(np.int32),
+        patience=rng.uniform(0, 40, P).astype(np.float32),
+        migrating=rng.uniform(size=P) < 0.1, mass=rng.integers(1, 17, P).astype(np.int32),
+        contig=rng.uniform(size=P) < 0.2,
+        cand_u=rng.uniform(size=(P, K - 1)).astype(np.float32),
+        addr_eps=rng.normal(size=(P, K)).astype(np.float32),
+        zstart=zstart, zcount=zcount, zone_id=zone_id, rep_S=rep_S, rep_H=rep_H,
+        rep_run=rep_run, rep_t=(t - rng.integers(0, 200, N)).astype(np.int32),
+        dS=rng.normal(0, 0.3, N).astype(np.float32), dH=rng.normal(0, 0.1, N).astype(np.float32),
+        s_true=s_true, h_true=np.maximum(rep_H + rng.integers(-2, 3, N), 0).astype(np.float32),
+        run_true=np.minimum(s_true, rep_run).astype(np.float32),
+        t=np.array(t, np.int32),
+    )
+    return address_tensors(cols)
+
+
+def address_tensors(cols: dict) -> tuple:
+    """The named numpy columns as the entry's argument tuple (CPU tensors)."""
+    from repro_torch.kernels.utility_topk.plan import ADDRESS_INPUTS
+
+    return tuple(torch.from_numpy(np.array(cols[name], order="C")) for name, _, _ in
+                 ADDRESS_INPUTS)
+
+
+def address_kw(**overrides) -> dict:
+    """``utility_topk_address``'s keywords from the default config."""
+    from repro_torch.core.config import LaminarConfig
+    from repro_torch.core.hotpath import address_params
+
+    return dict(address_params(LaminarConfig()), **overrides)
+
+
+def address_edge_cases(seed: int = 0) -> dict:
+    """``utility_topk_address`` inputs (CPU tensors, keywords) at the corners
+    of its design, by name: no slot addressing; every slot addressing; every
+    candidate infeasible; score ties (equal views and no noise); launchpads
+    of node -1; empty zones; migrating probes that Fast-Fail; bounces into
+    another zone (zone ids that disagree with the zones' ranges); stale
+    reports (every candidate degraded); no projection; a ragged K of 5."""
+    from repro_torch.kernels.utility_topk.plan import ADDRESS_INPUTS
+
+    rng = np.random.default_rng(seed)
+    names = [name for name, _, _ in ADDRESS_INPUTS]
+    out = {}
+
+    def base(N=300, P=4099, K=8, Z=3, **kw):
+        args = address_inputs(N, P, K, Z, seed=int(rng.integers(1 << 30)), **kw)
+        return {n: a.numpy().copy() for n, a in zip(names, args)}
+
+    def put(name, cols, **kw):
+        out[name] = (address_tensors(cols), address_kw(**kw))
+
+    put("none_addressing", base(addressing=0.0))
+    put("all_addressing", base(addressing=1.0))
+    c = base(addressing=0.5)
+    c["mass"][:] = 1000  # past every slack and run
+    put("all_infeasible", c)
+    c = base(addressing=0.5)
+    for k in ("rep_S", "s_true", "rep_run", "run_true"):
+        c[k][:] = 32.0
+    for k in ("rep_H", "h_true", "dS", "dH"):
+        c[k][:] = 0.0
+    c["rep_t"][:] = c["t"]
+    c["addr_eps"][:] = 0.0
+    put("score_ties", c)
+    c = base(addressing=0.5)
+    c["node"][:] = -1
+    put("node_minus_1", c)
+    c = base(N=300, Z=10, addressing=0.5)
+    c["zcount"][::2] = 0  # every other zone empty; its probes sample its start
+    put("empty_zones", c)
+    c = base(addressing=0.5)
+    c["migrating"][:] = True
+    c["patience"][:] = rng.uniform(0, 5, c["patience"].shape).astype(np.float32)
+    put("migrating_fastfail", c)
+    c = base(N=300, Z=6, addressing=0.5)
+    c["zone_id"] = rng.permutation(c["zone_id"]).astype(np.int32)
+    put("bounce_other_zone", c)
+    c = base(addressing=0.5)
+    c["rep_t"][:] = c["t"] - rng.integers(100, 2000, c["rep_t"].shape)
+    put("stale_reports", c)
+    put("no_projection", base(addressing=0.5), projection=False)
+    put("k_5", base(P=1029, K=5, addressing=0.5))
     return out
 
 
@@ -381,7 +509,7 @@ def port_call(args, airlock: bool):
     return outs
 
 
-ROUNDS_CELLS = {  # label: (config, first recorded tick)
+TICK_CELLS = {  # label: (config, first recorded tick)
     "Exp5 kernel-OOM": (lambda: profile_tick.exp5_config(False), profile_tick.WARMUP_TICKS),
     "Exp5 Airlock": (lambda: profile_tick.exp5_config(True), profile_tick.WARMUP_TICKS),
     "Exp7": (profile_tick.exp7_config, profile_tick.EXP7_TICKS - 20),
@@ -401,7 +529,7 @@ def rounds_bench(dev, parent_path: Path | None = None) -> list:
         libs["parent"].bitmap_fit_rounds_launch.argtypes = fit_ops._SIG["bitmap_fit_rounds_launch"]
     order = ["parent", "port", "port", "parent"] if parent_path is not None else ["port"]
     rows = []
-    for label, (make_cfg, first) in ROUNDS_CELLS.items():
+    for label, (make_cfg, first) in TICK_CELLS.items():
         cfg = make_cfg()
         calls = profile_tick.tick_rounds(cfg, first, 20, device=dev)
         traffic = profile_tick.rounds_traffic(calls)
@@ -430,12 +558,138 @@ def rounds_bench(dev, parent_path: Path | None = None) -> list:
     return rows
 
 
+def address_traffic(args, kw) -> dict:
+    """What one ``utility_topk_address`` call was given: addressing slots,
+    the warps (32 slots) holding one, and the sampled candidates whose
+    report is older than ``degrade_after_ms`` (the kernel degrades only
+    those)."""
+    from repro_torch.core.state import ADDRESSING
+
+    st, rep_t, t = args[0], args[16], args[22]
+    active = st == ADDRESSING
+    P = st.shape[0]
+    warps = torch.nn.functional.pad(active, (0, -P % 32)).reshape(-1, 32).any(1)
+    cand = address_view(*args, **kw)[1][active][:, 1:]
+    age = (t - rep_t[cand]).float() * kw["dt_ms"]
+    return dict(slots=P, addressing=int(active.sum()), warps=int(warps.numel()),
+                warps_addressing=int(warps.sum()), candidates=int(cand.numel()),
+                stale=int((age > kw["degrade_after_ms"]).sum()))
+
+
+def tile_bench(dev, libs: dict) -> dict:
+    """The tile entry ``utility_topk`` of each library at the Exp5 shape
+    (P = 65 536, K = 8) on the seeded tiles of ``chip_smoke.py`` phase 2
+    (half the candidates infeasible): graph-replay device ms of one call,
+    in the order parent, port, port, parent (port alone without a parent);
+    both checked equal to the plain version first."""
+    from repro_torch.kernels.utility_topk import plan as topk_plan
+    from repro_torch.kernels.utility_topk import utility_topk_ref
+
+    rng = np.random.default_rng(2)
+    P, K = 65536, 8
+    tiles = tuple(torch.from_numpy(a) for a in (
+        rng.uniform(0, 64, (P, K)).astype(np.float32),
+        rng.uniform(0, 32, (P, K)).astype(np.float32),
+        rng.normal(0, 0.5, (P, K)).astype(np.float32), rng.uniform(size=(P, K)) < 0.7))
+    want = utility_topk_ref(*tiles, 1.0)
+    args = tuple(a.to(dev) for a in tiles)
+    plan = topk_plan.for_call(*args, 1.0)
+    (L,) = plan.launches
+    best, val = plan.new_outputs(dev)
+
+    def call(lib):
+        err = lib.utility_topk_launch(*(_build.ptr(a) for a in args), 1.0, _build.ptr(best),
+                                      _build.ptr(val), P, K, L.grid, L.block,
+                                      _build.stream(best))
+        _build.check(err, "utility_topk")
+
+    for name, lib in libs.items():
+        call(lib)
+        torch.cuda.synchronize()
+        if not (torch.equal(best.cpu(), want[0])
+                and torch.allclose(val.cpu(), want[1], rtol=1e-5, atol=1e-5)):
+            print(f"tile utility_topk: {name} differs from the plain version", file=sys.stderr)
+            raise SystemExit(1)
+    order = ["parent", "port", "port", "parent"] if "parent" in libs else ["port"]
+    row = dict(cell="tile utility_topk, P=65536, K=8",
+               graph_ms=[(n, graph_ms(lambda: call(libs[n]))) for n in order])
+    print(f"tile utility_topk P={P} K={K}: graph-replay device ms of one call, in order: "
+          + ", ".join(f"{n} {t:.6f}" for n, t in row["graph_ms"]), flush=True)
+    return row
+
+
+def address_bench(dev, parent_path: Path | None = None) -> list:
+    """``utility_topk_address`` and ``zone_aggregate_members`` rows of
+    ``--address`` (see the module docstring)."""
+    from repro_torch.kernels.utility_topk import ops as topk_ops
+    from repro_torch.kernels.utility_topk import plan as topk_plan
+    from repro_torch.kernels.utility_topk import utility_topk_address_ref
+    from repro_torch.kernels.zone_aggregate import zone_aggregate_members
+
+    _build.build(["utility_topk", "zone_aggregate"])
+    libs = {"port": None}
+    tiles = {"port": _build.load("utility_topk", topk_ops._SIG)}
+    if parent_path is not None:
+        parent = build_lib(parent_path, "parent_address")
+        for fn, argtypes in topk_ops._SIG.items():
+            if hasattr(parent, fn):  # an older source may lack an entry
+                getattr(parent, fn).argtypes = argtypes
+        if hasattr(parent, "utility_topk_address_launch"):
+            libs["parent"] = parent
+        tiles["parent"] = parent
+    rows = [tile_bench(dev, tiles)]
+    order = ["parent", "port", "port", "parent"] if "parent" in libs else ["port"]
+    entries = ("utility_topk_address", "zone_aggregate_members")
+    for label, (make_cfg, first) in TICK_CELLS.items():
+        cfg = make_cfg()
+        calls = profile_tick.tick_calls(cfg, first, 20, entries, device=dev)
+        traffic = [address_traffic(a, k) for a, k, _ in calls["utility_topk_address"]]
+        mean = {k: float(np.mean([t[k] for t in traffic])) for k in traffic[0]}
+        print(f"address traffic [{label}, ticks {first} to {first + 19}], a tick: "
+              f"{mean['addressing']:.1f} of {mean['slots']:.0f} slots addressing, in "
+              f"{mean['warps_addressing']:.1f} of {mean['warps']:.0f} warps; "
+              f"{mean['stale']:.1f} of {mean['candidates']:.0f} sampled candidates degraded",
+              flush=True)
+        times = [[] for _ in order]
+        for args, kw, outs in calls["utility_topk_address"]:
+            plan = topk_plan.for_address_call(*args, **kw)
+            got = plan.new_outputs(dev)
+            for name, lib in libs.items():
+                topk_ops.launch_address(plan, got, *args, **kw, lib=lib)
+                if not all(torch.equal(g, w) for g, w in zip(got, outs)):
+                    print(f"{label}: {name} differs from the tick's outputs", file=sys.stderr)
+                    raise SystemExit(1)
+            for i, name in enumerate(order):
+                times[i].append(graph_ms(
+                    lambda: topk_ops.launch_address(plan, got, *args, **kw, lib=libs[name])))
+        refresh = [graph_ms(lambda: zone_aggregate_members(*a, **k))
+                   for a, k, _ in calls["zone_aggregate_members"]]
+        due = [int(a[4]) % k["every"] == 0 for a, k, _ in calls["zone_aggregate_members"]]
+        args, kw, _ = calls["utility_topk_address"][-1]
+        row = dict(cell=label, N=cfg.num_nodes, P=cfg.probe_capacity, traffic=mean,
+                   graph_ms=[(name, float(np.median(t))) for name, t in zip(order, times)],
+                   plain_ms=graph_ms(lambda: utility_topk_address_ref(*args, **kw)),
+                   refresh_ms={"due": float(np.median([t for t, d in zip(refresh, due) if d]))
+                               if any(due) else None,
+                               "not due": float(np.median([t for t, d in zip(refresh, due)
+                                                           if not d]))})
+        rows.append(row)
+        print(f"{label} N={cfg.num_nodes} P={cfg.probe_capacity}: utility_topk_address "
+              f"graph-replay device ms of one call, median over the 20 ticks, in order: "
+              + ", ".join(f"{n} {t:.6f}" for n, t in row["graph_ms"])
+              + f"; plain version {row['plain_ms']:.6f} (last tick); zone_aggregate_members "
+              f"{row['refresh_ms']}", flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
                     help="survival_scan.cu of the nine-launch design (with --rounds: "
-                         "another bitmap_fit.cu)")
+                         "another bitmap_fit.cu; with --address: another utility_topk.cu)")
     ap.add_argument("--rounds", action="store_true", help="bitmap_fit_rounds instead")
+    ap.add_argument("--address", action="store_true",
+                    help="utility_topk_address and zone_aggregate_members instead")
     ap.add_argument("--phases", action="store_true",
                     help="cycles by phase of the cluster kernel (an instrumented build)")
     ap.add_argument("--out", type=Path, default=Path("build/kernel_bench.json"))
@@ -449,6 +703,8 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable"
     if args.rounds:
         return write(args.out, card, rounds_bench(dev, args.parent))
+    if args.address:
+        return write(args.out, card, address_bench(dev, args.parent))
     _build.build(["survival_scan"])
     parent = Parent(args.parent) if args.parent else None
     phases = Phases() if args.phases else None

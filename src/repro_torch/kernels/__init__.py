@@ -11,8 +11,10 @@ launches in ``<wrapper>.launches``.
     (and ``bitmap_fit_blocked``, the same kernel over zone-blocked rows;
     ``bitmap_fit_rounds``, every arbitration round of the flat tick in one
     cluster launch)
-  * ``utility_topk``  — fused DA utility scoring + candidate argmax
-  * ``zone_aggregate``— per-zone mean slack / total heat
+  * ``utility_topk``  — fused DA utility scoring + candidate argmax (and
+    ``utility_topk_address``, the whole DA addressing step in one launch)
+  * ``zone_aggregate``— per-zone mean slack / total heat (and
+    ``zone_aggregate_members``, the whole TEG refresh in one launch)
   * ``survival_scan`` — fused Airlock survival decision
   * ``block_copy``    — a float32 block copy under any plan: the port of the
     static analyzer's known-bad fixture kernels, on no main path
@@ -36,7 +38,9 @@ WRAPPERS = {
     "bitmap_fit_blocked": bitmap_fit.bitmap_fit_blocked,
     "bitmap_fit_rounds": bitmap_fit.bitmap_fit_rounds,
     "utility_topk": utility_topk.utility_topk,
+    "utility_topk_address": utility_topk.utility_topk_address,
     "zone_aggregate": zone_aggregate.zone_aggregate,
+    "zone_aggregate_members": zone_aggregate.zone_aggregate_members,
     "survival_scan": survival_scan.survival_scan,
 }
 PLANS = {
@@ -44,7 +48,9 @@ PLANS = {
     "bitmap_fit_blocked": _bitmap_plan.for_blocked_call,
     "bitmap_fit_rounds": _bitmap_plan.for_rounds_call,
     "utility_topk": _topk_plan.for_call,
+    "utility_topk_address": _topk_plan.for_address_call,
     "zone_aggregate": _agg_plan.for_call,
+    "zone_aggregate_members": _agg_plan.for_members_call,
     "survival_scan": _surv_plan.for_call,
 }
 LAUNCHERS = {
@@ -52,7 +58,9 @@ LAUNCHERS = {
     "bitmap_fit_blocked": bitmap_fit.launch,
     "bitmap_fit_rounds": bitmap_fit.launch_rounds,
     "utility_topk": utility_topk.launch,
+    "utility_topk_address": utility_topk.launch_address,
     "zone_aggregate": zone_aggregate.launch,
+    "zone_aggregate_members": zone_aggregate.launch_members,
     "survival_scan": survival_scan.launch,
 }
 

@@ -1,4 +1,10 @@
-"""utility_topk wrapper: the CUDA kernel for a CUDA tensor, else the plain version."""
+"""utility_topk wrappers: the CUDA kernel for a CUDA tensor, else the plain version.
+
+``utility_topk`` launches ``utility_topk_kernel`` on scored ``(P, K)`` tiles
+(the TPU kernel's function); ``utility_topk_address`` launches
+``utility_topk_address_kernel``, the whole DA addressing step over the probe
+table. Each counts its own launches.
+"""
 
 from __future__ import annotations
 
@@ -9,15 +15,19 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.launch_plan import LaunchPlan
 from repro_torch.kernels.utility_topk import plan as _plan
-from repro_torch.kernels.utility_topk.ref import utility_topk_ref
+from repro_torch.kernels.utility_topk.ref import utility_topk_address_ref, utility_topk_ref
 
-__all__ = ["utility_topk"]
+__all__ = ["utility_topk", "utility_topk_address"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {
     "utility_topk_launch": [_P, _P, _P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _I, _P],
+    "utility_topk_address_launch": [_P, _P, _P, _I, _I, _P],
 }
+# its scalars, in the order of the launcher's floats
+_ADDRESS_FLOATS = ("gamma", "sigma", "stay_margin", "eval_cost", "bounce_cost",
+                   "fastfail_floor", "tau", "dt_ms", "degrade_after_ms", "degrade_halflife_ms")
 
 
 def launch(plan: LaunchPlan, outs, s_pred, h_pred, eps, feasible, gamma) -> None:
@@ -41,6 +51,35 @@ def launch(plan: LaunchPlan, outs, s_pred, h_pred, eps, feasible, gamma) -> None
     _build.check(err, "utility_topk")
 
 
+def launch_address(plan: LaunchPlan, outs, *args, projection: bool, lib=None,
+                   **scalars) -> None:
+    """Launch a ``utility_topk_address`` plan into ``outs`` (st, node, zone,
+    timer, patience, counts), allocated by the caller; the launcher zeroes
+    ``counts`` first. ``lib`` another build of the source (a benchmark's),
+    else the port's. Counts nothing."""
+    n_in = len(_plan.ADDRESS_INPUTS)
+    if len(args) != n_in:
+        raise TypeError(f"utility_topk_address: {len(args)} inputs, want {n_in}")
+    P, K = args[9].shape[0], args[9].shape[-1]
+    dims = {"P": (P,), "PK1": (P, K - 1), "PK": (P, K), "Z": (args[10].shape[0],),
+            "N": (args[13].shape[0],), "": ()}
+    for x, (name, dtype, dim) in zip(args, _plan.ADDRESS_INPUTS):
+        _build.expect(x, dtype, dims[dim], f"utility_topk_address {name}")
+    for x, o in zip(outs, plan.outputs):
+        _build.expect(x, o.dtype, o.shape, f"utility_topk_address {o.name} out")
+    if not plan.launches:
+        outs[-1].zero_()
+        return
+    (L,) = plan.launches
+    lib = lib or _build.load("utility_topk", _SIG)
+    ptrs = (ctypes.c_void_p * 29)(*(x.data_ptr() for x in (*args, *outs)))
+    ints = (ctypes.c_int * 4)(P, K, dims["N"][0], int(projection))
+    floats = (ctypes.c_float * 10)(*(float(scalars[k]) for k in _ADDRESS_FLOATS))
+    err = lib.utility_topk_address_launch(ptrs, ints, floats, L.grid, L.block,
+                                          _build.stream(args[0]))
+    _build.check(err, "utility_topk_address")
+
+
 def utility_topk(
     s_pred: torch.Tensor,
     h_pred: torch.Tensor,
@@ -62,4 +101,21 @@ def utility_topk(
     return best, val
 
 
+def utility_topk_address(*args, **kw):
+    """One DA addressing round for every slot with ``st == ADDRESSING``:
+    the new ``st``, ``node``, ``zone``, ``timer``, ``patience`` (P,) and the
+    int32 counts ``(op_eval, op_bounce, fastfail)``, as
+    :func:`utility_topk_address_ref` defines them (its arguments). The
+    outputs are new tensors; no input is written. CPU tensors take the
+    plain version."""
+    if not args[0].is_cuda:
+        return utility_topk_address_ref(*args, **kw)
+    plan = _plan.for_address_call(*args, **kw)
+    outs = plan.new_outputs(args[0].device)
+    launch_address(plan, outs, *args, **kw)
+    utility_topk_address.launches += 1
+    return tuple(outs)
+
+
 utility_topk.launches = 0
+utility_topk_address.launches = 0

@@ -1,4 +1,11 @@
-"""Launch plan of ``csrc/utility_topk.cu``: one thread per probe row."""
+"""Launch plans of ``csrc/utility_topk.cu``: a thread a probe row.
+
+``utility_topk`` launches ``utility_topk_kernel`` over the ``(P, K)`` tiles;
+``utility_topk_address`` launches ``utility_topk_address_kernel`` over the
+probe columns, a warp 32 slots. The address kernel reads the zone and node
+vectors at data-dependent rows (not listed) and adds its three counts with
+atomics into the ``counts`` output, which its launcher zeroes first.
+"""
 
 from __future__ import annotations
 
@@ -8,8 +15,27 @@ import torch
 
 from repro_torch.kernels.launch_plan import Launch, LaunchPlan, Operand, Output, cdiv
 
-KERNELS = ("utility_topk_kernel",)  # the order of utility_topk_attrs
+# the order of utility_topk_attrs
+KERNELS = ("utility_topk_kernel", "utility_topk_address_kernel")
 THREADS = 256  # kThreads of csrc/utility_topk.cu
+# utility_topk_address's inputs, in the order of its arguments and of the
+# launcher's pointers (AddressArgs of csrc/utility_topk.cu): name, dtype and
+# shape by P slots, K candidates, Z zones and N nodes ("" a scalar)
+ADDRESS_INPUTS = (
+    ("st", torch.int32, "P"), ("node", torch.int32, "P"), ("zone", torch.int32, "P"),
+    ("timer", torch.int32, "P"), ("patience", torch.float32, "P"),
+    ("migrating", torch.bool, "P"), ("mass", torch.int32, "P"), ("contig", torch.bool, "P"),
+    ("cand_u", torch.float32, "PK1"), ("addr_eps", torch.float32, "PK"),
+    ("zstart", torch.int32, "Z"), ("zcount", torch.int32, "Z"), ("zone_id", torch.int32, "N"),
+    ("rep_S", torch.float32, "N"), ("rep_H", torch.float32, "N"),
+    ("rep_run", torch.float32, "N"), ("rep_t", torch.int32, "N"),
+    ("dS", torch.float32, "N"), ("dH", torch.float32, "N"), ("s_true", torch.float32, "N"),
+    ("h_true", torch.float32, "N"), ("run_true", torch.float32, "N"), ("t", torch.int32, ""),
+)
+# the probe columns the address kernel reads by slot, and the ones it writes
+ADDRESS_READS = ("st", "node", "zone", "timer", "patience", "migrating", "mass", "contig",
+                 "cand_u", "addr_eps")
+ADDRESS_WRITES = ("st", "node", "zone", "timer", "patience")
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,3 +53,28 @@ def plan(P: int, K: int) -> LaunchPlan:
 
 def for_call(s_pred, h_pred, eps, feasible, gamma) -> LaunchPlan:
     return plan(s_pred.shape[0], s_pred.shape[1])
+
+
+@functools.lru_cache(maxsize=None)
+def address_plan(P: int, K: int) -> LaunchPlan:
+    """The one launch of ``utility_topk_address`` over P slots of K
+    candidates; the counts are written whatever P."""
+    if K < 1:
+        raise ValueError(f"utility_topk_address: K = {K} candidates; the launchpad is one")
+    rb = THREADS
+    ops = tuple(Operand(n, P, rb) for n in ADDRESS_READS)
+    ops += tuple(Operand(f"{n}_out", P, rb, write=True) for n in ADDRESS_WRITES)
+    return LaunchPlan(
+        entry="utility_topk_address",
+        source="utility_topk",
+        launches=(Launch("utility_topk_address_kernel", cdiv(P, THREADS), THREADS, ops),)
+        if P else (),
+        outputs=(Output("st", (P,), torch.int32), Output("node", (P,), torch.int32),
+                 Output("zone", (P,), torch.int32), Output("timer", (P,), torch.int32),
+                 Output("patience", (P,), torch.float32), Output("counts", (3,), torch.int32)),
+    )
+
+
+def for_address_call(st, node, zone, timer, patience, migrating, mass, contig, cand_u,
+                     addr_eps, *_, **__) -> LaunchPlan:
+    return address_plan(st.shape[0], addr_eps.shape[1])

@@ -1,4 +1,11 @@
-"""Launch plan of ``csrc/zone_aggregate.cu``: one block per zone row."""
+"""Launch plans of ``csrc/zone_aggregate.cu``: a warp a zone row.
+
+Both entries launch ``zone_aggregate_kernel``: ``ceil(Z / 32)`` CTAs of
+``min(Z, 32)`` warps, warp ``w`` of CTA ``b`` on zone row ``32 b + w``.
+``zone_aggregate`` reads the ``(Z, M)`` tiles by row; ``zone_aggregate_members``
+reads the member index and mask by row and the node vectors at the members
+(data-dependent rows, not listed).
+"""
 
 from __future__ import annotations
 
@@ -6,26 +13,31 @@ import functools
 
 import torch
 
-from repro_torch.kernels.launch_plan import Launch, LaunchPlan, Operand, Output
+from repro_torch.kernels.launch_plan import Launch, LaunchPlan, Operand, Output, cdiv
 
 KERNELS = ("zone_aggregate_kernel",)  # the order of zone_aggregate_attrs
-THREADS = 128  # kThreads of csrc/zone_aggregate.cu
-STATIC_SMEM = 3 * THREADS * 4  # acc_s, acc_h, acc_m
+MAX_WARPS = 32  # kMaxThreads / 32 of csrc/zone_aggregate.cu
 
 
 @functools.lru_cache(maxsize=None)
-def plan(Z: int, M: int) -> LaunchPlan:
-    ops = tuple(Operand(n, Z, 1) for n in ("s_gather", "h_gather", "mask"))
-    ops += (Operand("zs", Z, 1, write=True), Operand("zh", Z, 1, write=True))
+def plan(entry: str, Z: int, M: int) -> LaunchPlan:
+    warps = min(Z, MAX_WARPS)
+    rows = ("s_gather", "h_gather", "mask") if entry == "zone_aggregate" else ("member", "mask")
+    ops = tuple(Operand(n, Z, warps) for n in rows)
+    ops += (Operand("zs", Z, warps, write=True), Operand("zh", Z, warps, write=True))
     return LaunchPlan(
-        entry="zone_aggregate",
+        entry=entry,
         source="zone_aggregate",
         launches=(
-            Launch("zone_aggregate_kernel", Z, THREADS, ops, static_smem=STATIC_SMEM),
+            Launch("zone_aggregate_kernel", cdiv(Z, warps), 32 * warps, ops),
         ) if Z else (),
         outputs=(Output("zs", (Z,), torch.float32), Output("zh", (Z,), torch.float32)),
     )
 
 
 def for_call(s_gather, h_gather, mask) -> LaunchPlan:
-    return plan(s_gather.shape[0], s_gather.shape[1])
+    return plan("zone_aggregate", s_gather.shape[0], s_gather.shape[1])
+
+
+def for_members_call(rep_S, rep_H, member, mask, *_, **__) -> LaunchPlan:
+    return plan("zone_aggregate_members", member.shape[0], member.shape[1])

@@ -10,7 +10,7 @@ device:
               scans, per-winner feasibility and atom allocation, word
               packing): each rank computes its block of ``ceil(Z / D)`` padded
               zone rows (``MeshPlane``), through the same hot-path kernels as
-              the flat engine (``bitmap_fit_blocked``, ``zone_aggregate``).
+              the flat engine (``bitmap_fit_blocked``, ``zone_aggregate_members``).
 
   replicated  the probe table and every O(N) float vector. Every rank draws
               the same random values (same seed or same recorded draws) and
@@ -95,7 +95,7 @@ class MeshPlane:
         mask[:Z] = zmask
         rows = slice(rank * Zb, (rank + 1) * Zb)
         self.Z, self.Zb, self.M = Z, Zb, M
-        self.mem_l = member[rows].long()  # (Zb, M) node index per slot
+        self.mem_l = member[rows].contiguous()  # (Zb, M) int32 node index per slot
         self.msk_l = mask[rows].contiguous()  # (Zb, M) f32 validity
         self.valid = (self.msk_l > 0).reshape(-1)  # (Zb * M,)
         self.valid_w = (self.msk_l > 0)[..., None]  # (Zb, M, 1)
@@ -163,11 +163,10 @@ class MeshPlane:
         return alloc_words, feas_n, bits_l
 
     def zone_aggregates(self, cfg: LaminarConfig, s: SimState):
-        """Local zone rows through the zone_aggregate kernel, then the O(Z)
-        aggregate-table gather (the modelled control-plane exchange)."""
-        zS_l, zH_l = hotpath.zone_aggregate(
-            s.rep_S[self.mem_l], s.rep_H[self.mem_l], self.msk_l
-        )
+        """Local zone rows through the zone_aggregate_members kernel, then
+        the O(Z) aggregate-table gather (the modelled control-plane
+        exchange)."""
+        zS_l, zH_l = hotpath.zone_aggregate_members(s.rep_S, s.rep_H, self.mem_l, self.msk_l)
         return self._gather(zS_l)[: self.Z], self._gather(zH_l)[: self.Z]
 
 

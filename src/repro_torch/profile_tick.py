@@ -37,8 +37,8 @@ WINDOW_TICKS = 20
 EXP7_NODES = 65536  # bench_exp7_scale.py --full, top cell
 EXP7_TICKS = 100  # bench_exp7_scale.py NUM_TICKS
 # the port's hand-written kernels, as the profiler names them
-HAND_WRITTEN = ("bitmap_fit_rounds_kernel", "bitmap_fit_kernel", "utility_topk_kernel",
-                "zone_aggregate_kernel", "survival_cluster_kernel")
+HAND_WRITTEN = ("bitmap_fit_rounds_kernel", "bitmap_fit_kernel", "utility_topk_address_kernel",
+                "utility_topk_kernel", "zone_aggregate_kernel", "survival_cluster_kernel")
 
 
 def exp5_config(airlock: bool, full: bool = True, ticks: int = 2400) -> LaminarConfig:
@@ -74,43 +74,67 @@ def exp7_config(num_nodes: int = EXP7_NODES) -> LaminarConfig:
 
 
 @contextmanager
-def recording_rounds():
-    """Record every ``hotpath.bitmap_fit_rounds`` call made while the block
-    runs, into the list it yields: ``(args, kw, outputs)``, ``args`` the
-    kernel's seven columns as the call gave them (copies), ``kw`` its
-    keywords."""
-    from repro_torch.core import hotpath
+def recording(*entries: str):
+    """Record every call of the named kernel entries (``kernels.WRAPPERS``)
+    made while the block runs, into the dict it yields: entry -> a list of
+    ``(args, kw, outputs)``, ``args`` copies of the tensors the call was
+    given. The wrapper is replaced on its module, where ``core.hotpath``
+    looks it up at each call, and restored after."""
+    import importlib
 
-    real = hotpath.bitmap_fit_rounds
-    calls = []
+    from repro_torch.kernels import WRAPPERS
 
-    def record(cfg, s, throttled):
-        out = real(cfg, s, throttled)
-        args = (s.st, s.node, s.ev, s.mass, s.contig, s.free, throttled)
-        kw = dict(rounds=cfg.arb_rounds, atoms=cfg.atoms_per_node, policy=cfg.alloc_policy)
-        calls.append((tuple(a.clone() for a in args), kw, out))
-        return out
+    calls = {e: [] for e in entries}
+    patched = []
 
-    hotpath.bitmap_fit_rounds = record
+    def recorder(mod, entry, real):
+        def record(*args, **kw):
+            kept = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+            # the wrapper counts its launches on itself, by its module name
+            setattr(mod, entry, real)
+            try:
+                out = real(*args, **kw)
+            finally:
+                setattr(mod, entry, record)
+            calls[entry].append((kept, kw, out))
+            return out
+
+        return record
+
     try:
+        for e in entries:
+            mod = importlib.import_module(WRAPPERS[e].__module__)
+            real = getattr(mod, e)
+            setattr(mod, e, recorder(mod, e, real))
+            patched.append((mod, e, real))
         yield calls
     finally:
-        hotpath.bitmap_fit_rounds = real
+        for mod, e, real in patched:
+            setattr(mod, e, real)
 
 
-def tick_rounds(cfg: LaminarConfig, warmup: int, ticks: int, device="cuda", seed: int = 0):
-    """The ``bitmap_fit_rounds`` calls of the flat engine's ticks ``warmup``
-    to ``warmup + ticks - 1`` of a run from ``seed`` (``recording_rounds``)."""
+def tick_calls(cfg: LaminarConfig, warmup: int, ticks: int, entries, device="cuda",
+               seed: int = 0) -> dict:
+    """The calls of the named kernel entries (:func:`recording`) in the flat
+    engine's ticks ``warmup`` to ``warmup + ticks - 1`` of a run from
+    ``seed``."""
     eng = LaminarEngine(cfg, device=device)
     s, lam = eng.init(seed)
     draws = eng.draws(lam, s.zstart.shape[0], seed=seed)
     step = make_step(cfg)
     for t in range(warmup):
         s, _ = step(s, draws.tick(t))
-    with recording_rounds() as calls:
+    with recording(*entries) as calls:
         for t in range(warmup, warmup + ticks):
             s, _ = step(s, draws.tick(t))
     return calls
+
+
+def tick_rounds(cfg: LaminarConfig, warmup: int, ticks: int, device="cuda", seed: int = 0):
+    """The ``bitmap_fit_rounds`` calls of the flat engine's ticks ``warmup``
+    to ``warmup + ticks - 1`` of a run from ``seed``."""
+    return tick_calls(cfg, warmup, ticks, ("bitmap_fit_rounds",), device, seed)[
+        "bitmap_fit_rounds"]
 
 
 def rounds_traffic(calls) -> dict:
@@ -259,12 +283,12 @@ def profile(airlock: bool, engine_cls) -> int:
     for e in cpu_ops[:12]:
         print(f"  host {e.self_cpu_time_total / n:9.1f} us/tick self, {e.count / n:6.1f} calls/tick  {e.key[:70]}")
     if engine_cls is LaminarEngine:
-        with recording_rounds() as calls:
+        with recording("bitmap_fit_rounds") as calls:
             for _ in range(n):
                 s, _ = step(s, draws.tick(t))
                 t += 1
         print_traffic(f"Exp5, {'airlock' if airlock else 'kernel-oom'}, ticks {t - n} to {t - 1}",
-                      rounds_traffic(calls))
+                      rounds_traffic(calls["bitmap_fit_rounds"]))
     return 0
 
 

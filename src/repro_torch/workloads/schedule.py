@@ -52,6 +52,20 @@ def burst_states(sched: ScheduleConfig, seed: int, num_segments: int) -> np.ndar
     return u < sched.mmpp_burst_prob
 
 
+def diurnal_phase(sched: ScheduleConfig, t: torch.Tensor, dt_ms: float) -> torch.Tensor:
+    """``2 pi (t mod T) / T`` at ticks ``t`` (int tensor) -> float32.
+
+    Formed as ``x * c`` with ``c = float32(2 pi / T)`` folded on the host,
+    as the jitted JAX package forms it (XLA folds the constants of
+    ``2 pi x / T`` into one product): bit-equal to its phase. On CUDA,
+    PyTorch would turn a division by a Python scalar into a product with
+    its reciprocal anyway, so one constant also gives the card and the CPU
+    one phase."""
+    period = _ticks(sched.diurnal_period_ms, dt_ms)
+    c = float(np.float32(2.0 * math.pi / period))
+    return (t % period).to(torch.float32) * c
+
+
 def rate_factor(
     sched: ScheduleConfig, t: torch.Tensor, burst: torch.Tensor | None, dt_ms: float
 ) -> torch.Tensor:
@@ -65,9 +79,7 @@ def rate_factor(
     if sched.kind == "mmpp":
         return torch.where(burst, sched.mmpp_hi_factor, sched.mmpp_lo_factor * one)
     if sched.kind == "diurnal":
-        period = _ticks(sched.diurnal_period_ms, dt_ms)
-        phase = 2.0 * math.pi * (t % period).to(torch.float32) / period
-        return 1.0 + sched.diurnal_amplitude * torch.sin(phase)
+        return 1.0 + sched.diurnal_amplitude * torch.sin(diurnal_phase(sched, t, dt_ms))
     if sched.kind == "flash":
         period = _ticks(sched.flash_period_ms, dt_ms)
         width = _ticks(sched.flash_width_ms, dt_ms)

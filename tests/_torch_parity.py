@@ -279,3 +279,85 @@ def assert_outputs_equal(a: dict, b: dict) -> None:
             assert np.isnan(b[k]), k
         else:
             assert a[k] == b[k], (k, a[k], b[k])
+
+
+# ---------------------------------------------------------------------------
+# the composition utility_topk_address replaced
+# ---------------------------------------------------------------------------
+
+
+def address_composition(
+    st, node, zone, timer, patience, migrating, mass, contig,
+    cand_u, addr_eps, zstart, zcount, zone_id,
+    rep_S, rep_H, rep_run, rep_t, dS, dH, s_true, h_true, run_true, t,
+    *, gamma, sigma, stay_margin, eval_cost, bounce_cost, fastfail_floor, projection, tau,
+    dt_ms, degrade_after_ms, degrade_halflife_ms,
+):
+    """The port's DA addressing step as it was before it became one kernel
+    entry: ``core.zhaf.project`` of the candidates, the tile entry
+    ``utility_topk_ref`` for the best candidate, the launchpad's score from
+    ``core.utility.unified_utility``, and the selects of ``core.da.address``
+    and ``_dissipate_st``, op for op, on the entry's arguments. Returns what
+    ``utility_topk_address_ref`` returns."""
+    from repro_torch.core.state import ADDRESSING, BOUNCING, EMPTY, QUEUED, SUSPENDED, count
+    from repro_torch.core.utility import unified_utility
+    from repro_torch.kernels.utility_topk import utility_topk_ref
+
+    num_nodes = rep_S.shape[0]
+    active = st == ADDRESSING
+
+    zc = torch.clamp(zcount[zone], min=1).to(torch.float32)
+    cand = zstart[zone][:, None] + torch.floor(cand_u * zc[:, None]).to(torch.int32)
+    cand = torch.clamp(cand, 0, num_nodes - 1)
+    here = torch.clamp(node, min=0)
+    cand = torch.cat([here[:, None], cand], dim=1)
+
+    # zhaf.project(cfg, s, cand)
+    r_S, r_H, r_run = rep_S[cand], rep_H[cand], rep_run[cand]
+    if projection:
+        s_pred = torch.clamp(r_S + tau * dS[cand], min=0.0)
+        h_pred = torch.clamp(r_H + tau * dH[cand], min=0.0)
+    else:
+        s_pred, h_pred = r_S, r_H
+    age_ms = (t - rep_t[cand]).to(torch.float32) * dt_ms
+    over = torch.clamp(age_ms - degrade_after_ms, min=0.0)
+    factor = torch.exp2(-over / degrade_halflife_ms)
+    s_eff, h_eff, run_eff = s_pred * factor, h_pred / torch.clamp(factor, min=1e-6), r_run * factor
+
+    s_eff[:, 0] = s_true[here]
+    h_eff[:, 0] = h_true[here]
+    run_eff[:, 0] = run_true[here]
+    mass_f = mass.to(torch.float32)[:, None]
+    feas = torch.where(contig[:, None], run_eff >= mass_f, s_eff >= mass_f)
+
+    eps = sigma * addr_eps
+    best, best_score = utility_topk_ref(s_eff, h_eff, eps, feas, gamma)
+
+    any_feas = torch.any(feas, dim=1)
+    target = torch.gather(cand, 1, best[:, None].long())[:, 0]
+    here_ok = feas[:, 0]
+    here_score = torch.where(
+        here_ok, unified_utility(s_eff[:, 0], h_eff[:, 0], gamma) + eps[:, 0], -torch.inf
+    )
+    prefer_here = here_ok & (best_score <= here_score + stay_margin)
+    target = torch.where(prefer_here, here, target)
+
+    stay = active & any_feas & (target == node)
+    bounce = active & any_feas & (target != node)
+
+    patience = torch.where(active, patience - eval_cost, patience)
+    patience = torch.where(bounce, patience - bounce_cost, patience)
+
+    new_st = torch.where(stay, QUEUED, st)
+    new_st = torch.where(bounce, BOUNCING, new_st)
+    new_node = torch.where(bounce, target, node)
+    new_timer = torch.where(bounce, 1, timer)
+    new_zone = torch.where(bounce, zone_id[target], zone)
+
+    ff = active & (patience < fastfail_floor)
+    # _dissipate_st(s._replace(st=new_st), ff)
+    dissipated = torch.where(ff & migrating, SUSPENDED, new_st)
+    dissipated = torch.where(ff & ~migrating, EMPTY, dissipated)
+    new_st = torch.where(ff, dissipated, new_st)
+    counts = torch.stack([count(active), count(bounce & ~ff), count(ff)])
+    return new_st, new_node, new_zone, new_timer, patience, counts

@@ -186,20 +186,25 @@ def test_tick_set_covers_the_hot_path():
         ("hotpath.py", "bitmap_fit_blocked"),
         ("hotpath.py", "bitmap_fit_rounds"),
         ("arbiter.py", "arbitrate_rounds"),
-        ("hotpath.py", "utility_topk"),
-        ("hotpath.py", "zone_aggregate"),
+        ("hotpath.py", "utility_topk_address"),
+        ("hotpath.py", "zone_aggregate_members"),
         ("ops.py", "launch"),
     ]:
         assert expect in traced, expect
+    # the tile entries are on no tick: addressing and refresh are one entry each
+    assert ("hotpath.py", "utility_topk") not in traced
+    assert ("hotpath.py", "zone_aggregate") not in traced
     assert not any(q in ("summarize", "LaminarEngine.run", "LaminarEngine.init") for _, q in traced)
 
 
 def test_trace_records_every_hot_path_entry():
     ops, *_ = trace_audit.record_tick(trace_audit.audit_config(), SCENARIOS["storm"])
     kernels = [op.name for op in ops if op.name.startswith("kernel.")]
-    # one launch each: the flat tick's arbitration rounds are one bitmap_fit_rounds
+    # one launch each: the flat tick's arbitration rounds are one
+    # bitmap_fit_rounds, its addressing step one utility_topk_address, its
+    # TEG refresh one zone_aggregate_members
     assert sorted(kernels) == ["kernel.bitmap_fit_rounds", "kernel.survival_scan",
-                               "kernel.utility_topk", "kernel.zone_aggregate"]
+                               "kernel.utility_topk_address", "kernel.zone_aggregate_members"]
     assert not any(op.sync for op in ops)
 
 

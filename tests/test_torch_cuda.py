@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import LaminarConfig, LaminarEngine, MemoryConfig
 from repro_torch.core.draws import TorchDraws
+from repro_torch.kernel_bench import address_edge_cases, address_inputs, address_kw
 from repro_torch.kernels import bitmap_fit, survival_scan, utility_topk, zone_aggregate
 
 pytestmark = pytest.mark.cuda
@@ -168,7 +169,7 @@ def test_utility_topk_matches_plain(dev, P, K):
 
 def test_utility_topk_equals_torch_cuda_ops(dev):
     """The kernel's score is bit-equal to PyTorch's own CUDA elementwise ops
-    (the comparison da.address makes for prefer_here)."""
+    (IEEE log2f, every op rounded on its own)."""
     from repro_torch.core.utility import unified_utility
 
     rng = np.random.default_rng(5)
@@ -180,6 +181,71 @@ def test_utility_topk_equals_torch_cuda_ops(dev):
     best, val = utility_topk.utility_topk(s, h, eps, feas, 1.0)
     want = (unified_utility(s, h, 1.0) + eps).gather(1, best[:, None].long())[:, 0]
     torch.testing.assert_close(val, want, rtol=0, atol=0)
+
+
+_ADDRESS_CASES = ["exp5", "exp7", *address_edge_cases()]
+
+
+@pytest.mark.parametrize("case", _ADDRESS_CASES)
+def test_utility_topk_address_matches_plain(dev, case):
+    """The addressing step in one launch equals its plain version on the
+    CPU on every output, the patience and the counts included, bit for bit:
+    random tables at Exp5's and Exp7's shapes and every corner of
+    ``kernel_bench.address_edge_cases``."""
+    if case == "exp5":
+        args, kw = address_inputs(5000, 65536, seed=5), address_kw()
+    elif case == "exp7":
+        args, kw = address_inputs(65536, 131072, Z=253, seed=7), address_kw()
+    else:
+        args, kw = address_edge_cases()[case]
+    n0 = utility_topk.utility_topk_address.launches
+    want, got = _both(utility_topk.utility_topk_address, args, kw, dev)
+    assert utility_topk.utility_topk_address.launches == n0 + 1
+    for name, g, w in zip(("st", "node", "zone", "timer", "patience", "counts"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        bad = (g != w).nonzero()
+        assert len(bad) == 0, (name, len(bad), bad[:5].flatten().tolist())
+
+
+def test_utility_topk_address_zeroes_its_counts_and_writes_no_input(dev):
+    args, kw = address_edge_cases()["all_addressing"]
+    on_card = [a.to(dev) for a in args]
+    before = [a.clone() for a in on_card]
+    first = utility_topk.utility_topk_address(*on_card, **kw)
+    second = utility_topk.utility_topk_address(*on_card, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(a, b) for a, b in zip(on_card, before))
+    assert int(first[-1][0].item()) == args[0].shape[0]
+
+
+@pytest.mark.parametrize("select", [None, 40, 41])
+@pytest.mark.parametrize("Z,M", [(1, 8), (3, 13), (20, 301), (33, 257), (253, 307)])
+def test_zone_aggregate_members_matches_plain(dev, Z, M, select):
+    """The TEG refresh in one launch against its plain version: the sums to
+    rtol 1e-5 (another summation order), the old table exactly off a
+    refresh tick (t = 41, every 20)."""
+    from repro_torch.core.state import densify_zones
+
+    rng = np.random.default_rng(Z * M)
+    counts = rng.integers(1, M + 1, Z).astype(np.int32)
+    counts[0] = M
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    member, mask = (torch.from_numpy(a) for a in densify_zones(starts, counts))
+    N = int(counts.sum())
+    rep_S = torch.from_numpy(rng.integers(0, 65, N).astype(np.float32))
+    rep_H = torch.from_numpy(rng.uniform(0, 12, N).astype(np.float32))
+    args = (rep_S, rep_H, member, mask)
+    if select is not None:
+        args += (torch.tensor(select, dtype=torch.int32),
+                 torch.from_numpy(rng.uniform(0, 64, Z).astype(np.float32)),
+                 torch.from_numpy(rng.uniform(0, 64, Z).astype(np.float32)))
+    n0 = zone_aggregate.zone_aggregate_members.launches
+    want, got = _both(zone_aggregate.zone_aggregate_members, args, dict(every=20), dev)
+    assert zone_aggregate.zone_aggregate_members.launches == n0 + 1
+    for g, w in zip(got, want):
+        tol = 0.0 if select == 41 else 1e-5
+        torch.testing.assert_close(g, w, rtol=tol, atol=0)
 
 
 @pytest.mark.parametrize("Z,M", [(1, 8), (20, 301), (33, 257)])

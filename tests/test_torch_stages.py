@@ -138,6 +138,28 @@ def test_mid_run_state_is_busy(staged):
     assert int(np.asarray(rec["dispatch"][2]["mask"]).sum()) > 0
 
 
+def test_address_entry_equals_the_composition_it_replaced(staged):
+    """On the bridged state the addressing stage reads, the one-entry plain
+    version (``utility_topk_address_ref``, through ``hotpath``) equals the
+    composition it replaced (``_torch_parity.address_composition``) on every
+    output, exactly."""
+    from _torch_parity import address_composition
+
+    from repro_torch import profile_tick
+
+    tc, d, rec = staged
+    s_in, _, extra = rec["address"]
+    ts = state_from_numpy(jax_state_to_numpy(s_in), "cpu")
+    view = zhaf.NodeView(*(_t(v) for v in extra["view"]))
+    with profile_tick.recording("utility_topk_address") as calls:
+        hotpath.utility_topk_address(tc, ts, d, view)
+    ((args, kw, got),) = calls["utility_topk_address"]
+    want = address_composition(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(got[-1][0]) > 0  # addressing probes in the bridged state
+
+
 # ---------------------------------------------------------------------------
 # TorchDraws samples the JAX engine's distributions
 # ---------------------------------------------------------------------------
