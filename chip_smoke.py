@@ -22,9 +22,14 @@ and no result line:
      step in one launch) and ``zone_aggregate_members`` (the TEG refresh in
      one launch; also without its select, as the sharded tick calls it) on
      the inputs the flat engine's own tick gives them (Exp5's tick 200,
-     Exp7's tick 99; what they hold is printed); time kernel and plain
-     version on the card at each, and ``bitmap_fit_rounds`` against the
-     one-round ``bitmap_fit`` launches it replaces;
+     Exp7's tick 99; what they hold is printed), and
+     ``bitmap_fit_rounds_blocked`` (the zone-sharded tick's rounds in one
+     launch on the rank's zone block) on the inputs the zone-sharded
+     engine's own tick gives it at the same ticks; time kernel and plain
+     version on the card at each, ``bitmap_fit_rounds`` against the
+     one-round ``bitmap_fit`` launches it replaces and
+     ``bitmap_fit_rounds_blocked`` against the one-round
+     ``bitmap_fit_blocked`` launches it replaces;
      ``survival_scan`` also at its corners
      (``repro_torch.kernel_bench.edge_cases``: signed-zero score ties, +-inf
      scores, one node with a fifth of the slots, an empty table, every slot
@@ -34,6 +39,10 @@ and no result line:
      than rounds, demands of 0 and past the atoms, 48 atoms and 3 or 8 words
      a node, both policies, every probe queued at Exp7's shape), bit-equal,
      the NaN case also to the plain version on the card;
+     ``bitmap_fit_rounds_blocked`` at the same corners on jittered zones
+     (``rounds_blocked_edge_cases``: one rank's block and each of two
+     ranks', and node 0's probes beside padding slots), bit-equal, NaN
+     also on the card;
      ``utility_topk_address`` at its own (``address_edge_cases``: no slot
      and every slot addressing, every candidate infeasible, score ties,
      node -1, empty zones, migrating probes that Fast-Fail, bounces into
@@ -44,8 +53,9 @@ and no result line:
      (``<name>_attrs``: static shared memory, registers, maxThreadsPerBlock)
      against every plan of phase 2's shapes (static shared memory as
      declared, within the H100's per-block budget and register file);
-     ``survival_scan``'s and ``bitmap_fit_rounds``' one cluster a call: the
-     source's dynamic shared memory and scratch words equal the plan's, and
+     ``survival_scan``'s, ``bitmap_fit_rounds``' and
+     ``bitmap_fit_rounds_blocked``'s one cluster a call: the source's
+     dynamic shared memory and scratch words equal the plan's, and
      the card takes the cluster (``cudaOccupancyMaxActiveClusters`` >= 1,
      the non-portable attribute set past 8 CTAs); each entry launched
      through the wrapper's own launch function and plan into outputs that
@@ -70,11 +80,14 @@ and no result line:
      with Airlock on, and storm through the zone-sharded engine;
   5. Exp7's top cell (65 536 nodes, 131 072 slots, 100 ticks): the flat
      engine and the zone-sharded engine with the same draws; ticks/s, the
-     traffic model, equal outputs, blocked launches = 3 x ticks on the
-     sharded run;
+     traffic model, equal outputs; on the sharded run one
+     ``bitmap_fit_rounds_blocked`` a tick, no one-round
+     ``bitmap_fit_blocked``, and five ``all_gather`` calls a tick (none on
+     the flat run);
   6. the storm scenario at Exp6's full geometry (5000 nodes, 65 536 slots,
      memory on) through the zone-sharded engine, Airlock off then on: node
-     failures, kills only without Airlock, task conservation;
+     failures, kills only without Airlock, task conservation, the launches
+     and ``all_gather`` calls of phase 5's sharded run;
   7. print the kernel table as JSON, the card's name and power limit, and
      last the result line.
 
@@ -115,6 +128,7 @@ REPLACES = {
     "bitmap_fit": "src/repro/kernels/bitmap_fit/kernel.py:117",
     "bitmap_fit_rounds": "src/repro/kernels/bitmap_fit/kernel.py:117",  # redesigned
     "bitmap_fit_blocked": "src/repro/kernels/bitmap_fit/ops.py:40",
+    "bitmap_fit_rounds_blocked": "src/repro/kernels/bitmap_fit/ops.py:40",  # redesigned
     "utility_topk": "src/repro/kernels/utility_topk/kernel.py:67",
     "utility_topk_address": "src/repro/kernels/utility_topk/kernel.py:67",  # redesigned
     "zone_aggregate": "src/repro/kernels/zone_aggregate/kernel.py:47",
@@ -124,6 +138,7 @@ REPLACES = {
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["bitmap_fit_blocked"] = "src/repro_torch/csrc/bitmap_fit.cu"  # same kernel
 SOURCES["bitmap_fit_rounds"] = "src/repro_torch/csrc/bitmap_fit.cu"  # same source
+SOURCES["bitmap_fit_rounds_blocked"] = "src/repro_torch/csrc/bitmap_fit.cu"  # same body
 SOURCES["utility_topk_address"] = "src/repro_torch/csrc/utility_topk.cu"  # same source
 SOURCES["zone_aggregate_members"] = "src/repro_torch/csrc/zone_aggregate.cu"  # same kernel
 # the entries whose outputs must equal the plain version's bit for bit, the
@@ -294,6 +309,26 @@ def rounds_work(args, kw, want):
     return nbytes, 10 * (st.shape[0] + queued * R) + 400 * wins
 
 
+def rounds_blocked_work(args, kw, want):
+    """(bytes, operations) ``bitmap_fit_rounds_blocked`` must move and do on
+    these inputs: st of every slot; node, ev, and the node's throttled flag
+    and slot in the block (local) of each queued slot; mass and contig of
+    each winner; member, mask and the words of each block slot with a
+    winner; every output once. Operations as for bitmap_fit_rounds."""
+    from repro_torch.core.state import QUEUED
+
+    st, node = args[0], args[1]
+    N, W = args[5].shape
+    R, n = kw["rounds"], args[7].numel()
+    winner = want[0].reshape(R, n)
+    queued = int(((st == QUEUED) & (node >= 0) & (node < N)).sum())
+    wins = int((winner >= 0).sum())
+    live = int((winner >= 0).any(0).sum()) if R else 0
+    out_bytes = R * n * (4 + 1 + 4 * W)
+    nbytes = 4 * st.shape[0] + 13 * queued + 5 * wins + (8 + 4 * W) * live + out_bytes
+    return nbytes, 10 * (st.shape[0] + queued * R) + 400 * wins
+
+
 def blocked_case(member, mask, W, seed):
     """bitmap_fit_blocked inputs on a zone geometry ((Z, M) members and
     validity), padding slots zeroed, as CPU tensors."""
@@ -319,6 +354,8 @@ def work(name, case, want):
         return case[2:4]
     if name == "bitmap_fit_rounds":
         return rounds_work(case[0], case[1], want)
+    if name == "bitmap_fit_rounds_blocked":
+        return rounds_blocked_work(case[0], case[1], want)
     if name == "utility_topk_address":
         return address_work(case[0], case[1], want)
     return members_work(case[0], case[1])
@@ -411,13 +448,15 @@ def phase2(dev, geometries):
     every main-path geometry (``geometries``: label -> (kernel_cases kwargs,
     (zone members, zone mask), (config, tick))); ``bitmap_fit_rounds`` there
     on the inputs the flat engine's tick ``tick`` of a run of that config
-    gives it. The table's row of a kernel is timed at the first geometry,
-    the one of the most launches (phases 3 and 6)."""
+    gives it, ``bitmap_fit_rounds_blocked`` on those the zone-sharded
+    engine's tick ``tick`` gives it. The table's row of a kernel is timed at
+    the first geometry, the one of the most launches (phases 3 and 6)."""
     from repro_torch.core.state import densify_zones
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels.bitmap_fit import (
         bitmap_fit_blocked_ref,
         bitmap_fit_ref,
+        bitmap_fit_rounds_blocked_ref,
         bitmap_fit_rounds_ref,
     )
     from repro_torch.kernels.survival_scan import survival_scan_ref
@@ -426,7 +465,9 @@ def phase2(dev, geometries):
     from repro_torch.kernels.zone_aggregate import zone_aggregate_members_ref, zone_aggregate_ref
 
     refs = {"bitmap_fit": bitmap_fit_ref, "bitmap_fit_blocked": bitmap_fit_blocked_ref,
-            "bitmap_fit_rounds": bitmap_fit_rounds_ref, "utility_topk": utility_topk_ref,
+            "bitmap_fit_rounds": bitmap_fit_rounds_ref,
+            "bitmap_fit_rounds_blocked": bitmap_fit_rounds_blocked_ref,
+            "utility_topk": utility_topk_ref,
             "utility_topk_address": utility_topk_address_ref,
             "zone_aggregate": zone_aggregate_ref,
             "zone_aggregate_members": zone_aggregate_members_ref,
@@ -435,10 +476,13 @@ def phase2(dev, geometries):
     ragged = kernel_cases(N=37, P=1029, K=8, Z=3, M=13, W=2, seed=1)
     member, mask = densify_zones(np.array([0, 13, 20], np.int32), np.array([13, 7, 10], np.int32))
     ragged["bitmap_fit_blocked"] = blocked_case(member, mask, W=2, seed=1)
-    from repro_torch.kernel_bench import rounds_inputs
+    from repro_torch.kernel_bench import blocked_split, jittered_counts, rounds_inputs
 
     # bytes and operations of bitmap_fit_rounds follow from the data: None
     ragged["bitmap_fit_rounds"] = (*rounds_inputs(37, 1029, 2, seed=1), None, None)
+    ragged["bitmap_fit_rounds_blocked"] = (
+        *blocked_split(*rounds_inputs(37, 1029, 2, seed=1), jittered_counts(37, 13, seed=1),
+                       rank=1, ranks=2), None, None)
     ragged["utility_topk_address"] = (address_inputs(37, 1029, 8, 3, seed=1, addressing=0.3),
                                       address_kw(), None, None)
     ragged["zone_aggregate_members"] = members_case(member, mask, seed=1, t=40)
@@ -446,7 +490,8 @@ def phase2(dev, geometries):
     for name, case in ragged.items():
         checked["ragged"][name] = (case, check_kernel(name, WRAPPERS[name], refs[name], case, dev)[1])
     print("phase 2: ragged shapes (N=37, P=1029, Z=3, M=13; blocked Z=3, M=13 with "
-          "zeroed padding slots) equal to the plain versions")
+          "zeroed padding slots; the blocked rounds on the second of two ranks' zone rows "
+          "of up to 13 nodes) equal to the plain versions")
     # survival_scan's corners: signed-zero ties, +-inf scores, skewed and
     # empty tables, Exp7's shape; Airlock on and off, bit-equal
     from repro_torch.kernel_bench import edge_cases
@@ -479,6 +524,21 @@ def phase2(dev, geometries):
         checked[f"rounds {cname}"] = {"bitmap_fit_rounds": (case, want)}
     print(f"phase 2: bitmap_fit_rounds edge cases ({', '.join(rounds_edge_cases())}): bit-equal "
           "to the plain version (NaN: on the CPU and on the card)")
+    # the same corners on jittered zones, as one rank's block and as each of
+    # two ranks', and node 0's probes beside padding slots; bit-equal
+    from repro_torch.kernel_bench import rounds_blocked_edge_cases
+
+    blocked_corners = rounds_blocked_edge_cases()
+    for cname, (args, kw) in blocked_corners.items():
+        case = (args, kw, 0, 0)
+        want = check_kernel("bitmap_fit_rounds_blocked", WRAPPERS["bitmap_fit_rounds_blocked"],
+                            bitmap_fit_rounds_blocked_ref, case, dev)[1]
+        if cname.startswith("nan"):
+            on_card = [w.cpu() for w in bitmap_fit_rounds_blocked_ref(*to_dev(args, dev), **kw)]
+            compare("bitmap_fit_rounds_blocked (the plain version on the card)", on_card, want)
+        checked[f"blocked rounds {cname}"] = {"bitmap_fit_rounds_blocked": (case, want)}
+    print(f"phase 2: bitmap_fit_rounds_blocked edge cases ({', '.join(blocked_corners)}): "
+          "bit-equal to the plain version (NaN: on the CPU and on the card)")
     # utility_topk_address's corners: no slot / every slot addressing, every
     # candidate infeasible, score ties, node -1, empty zones, migrating
     # probes that Fast-Fail, bounces into another zone, stale reports, no
@@ -500,7 +560,10 @@ def phase2(dev, geometries):
         cases["bitmap_fit_blocked"] = blocked_case(*zones, W=geometry["W"], seed=seed)
         calls = tick_calls(cfg, tick, 1, recorded, device=dev)
         print_traffic(f"{label}, tick {tick}", rounds_traffic(calls["bitmap_fit_rounds"]))
-        for name in recorded:  # the engine's own tick's inputs
+        sharded = "bitmap_fit_rounds_blocked"
+        calls.update(tick_calls(cfg, tick, 1, (sharded,), device=dev, sharded=True))
+        print_traffic(f"{label}, tick {tick}, zone-sharded", rounds_traffic(calls[sharded]))
+        for name in (*recorded, sharded):  # the engines' own ticks' inputs
             ((args, kw, _),) = calls[name]
             cases[name] = (tuple(a.cpu() for a in args), kw, None, None)
         args, kw = cases["utility_topk_address"][:2]
@@ -536,7 +599,10 @@ def phase2(dev, geometries):
             times[name] = ms
         print(f"phase 2 [{label}]: bitmap_fit_rounds {times['bitmap_fit_rounds']:.6f} ms a tick "
               f"against {cfg_rounds} one-round bitmap_fit launches, "
-              f"{cfg_rounds * times['bitmap_fit']:.6f} ms")
+              f"{cfg_rounds * times['bitmap_fit']:.6f} ms; bitmap_fit_rounds_blocked "
+              f"{times['bitmap_fit_rounds_blocked']:.6f} ms a sharded tick against "
+              f"{cfg_rounds} one-round bitmap_fit_blocked launches, "
+              f"{cfg_rounds * times['bitmap_fit_blocked']:.6f} ms")
         # the sharded tick's call: the rank's zone rows without the select
         case = (cases["zone_aggregate_members"][0][:4], {}, None, None)
         want = check_kernel("zone_aggregate_members", WRAPPERS["zone_aggregate_members"],
@@ -687,13 +753,31 @@ def phase2b(dev, checked):
         check(occ["clusters"] >= 1 and occ["nonportable"] == int(L.cluster_nonportable),
               f"bitmap_fit_rounds at W={W}: the card does not take the cluster launch: {occ}")
         round_clusters.add((L.kernel, L.cluster, occ["clusters"]))
+    for per in checked.values():
+        if "bitmap_fit_rounds_blocked" not in per:
+            continue
+        args, kw = per["bitmap_fit_rounds_blocked"][0][:2]
+        plan = PLANS["bitmap_fit_rounds_blocked"](*args, **kw)
+        (L,) = plan.launches
+        n, W = args[7].numel(), args[5].shape[1]
+        check(L.grid == L.cluster and L.cluster_nonportable == (L.cluster > 8)
+              and L.kernel == f"bitmap_fit_rounds_blocked_kernel<{(W + 1) // 2}>",
+              f"bitmap_fit_rounds_blocked at {n} slots, W={W}: {L.kernel}, grid {L.grid}, "
+              f"cluster {L.cluster}")
+        check(lib.bitmap_fit_rounds_scratch_words(n, kw["rounds"]) == plan.scratch_words,
+              f"bitmap_fit_rounds_blocked scratch words at {n} slots: plan and source disagree")
+        occ = bitmap_ops.rounds_cluster_occupancy(plan)
+        check(occ["clusters"] >= 1 and occ["nonportable"] == int(L.cluster_nonportable),
+              f"bitmap_fit_rounds_blocked at W={W}: the card does not take the cluster launch: "
+              f"{occ}")
+        round_clusters.add((L.kernel, L.cluster, occ["clusters"]))
     print(f"phase 2b: {len(plans)} plans, {n_launch} launches: static shared memory as "
           f"declared, within {PER_BLOCK['static_smem']} B static / {PER_BLOCK['smem']} B "
-          f"total, maxThreadsPerBlock and the register file; survival_scan and "
-          f"bitmap_fit_rounds one cluster a call, shared memory and scratch words equal the "
-          f"source's; survival_scan (cluster, dynamic shared memory, clusters resident at "
-          f"once): {sorted(clusters)}; bitmap_fit_rounds (kernel, cluster, clusters resident "
-          f"at once): {sorted(round_clusters)}")
+          f"total, maxThreadsPerBlock and the register file; survival_scan, "
+          f"bitmap_fit_rounds and bitmap_fit_rounds_blocked one cluster a call, shared memory "
+          f"and scratch words equal the source's; survival_scan (cluster, dynamic shared "
+          f"memory, clusters resident at once): {sorted(clusters)}; the rounds (kernel, "
+          f"cluster, clusters resident at once): {sorted(round_clusters)}")
 
     # -- guard bands around every entry's outputs -----------------------------
     for label, per in checked.items():
@@ -702,7 +786,7 @@ def phase2b(dev, checked):
             plan = PLANS[name](*args, **kw)
             views = [guarded(o.shape, o.dtype, dev) for o in plan.outputs]
             extra = {}
-            if plan.scratch_words:  # survival_scan, bitmap_fit_rounds
+            if plan.scratch_words:  # survival_scan and the rounds
                 scratch, sbuf = guarded((plan.scratch_words,), torch.int32, dev)
                 extra["scratch"] = scratch
             LAUNCHERS[name](plan, [v for v, _ in views], *args, **kw, **extra)
@@ -805,15 +889,17 @@ def conservation(out):
 
 def drive(eng, s, draws, ticks):
     """One main-path run: counters set to 0 just before, read just after.
-    Returns (summary, launches, host syncs inside the ticks, ticks/s)."""
+    Returns (summary, launches, host syncs inside the ticks, ticks/s,
+    all_gather calls)."""
     from repro_torch.core.engine import summarize
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels.block_copy import block_copy
+    from repro_torch.profile_tick import counting_gathers
 
     torch.cuda.synchronize()
     for w in (*WRAPPERS.values(), block_copy):
         w.launches = 0
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings(record=True) as caught, counting_gathers() as gathers:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         t0 = time.perf_counter()
@@ -830,23 +916,30 @@ def drive(eng, s, draws, ticks):
         print(f"  sync: {w.message} ({w.filename}:{w.lineno})")
     check(ts.shape == (ticks, 11), f"timeseries shape {tuple(ts.shape)}")
     out = summarize(eng.cfg, final, ts.cpu().numpy())
-    return out, launches, len(syncs), ticks / wall
+    return out, launches, len(syncs), ticks / wall, len(gathers)
 
 
 def want_launches(cfg, ticks, sharded):
     """The flat tick runs its rounds as one bitmap_fit_rounds, the sharded
-    tick one bitmap_fit_blocked a round; the one-round bitmap_fit on none.
-    Both ticks address with one utility_topk_address and refresh with one
-    zone_aggregate_members; the tile entries utility_topk and zone_aggregate
-    run on none."""
-    return {"bitmap_fit": 0, "bitmap_fit_blocked": cfg.arb_rounds * ticks if sharded else 0,
-            "bitmap_fit_rounds": 0 if sharded else ticks, "utility_topk": 0,
+    tick as one bitmap_fit_rounds_blocked; the one-round bitmap_fit and
+    bitmap_fit_blocked on none. Both ticks address with one
+    utility_topk_address and refresh with one zone_aggregate_members; the
+    tile entries utility_topk and zone_aggregate run on none."""
+    return {"bitmap_fit": 0, "bitmap_fit_blocked": 0,
+            "bitmap_fit_rounds": 0 if sharded else ticks,
+            "bitmap_fit_rounds_blocked": ticks if sharded else 0, "utility_topk": 0,
             "utility_topk_address": ticks, "zone_aggregate": 0, "zone_aggregate_members": ticks,
             "survival_scan": ticks if cfg.memory.enabled else 0}
 
 
-def check_run(tag, out, launches, want):
+# the sharded tick's all_gathers: s_true, run_true, the rounds, zS, zH
+GATHERS_A_TICK = 5
+
+
+def check_run(tag, out, launches, want, syncs, gathers=0, want_gathers=0):
     check(launches == want, f"[{tag}] launch counts {launches} != {want}")
+    check(syncs == 0, f"[{tag}] {syncs} host syncs inside the ticks")
+    check(gathers == want_gathers, f"[{tag}] {gathers} all_gather calls, want {want_gathers}")
     for k in ("exec_survival_ratio", "completed_success_ratio", "start_success_ratio",
               "p50_ms", "p99_ms"):
         check(np.isfinite(out[k]), f"[{tag}] {k} = {out[k]}")
@@ -876,7 +969,7 @@ def phase3(dev, totals):
         cfg = exp5_config(airlock, full=True, ticks=TICKS)
         eng = LaminarEngine(cfg, device=dev)
         s, lam = eng.init(0)
-        out, launches, syncs, tps = drive(eng, s, eng.draws(lam, s.zstart.shape[0], 0), TICKS)
+        out, launches, syncs, tps, _ = drive(eng, s, eng.draws(lam, s.zstart.shape[0], 0), TICKS)
         add(totals, launches)
         tag = "airlock" if airlock else "kernel-oom"
         print(f"phase 3 [{tag}]: {tps:.1f} ticks/s, "
@@ -885,7 +978,7 @@ def phase3(dev, totals):
               f"completed_success_ratio={out['completed_success_ratio']:.6f} "
               f"started={out['started']} suspended={out['suspended_cnt']} "
               f"launches={launches} host_syncs_in_ticks={syncs}")
-        check_run(tag, out, launches, want_launches(cfg, TICKS, sharded=False))
+        check_run(tag, out, launches, want_launches(cfg, TICKS, sharded=False), syncs)
         if airlock:
             check(out["suspended_cnt"] > 0 and out["oom_kill_l"] + out["oom_kill_f"] == 0,
                   f"[{tag}] Airlock did not act as expected")
@@ -971,14 +1064,17 @@ def phase5(dev, totals):
     mesh = ZoneShardedEngine(cfg, num_devices=1, device=dev)
     outs = {}
     for tag, eng in (("flat", flat), ("zone-sharded", mesh)):
-        out, launches, syncs, tps = drive(eng, s, eng.draws(lam, Z, 0), EXP7_TICKS)
+        out, launches, syncs, tps, gathers = drive(eng, s, eng.draws(lam, Z, 0), EXP7_TICKS)
         add(totals, launches)
         outs[tag] = out
         print(f"phase 5 [{tag}]: {tps:.1f} ticks/s, arrived={out['arrived']} "
               f"started={out['started']} completed={out['completed']} "
               f"start_success_ratio={out['start_success_ratio']:.6f} "
-              f"launches={launches} host_syncs_in_ticks={syncs}")
-        check_run(tag, out, launches, want_launches(cfg, EXP7_TICKS, tag != "flat"))
+              f"launches={launches} host_syncs_in_ticks={syncs} "
+              f"all_gather_calls_per_tick={gathers / EXP7_TICKS:g}")
+        sharded = tag != "flat"
+        check_run(tag, out, launches, want_launches(cfg, EXP7_TICKS, sharded), syncs, gathers,
+                  GATHERS_A_TICK * EXP7_TICKS if sharded else 0)
     print(f"phase 5: traffic model (bytes per tick, modelled) at 1 rank: {mesh.traffic(0)}")
     from repro_torch.parallel.engine_mesh import traffic_model
     print(f"phase 5: traffic model at 4 ranks: {traffic_model(cfg, Z, 4, max_zone=M)}")
@@ -1009,8 +1105,8 @@ def phase6(dev, totals):
                                   scenario=SCENARIOS["storm"])
         eng = ZoneShardedEngine(cfg, num_devices=1, device=dev)
         s, lam = eng.init(0)
-        out, launches, syncs, tps = drive(eng, s, eng.draws(lam, s.zstart.shape[0], 0),
-                                          STORM_TICKS)
+        out, launches, syncs, tps, gathers = drive(eng, s, eng.draws(lam, s.zstart.shape[0], 0),
+                                                   STORM_TICKS)
         add(totals, launches)
         tag = "storm, airlock" if airlock else "storm, kernel-oom"
         print(f"phase 6 [{tag}]: {tps:.1f} ticks/s, node_failures={out['node_failures']} "
@@ -1018,8 +1114,10 @@ def phase6(dev, totals):
               f"evicted_killed={out['evicted_killed']} "
               f"exec_survival_ratio={out['exec_survival_ratio']:.6f} "
               f"completed_success_ratio={out['completed_success_ratio']:.6f} "
-              f"started={out['started']} launches={launches} host_syncs_in_ticks={syncs}")
-        check_run(tag, out, launches, want_launches(cfg, STORM_TICKS, sharded=True))
+              f"started={out['started']} launches={launches} host_syncs_in_ticks={syncs} "
+              f"all_gather_calls_per_tick={gathers / STORM_TICKS:g}")
+        check_run(tag, out, launches, want_launches(cfg, STORM_TICKS, sharded=True), syncs,
+                  gathers, GATHERS_A_TICK * STORM_TICKS)
         check(out["node_failures"] > 0, f"[{tag}] no node failures")
         if airlock:
             check(out["evicted_killed"] == 0, f"[{tag}] Airlock run killed evicted residents")

@@ -234,6 +234,7 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
     from repro_torch.kernels.bitmap_fit import (
         bitmap_fit_blocked_ref,
         bitmap_fit_ref,
+        bitmap_fit_rounds_blocked_ref,
         bitmap_fit_rounds_ref,
     )
     from repro_torch.kernels.survival_scan import survival_scan_ref
@@ -264,6 +265,11 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
         ("bitmap_fit_rounds", (z((P,), i32), z((P,), i32), z((P,), f32), z((P,), i32),
                                z((P,), b8), z((N, W), i32), z((N,), b8)),
          dict(rounds=3, atoms=A, policy="best"), bitmap_fit_rounds_ref),
+        # one rank's block of the zone rows: the whole table at one rank
+        ("bitmap_fit_rounds_blocked", (z((P,), i32), z((P,), i32), z((P,), f32), z((P,), i32),
+                                       z((P,), b8), z((N, W), i32), z((N,), b8), z((Z, M), i32),
+                                       z((Z, M), f32), z((N,), i32)),
+         dict(rounds=3, atoms=A, policy="best"), bitmap_fit_rounds_blocked_ref),
         ("utility_topk", (z((P, K), f32), z((P, K), f32), z((P, K), f32), z((P, K), b8), 1.0),
          {}, utility_topk_ref),
         ("utility_topk_address", address, address_kw, utility_topk_address_ref),

@@ -3,7 +3,7 @@
 Records, with a ``TorchDispatchMode``, every aten op of one tick of
 ``engine.make_step`` and of the making of that tick's draws
 (``TorchDraws.tick``), because a CUDA graph of the tick would capture both.
-The eight hot-path entries are stubbed while the audit runs: each builds the
+The nine hot-path entries are stubbed while the audit runs: each builds the
 launch plan its wrapper would build, is recorded as one ``kernel.<entry>``
 op, and returns zeros of its plan's outputs, the counterpart of
 ``jax.eval_shape`` over ``pallas_call``. The audit so sees the tick as it
@@ -50,6 +50,7 @@ from repro_torch.core import engine, hotpath, zhaf
 from repro_torch.core.config import BaselineConfig, LaminarConfig, MemoryConfig, WorkloadConfig
 from repro_torch.core.draws import TorchDraws
 from repro_torch.kernels import PLANS, WRAPPERS
+from repro_torch.parallel.engine_mesh import zone_block
 from repro_torch.workloads.scenario import (
     KINDS,
     SCENARIOS,
@@ -196,7 +197,7 @@ class OpRecorder(TorchDispatchMode):
 
 @contextlib.contextmanager
 def stub_hotpath(recorder: Optional[OpRecorder] = None):
-    """Replace the eight hot-path wrappers by their plans' outputs (zeros).
+    """Replace the nine hot-path wrappers by their plans' outputs (zeros).
 
     ``core.hotpath`` looks each wrapper up on its ops module at call time,
     so patching the module attribute reaches every call site."""
@@ -375,6 +376,8 @@ def _hotpath_cases(cfg: LaminarConfig, s: Any):
         ("bitmap_fit_blocked", hotpath.bitmap_fit_blocked,
          (z(Z, M, W, dtype=i32), z(Z, M, dtype=i32), z(Z, M, dtype=b8))),
         ("bitmap_fit_rounds", hotpath.bitmap_fit_rounds, (cfg, s, z(N, dtype=b8))),
+        ("bitmap_fit_rounds_blocked", hotpath.bitmap_fit_rounds_blocked,
+         (cfg, s, z(N, dtype=b8), *zone_block(s.zmember, s.zmask, 0, 1, N))),
         ("utility_topk", hotpath.utility_topk, (z(P, K), z(P, K), z(P, K), z(P, K, dtype=b8), 1.0)),
         ("utility_topk_address", hotpath.utility_topk_address,
          (cfg, s, TorchDraws(cfg, 1.0, Z, seed=0, device="cpu").tick(0),

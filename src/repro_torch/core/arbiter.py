@@ -100,20 +100,16 @@ def arbitrate(
     s: SimState,
     throttled: torch.Tensor,
     bits: torch.Tensor,
-    plane=None,
 ):
     """One admission round per node: highest-E_v queued DA, bitmap-feasible.
 
     Takes and returns the (N, A) free bit-plane so multiple rounds per tick
     avoid re-unpacking the word bitmap. Returns (state, bits').
 
-    ``plane`` (the sharded engine's ``MeshPlane``) computes feasibility and
-    allocation on the rank's zone block and gathers the per-node result
-    words; ``bits`` is then the plane's blocked bit plane: the sharded
-    tick's round. The flat tick runs all its rounds at once
-    (:func:`arbitrate_rounds`), so the flat branch (``plane=None``, with the
-    one-round ``bitmap_fit``) runs in no tick: it is the reference the tests
-    hold ``arbitrate_rounds`` to, round by round.
+    Both ticks run all their rounds at once (:func:`arbitrate_rounds`, and
+    ``MeshPlane.arb_rounds`` on the sharded tick), so this one-round step,
+    with the one-round ``bitmap_fit``, runs in no tick: it is the reference
+    the tests hold ``arbitrate_rounds`` to, round by round.
     """
     P = s.st.shape[0]
     N = cfg.num_nodes
@@ -127,15 +123,12 @@ def arbitrate(
     # for its winner's demand: the bitmap_fit hot-path op, on the words that
     # are kept in step with the ``bits`` plane across rounds. The AND in
     # alloc_round is a guard: a kernel fault could only reject admissions.
-    if plane is None:
-        w_mass = s.mass[ws]
-        w_contig = s.contig[ws]
-        fit = hotpath.bitmap_fit(s.free, w_mass, w_contig)
-        alloc_words_n, feas_n, bits = alloc_round(
-            bits, w_mass, w_contig, fit, has_w, cfg.alloc_policy
-        )
-    else:
-        alloc_words_n, feas_n, bits = plane.alloc_round(cfg, s, bits, ws, has_w)
+    w_mass = s.mass[ws]
+    w_contig = s.contig[ws]
+    fit = hotpath.bitmap_fit(s.free, w_mass, w_contig)
+    alloc_words_n, feas_n, bits = alloc_round(
+        bits, w_mass, w_contig, fit, has_w, cfg.alloc_policy
+    )
     admit = winner & feas_n[node_c]
     s = _admissions(
         cfg, s, winner, admit, alloc_words_n[node_c], s.free & ~alloc_words_n,

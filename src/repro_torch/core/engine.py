@@ -8,7 +8,8 @@ the paper's control path:
     transitions -> completions -> scenario disruption -> node-view build ->
     Z-HAF reports -> TEG refresh -> arrivals -> probe movement
     (+ regeneration) -> TEG dispatch -> DA addressing -> node arbitration
-    (arb_rounds rounds, one bitmap_fit_rounds on the flat tick) -> pending
+    (arb_rounds rounds in one launch: bitmap_fit_rounds on the flat tick,
+    bitmap_fit_rounds_blocked on each rank's zone block) -> pending
     stage -> absolute timeout
 
 The tick asks nothing of the host: no ``.item()``, no ``torch.nonzero``, no
@@ -157,10 +158,7 @@ def make_step(cfg: LaminarConfig, plane=None):
             s, evict_mask = disrupt.apply(cfg, scenario, s, d)
 
         # ---- true node state, computed once per tick ---------------------------
-        if plane is None:
-            view = zhaf.build_view(cfg, s)
-        else:
-            view, bits = plane.build_view(cfg, s)
+        view = zhaf.build_view(cfg, s) if plane is None else plane.build_view(cfg, s)
 
         # ---- cold path: state dissemination -------------------------------
         s = zhaf.report(cfg, s, d, view)
@@ -181,12 +179,12 @@ def make_step(cfg: LaminarConfig, plane=None):
             throttled = torch.zeros(cfg.num_nodes, dtype=torch.bool, device=s.st.device)
         # multiple admission rounds per tick: after each reservation the node
         # removes the winner's atoms and proceeds to the next feasible
-        # candidate; the flat tick runs them all in one bitmap_fit_rounds
+        # candidate; one launch runs them all, on every node or on the
+        # rank's zone block
         if plane is None:
             s = arbiter.arbitrate_rounds(cfg, s, throttled)
         else:
-            for _ in range(cfg.arb_rounds):
-                s, bits = arbiter.arbitrate(cfg, s, throttled, bits, plane)
+            s = plane.arb_rounds(cfg, s, throttled)
         s = arbiter.pending_stage(cfg, s)
         s = arbiter.timeouts(cfg, s)
 

@@ -2,8 +2,9 @@
 
 The four measured control-plane operations go through this module:
 bitmap feasibility (``arbiter``: ``bitmap_fit_rounds``, every arbitration
-round of the flat tick in one launch; ``bitmap_fit`` for one round;
-``bitmap_fit_blocked`` for the zone blocks of the sharded engine), utility
+round of the flat tick in one launch; ``bitmap_fit_rounds_blocked``, the
+same on a rank's zone block of the sharded engine; ``bitmap_fit`` and
+``bitmap_fit_blocked`` for one round, on no tick), utility
 scoring + candidate argmax (``da``: ``utility_topk_address``, the whole
 addressing step in one launch; ``utility_topk`` on scored tiles), zone
 aggregation (``teg``: ``zone_aggregate_members``, the whole refresh in one
@@ -31,6 +32,7 @@ __all__ = [
     "bitmap_fit",
     "bitmap_fit_blocked",
     "bitmap_fit_rounds",
+    "bitmap_fit_rounds_blocked",
     "survival_scan",
     "utility_topk",
     "utility_topk_address",
@@ -59,7 +61,8 @@ def bitmap_fit_blocked(
     words: torch.Tensor, mass: torch.Tensor, contig: torch.Tensor
 ) -> torch.Tensor:
     """Zone-blocked feasibility: ``(Z, M, W)`` words, ``(Z, M)`` demand ->
-    ``(Z, M)`` int32; the zone-sharded engine's entry for its zone block."""
+    ``(Z, M)`` int32, one round's fit test alone; the sharded tick runs
+    :func:`bitmap_fit_rounds_blocked` instead."""
     return _bitmap_ops.bitmap_fit_blocked(words, mass, contig)
 
 
@@ -73,6 +76,22 @@ def bitmap_fit_rounds(cfg: LaminarConfig, s, throttled: torch.Tensor):
     admission."""
     return _bitmap_ops.bitmap_fit_rounds(
         s.st, s.node, s.ev, s.mass, s.contig, s.free, throttled,
+        rounds=cfg.arb_rounds, atoms=cfg.atoms_per_node, policy=cfg.alloc_policy,
+    )
+
+
+def bitmap_fit_rounds_blocked(cfg: LaminarConfig, s, throttled: torch.Tensor,
+                              member: torch.Tensor, mask: torch.Tensor, local: torch.Tensor):
+    """The ``cfg.arb_rounds`` arbitration rounds of the zone-sharded tick on
+    one rank's ``(Zb, M)`` zone block (``member``, ``mask``; ``local`` maps
+    a node to its slot in the block, -1 for another rank's), from the
+    replicated probe table and words.
+
+    Returns ``(winner (R, Zb, M), feas (R, Zb, M), alloc (R, Zb, M, W))``:
+    each round's winner slot (-1: none), whether it was admitted and the
+    words it took, in the blocked layout."""
+    return _bitmap_ops.bitmap_fit_rounds_blocked(
+        s.st, s.node, s.ev, s.mass, s.contig, s.free, throttled, member, mask, local,
         rounds=cfg.arb_rounds, atoms=cfg.atoms_per_node, policy=cfg.alloc_policy,
     )
 

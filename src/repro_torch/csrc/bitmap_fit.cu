@@ -66,6 +66,21 @@
 // Bound of the rounds: bytes. The probe columns st, node, ev read once (mass
 // and contig at the winners only), the node words and throttled flags once,
 // the outputs written once.
+//
+// bitmap_fit_rounds_blocked_kernel is the same body on one rank's zone
+// block of the zone-sharded engine (the redesign of the TPU package's
+// zone-blocked entry bitmap_fit_blocked, src/repro/kernels/bitmap_fit/ops.py,
+// which ran the fit test alone, one launch a round): the (Zb, M) slots of
+// the block take the place of the nodes. A slot's node is member[slot], its
+// words are read through it, and a padding slot (mask 0) elects no one.
+// Phase 1 keys a probe by local[node] (node -> its slot in this block, -1
+// for a node of another rank: the probe is skipped), while the key's low 32
+// bits stay the global probe slot, so the election order is the flat
+// kernel's. Each node lies in exactly one rank's block and the rounds are
+// independent across nodes, so no rank needs another's nodes; the outputs
+// are (R, Zb, M) in the blocked layout, and no per-probe output is written
+// (a rank does not own every probe). Bound: bytes, as above, with local of
+// each queued probe's node and member and mask of each slot with a winner.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -317,20 +332,25 @@ struct RoundsIn {
   const float* ev;
   const int32_t* mass;
   const uint8_t* contig;
-  const uint32_t* words;
-  const uint8_t* throttled;
+  const uint32_t* words;      // (nodes, w)
+  const uint8_t* throttled;   // (nodes,)
+  const int32_t* member;      // blocked: (n,) the node of each slot
+  const float* mask;          // blocked: (n,) slot validity
+  const int32_t* local;       // blocked: (nodes,) node -> slot, -1 off the block
 };
 
 struct RoundsOut {
   int32_t* winner;  // (R, n) slot, -1: none
   uint8_t* feas;    // (R, n)
   uint32_t* alloc;  // (R, n, w) taken words
-  int32_t* round;   // (p,) the round a probe won, -1: none
-  uint8_t* admit;   // (p,)
+  int32_t* round;   // flat: (p,) the round a probe won, -1: none
+  uint8_t* admit;   // flat: (p,)
 };
 
+// n: the election's rows (the nodes, or the block's slots), nodes: the rows
+// of words and throttled
 struct RoundsParams {
-  int p, n, w, atoms, rounds, best, n_steps, per_p, per_n;
+  int p, n, nodes, w, atoms, rounds, best, n_steps, per_p, per_n;
 };
 
 // a key into its node's R slots: a cascade of atomicMax, the loser of slot
@@ -343,16 +363,19 @@ __device__ __forceinline__ void insert_key(unsigned long long* keys, int n, int 
   }
 }
 
-// node nd's R rounds from its keys (slot r of node nd at keys[r * n + nd]);
-// NW 64-bit words hold its w <= 2 NW words
-template <int NW>
+// row nd's R rounds from its keys (slot r of row nd at keys[r * n + nd]);
+// NW 64-bit words hold its w <= 2 NW words. Blocked: row nd is a slot of the
+// zone block, its node member[nd]; a padding slot elects no one
+template <int NW, bool Blocked>
 __device__ __forceinline__ void node_rounds(const RoundsIn& in, const RoundsOut& out,
                                             const RoundsParams& pr, int nd,
                                             const unsigned long long* keys) {
   const int w = pr.w, n = pr.n, R = pr.rounds;
   unsigned long long key[kMaxRounds];
   key[0] = R > 0 ? __ldcg(keys + nd) : 0ull;
-  const bool open = key[0] != 0ull && key_finite(key[0]);  // a blocked node elects no one
+  // a node whose first key is not finite elects no one
+  bool open = key[0] != 0ull && key_finite(key[0]);
+  if (Blocked && open) open = in.mask[nd] > 0.0f;
   if (!open) {
     for (int r = 0; r < R; ++r) {
       const size_t at = (size_t)r * n + nd;
@@ -369,8 +392,9 @@ __device__ __forceinline__ void node_rounds(const RoundsIn& in, const RoundsOut&
   bool c[kMaxRounds];
 #pragma unroll
   for (int r = 1; r < kMaxRounds; ++r) key[r] = r < R ? __ldcg(keys + (size_t)r * n + nd) : 0ull;
+  const size_t row = Blocked ? (size_t)in.member[nd] : (size_t)nd;
 #pragma unroll
-  for (int j = 0; j < 2 * NW; ++j) b[j] = j < w ? in.words[(size_t)nd * w + j] : 0u;
+  for (int j = 0; j < 2 * NW; ++j) b[j] = j < w ? in.words[row * w + j] : 0u;
 #pragma unroll
   for (int r = 0; r < kMaxRounds; ++r) {  // below a finite key: finite or empty
     const int slot = (int)(uint32_t)key[r];
@@ -397,8 +421,10 @@ __device__ __forceinline__ void node_rounds(const RoundsIn& in, const RoundsOut&
         taken[j] = feas ? (uint32_t)(t[j / 2] >> (32 * (j & 1))) : 0u;
         b[j] &= ~taken[j];
       }
-      out.round[slot] = r;
-      out.admit[slot] = feas;
+      if (!Blocked) {
+        out.round[slot] = r;
+        out.admit[slot] = feas;
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < 2 * NW; ++j) taken[j] = 0u;
@@ -425,11 +451,14 @@ __global__ void bitmap_fit_kernel(const uint32_t* __restrict__ words,
   out[i] = fit_words(b, w, mass[i], contig[i] != 0, n_steps);
 }
 
-template <int NW>
-__global__ void __launch_bounds__(kRoundThreads, 1)
-bitmap_fit_rounds_kernel(RoundsIn in, RoundsOut out, RoundsParams pr,
-                         unsigned long long* __restrict__ keys) {
-  __shared__ unsigned long long queue[kRoundWarps][kChunk * 32];
+// The rounds of both kernels, one cluster. Blocked: the election's rows are
+// the zone block's slots, a probe's row is local[node] (skipped if -1), and
+// no per-probe output is written
+template <int NW, bool Blocked>
+__device__ __forceinline__ void rounds_body(const RoundsIn& in, const RoundsOut& out,
+                                            const RoundsParams& pr,
+                                            unsigned long long* __restrict__ keys,
+                                            unsigned long long (*queue)[kChunk * 32]) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -439,9 +468,11 @@ bitmap_fit_rounds_kernel(RoundsIn in, RoundsOut out, RoundsParams pr,
   for (int r = 0; r < pr.rounds; ++r)
     for (int i = n0 + tid; i < n1; i += kRoundThreads) keys[(size_t)r * pr.n + i] = 0ull;
   asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-  for (int i = p0 + tid; i < p1; i += kRoundThreads) {
-    out.round[i] = -1;
-    out.admit[i] = 0;
+  if (!Blocked) {
+    for (int i = p0 + tid; i < p1; i += kRoundThreads) {
+      out.round[i] = -1;
+      out.admit[i] = 0;
+    }
   }
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
   // 1. every queued probe into its node's slots. Each warp gathers the keys
@@ -463,10 +494,14 @@ bitmap_fit_rounds_kernel(RoundsIn in, RoundsOut out, RoundsParams pr,
       const int i = c0 + k * kRoundThreads + lane;
       nd[k] = q[k] ? in.node[i] : -1;
       f[k] = q[k] ? in.ev[i] : 0.0f;
-      q[k] = q[k] && nd[k] >= 0 && nd[k] < pr.n && f[k] != -INFINITY;
+      q[k] = q[k] && nd[k] >= 0 && nd[k] < pr.nodes && f[k] != -INFINITY;
     }
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) q[k] = q[k] && !in.throttled[nd[k]];
+    if (Blocked) {
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) q[k] = q[k] && in.local[nd[k]] >= 0;
+    }
     int count = 0;
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
@@ -479,28 +514,49 @@ bitmap_fit_rounds_kernel(RoundsIn in, RoundsOut out, RoundsParams pr,
     __syncwarp();
     for (int j = lane; j < count; j += 32) {
       const unsigned long long v = queue[warp][j];
-      insert_key(keys, pr.n, pr.rounds, in.node[(uint32_t)v], v);
+      const int nd = in.node[(uint32_t)v];
+      insert_key(keys, pr.n, pr.rounds, Blocked ? in.local[nd] : nd, v);
     }
     __syncwarp();
   }
   cluster.sync();  // every key is in place (release / acquire, cluster scope)
-  // 2. the rounds, node by node
-  for (int nd = n0 + tid; nd < n1; nd += kRoundThreads) node_rounds<NW>(in, out, pr, nd, keys);
+  // 2. the rounds, row by row
+  for (int nd = n0 + tid; nd < n1; nd += kRoundThreads)
+    node_rounds<NW, Blocked>(in, out, pr, nd, keys);
 }
 
-// the rounds kernel for w words a node: NW = ceil(w / 2) 64-bit words
+template <int NW>
+__global__ void __launch_bounds__(kRoundThreads, 1)
+bitmap_fit_rounds_kernel(RoundsIn in, RoundsOut out, RoundsParams pr,
+                         unsigned long long* __restrict__ keys) {
+  __shared__ unsigned long long queue[kRoundWarps][kChunk * 32];
+  rounds_body<NW, false>(in, out, pr, keys, queue);
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kRoundThreads, 1)
+bitmap_fit_rounds_blocked_kernel(RoundsIn in, RoundsOut out, RoundsParams pr,
+                                 unsigned long long* __restrict__ keys) {
+  __shared__ unsigned long long queue[kRoundWarps][kChunk * 32];
+  rounds_body<NW, true>(in, out, pr, keys, queue);
+}
+
+// the rounds kernels for w words a node: NW = ceil(w / 2) 64-bit words;
+// [0] the flat kernel, [1] the blocked one
 using RoundsKernel = void (*)(RoundsIn, RoundsOut, RoundsParams, unsigned long long*);
 constexpr int kMaxNW = kMaxWords / 2;
-const RoundsKernel kRoundsKernels[kMaxNW] = {
-    bitmap_fit_rounds_kernel<1>, bitmap_fit_rounds_kernel<2>, bitmap_fit_rounds_kernel<3>,
-    bitmap_fit_rounds_kernel<4>};
-bool g_rounds_nonportable[kMaxNW] = {};
+const RoundsKernel kRoundsKernels[2][kMaxNW] = {
+    {bitmap_fit_rounds_kernel<1>, bitmap_fit_rounds_kernel<2>, bitmap_fit_rounds_kernel<3>,
+     bitmap_fit_rounds_kernel<4>},
+    {bitmap_fit_rounds_blocked_kernel<1>, bitmap_fit_rounds_blocked_kernel<2>,
+     bitmap_fit_rounds_blocked_kernel<3>, bitmap_fit_rounds_blocked_kernel<4>}};
+bool g_rounds_nonportable[2][kMaxNW] = {};
 
-cudaError_t set_rounds_attributes(int nw, int nonportable) {
-  if (!nonportable || g_rounds_nonportable[nw - 1]) return cudaSuccess;
+cudaError_t set_rounds_attributes(int blocked, int nw, int nonportable) {
+  if (!nonportable || g_rounds_nonportable[blocked][nw - 1]) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
-      kRoundsKernels[nw - 1], cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess) g_rounds_nonportable[nw - 1] = true;
+      kRoundsKernels[blocked][nw - 1], cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) g_rounds_nonportable[blocked][nw - 1] = true;
   return e;
 }
 
@@ -523,6 +579,34 @@ cudaLaunchConfig_t rounds_config(int grid, int block, int cluster, cudaStream_t 
 int steps_of(int w) {
   const int bits = 32 * w - 1;
   return max(1, 32 - __builtin_clz(bits));  // bit_length(32 w - 1)
+}
+
+// The checks and the one cluster launch of both rounds entries: n election
+// rows (nodes or slots); refuses any geometry other than what this source
+// computes and a scratch smaller than 2 n R words
+int launch_rounds(int blocked, const RoundsIn& in, const RoundsOut& out, int p, int n, int nodes,
+                  int w, int atoms, int rounds, int best, int grid, int block, int cluster,
+                  int nonportable, int per_p, int per_n, int scratch_words, void* scratch,
+                  void* stream) {
+  if (n <= 0 || nodes <= 0 || p < 0 || rounds < 0 || rounds > kMaxRounds)
+    return (int)cudaErrorInvalidValue;
+  if (w < 1 || w > kMaxWords || atoms < 1 || atoms > 32 * w) return (int)cudaErrorInvalidValue;
+  if (scratch_words < 2 * n * rounds) return (int)cudaErrorInvalidValue;
+  if (block != kRoundThreads || cluster < 1 || cluster > kMaxCluster || grid != cluster ||
+      (cluster > 8 && !nonportable))
+    return (int)cudaErrorInvalidConfiguration;
+  if (per_p != (p + grid - 1) / grid || per_n != (n + grid - 1) / grid)
+    return (int)cudaErrorInvalidValue;
+  const int nw = (w + 1) / 2;
+  cudaError_t e = set_rounds_attributes(blocked, nw, nonportable);
+  if (e != cudaSuccess) return (int)e;
+  RoundsParams pr{p, n, nodes, w, atoms, rounds, best != 0, steps_of(w), per_p, per_n};
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = rounds_config(grid, block, cluster, (cudaStream_t)stream, attr);
+  e = cudaLaunchKernelEx(&cfg, kRoundsKernels[blocked][nw - 1], in, out, pr,
+                         (unsigned long long*)scratch);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -564,62 +648,73 @@ extern "C" int bitmap_fit_rounds_launch(
     void* round, void* admit, void* scratch, int p, int n, int w, int atoms, int rounds,
     int best, int grid, int block, int cluster, int nonportable, int per_p, int per_n,
     int scratch_words, void* stream) {
-  if (n <= 0 || p < 0 || rounds < 0 || rounds > kMaxRounds) return (int)cudaErrorInvalidValue;
-  if (w < 1 || w > kMaxWords || atoms < 1 || atoms > 32 * w) return (int)cudaErrorInvalidValue;
-  if (scratch_words < bitmap_fit_rounds_scratch_words(n, rounds)) return (int)cudaErrorInvalidValue;
-  if (block != kRoundThreads || cluster < 1 || cluster > kMaxCluster || grid != cluster ||
-      (cluster > 8 && !nonportable))
-    return (int)cudaErrorInvalidConfiguration;
-  if (per_p != (p + grid - 1) / grid || per_n != (n + grid - 1) / grid)
-    return (int)cudaErrorInvalidValue;
-  const int nw = (w + 1) / 2;
-  cudaError_t e = set_rounds_attributes(nw, nonportable);
-  if (e != cudaSuccess) return (int)e;
   RoundsIn in{(const int32_t*)st, (const int32_t*)node, (const float*)ev,
               (const int32_t*)mass, (const uint8_t*)contig, (const uint32_t*)words,
-              (const uint8_t*)throttled};
+              (const uint8_t*)throttled, nullptr, nullptr, nullptr};
   RoundsOut out{(int32_t*)winner, (uint8_t*)feas, (uint32_t*)alloc, (int32_t*)round,
                 (uint8_t*)admit};
-  RoundsParams pr{p, n, w, atoms, rounds, best != 0, steps_of(w), per_p, per_n};
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = rounds_config(grid, block, cluster, (cudaStream_t)stream, attr);
-  e = cudaLaunchKernelEx(&cfg, kRoundsKernels[nw - 1], in, out, pr,
-                         (unsigned long long*)scratch);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_rounds(0, in, out, p, n, n, w, atoms, rounds, best, grid, block, cluster,
+                       nonportable, per_p, per_n, scratch_words, scratch, stream);
+}
+
+// The rounds on one rank's zone block of `slots` = Zb * M slots. Columns
+// (p,) as bitmap_fit_rounds'; words (nodes, w) int32 bit patterns and
+// throttled (nodes,) bool, replicated; member (slots,) int32 the node of each
+// slot, mask (slots,) float32 its validity, local (nodes,) int32 node -> its
+// slot in this block (-1: another rank's). Outputs winner (rounds, slots)
+// int32 (the global probe slot), feas (rounds, slots) bool, alloc (rounds,
+// slots, w) int32. The plan's geometry is checked as for
+// bitmap_fit_rounds_launch, with the slots a CTA in place of the nodes;
+// scratch: bitmap_fit_rounds_scratch_words(slots, rounds).
+extern "C" int bitmap_fit_rounds_blocked_launch(
+    const void* st, const void* node, const void* ev, const void* mass, const void* contig,
+    const void* words, const void* throttled, const void* member, const void* mask,
+    const void* local, void* winner, void* feas, void* alloc, void* scratch, int p, int nodes,
+    int slots, int w, int atoms, int rounds, int best, int grid, int block, int cluster,
+    int nonportable, int per_p, int per_n, int scratch_words, void* stream) {
+  RoundsIn in{(const int32_t*)st, (const int32_t*)node, (const float*)ev,
+              (const int32_t*)mass, (const uint8_t*)contig, (const uint32_t*)words,
+              (const uint8_t*)throttled, (const int32_t*)member, (const float*)mask,
+              (const int32_t*)local};
+  RoundsOut out{(int32_t*)winner, (uint8_t*)feas, (uint32_t*)alloc, nullptr, nullptr};
+  return launch_rounds(1, in, out, p, slots, nodes, w, atoms, rounds, best, grid, block, cluster,
+                       nonportable, per_p, per_n, scratch_words, scratch, stream);
 }
 
 // Compiled attributes of kernel k (0: bitmap_fit_kernel; 1 to 4:
-// bitmap_fit_rounds_kernel<k>, for 2 k - 1 and 2 k words a node): out[0]
-// static shared bytes, out[1] registers a thread, out[2] maxThreadsPerBlock.
+// bitmap_fit_rounds_kernel<k>, for 2 k - 1 and 2 k words a node; 5 to 8:
+// bitmap_fit_rounds_blocked_kernel<k - 4>): out[0] static shared bytes,
+// out[1] registers a thread, out[2] maxThreadsPerBlock.
 extern "C" int bitmap_fit_attrs(int k, int* out) {
-  if (k < 0 || k > kMaxNW) return (int)cudaErrorInvalidValue;
+  if (k < 0 || k > 2 * kMaxNW) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  const cudaError_t e = k == 0 ? cudaFuncGetAttributes(&a, bitmap_fit_kernel)
-                               : cudaFuncGetAttributes(&a, kRoundsKernels[k - 1]);
+  const cudaError_t e =
+      k == 0 ? cudaFuncGetAttributes(&a, bitmap_fit_kernel)
+             : cudaFuncGetAttributes(&a, kRoundsKernels[(k - 1) / kMaxNW][(k - 1) % kMaxNW]);
   out[0] = (int)a.sharedSizeBytes;
   out[1] = a.numRegs;
   out[2] = a.maxThreadsPerBlock;
   return (int)e;
 }
 
-// The rounds' cluster launch for w words a node as the card takes it, with
-// the launcher's attributes set: out[0] clusters of `cluster` CTAs that can
-// be resident at once (cudaOccupancyMaxActiveClusters; 0: it cannot
-// launch), out[1] the kernel's nonPortableClusterSizeAllowed.
+// The cluster launch of the rounds (blocked: of the zone-blocked rounds) for
+// w words a node as the card takes it, with the launcher's attributes set:
+// out[0] clusters of `cluster` CTAs that can be resident at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot launch), out[1] the kernel's
+// nonPortableClusterSizeAllowed.
 extern "C" int bitmap_fit_rounds_cluster_occupancy(int w, int cluster, int nonportable,
-                                                   int* out) {
-  if (w < 1 || w > kMaxWords) return (int)cudaErrorInvalidValue;
+                                                   int blocked, int* out) {
+  if (w < 1 || w > kMaxWords || blocked < 0 || blocked > 1) return (int)cudaErrorInvalidValue;
   const int nw = (w + 1) / 2;
-  cudaError_t e = set_rounds_attributes(nw, nonportable);
+  cudaError_t e = set_rounds_attributes(blocked, nw, nonportable);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = rounds_config(cluster, kRoundThreads, cluster, 0, attr);
   int count = 0;
-  e = cudaOccupancyMaxActiveClusters(&count, (const void*)kRoundsKernels[nw - 1], &cfg);
+  e = cudaOccupancyMaxActiveClusters(&count, (const void*)kRoundsKernels[blocked][nw - 1], &cfg);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, kRoundsKernels[nw - 1]);
+  e = cudaFuncGetAttributes(&a, kRoundsKernels[blocked][nw - 1]);
   out[0] = count;
   out[1] = a.nonPortableClusterSizeAllowed;
   return (int)e;

@@ -4,6 +4,7 @@ of ``utility_topk_address`` and ``zone_aggregate_members``.
 
     python -m repro_torch.kernel_bench [--parent PATH] [--phases] [--out FILE]
     python -m repro_torch.kernel_bench --rounds [--parent PATH] [--out FILE]
+    python -m repro_torch.kernel_bench --rounds --sharded [--out FILE]
     python -m repro_torch.kernel_bench --address [--parent PATH] [--out FILE]
 
 At the survival_scan shapes of ``chip_smoke.py`` phase 2 (Exp5: 5000 nodes,
@@ -38,6 +39,16 @@ and, with ``--parent PATH``, of another ``bitmap_fit.cu`` with the same
 tick), in the order parent, port, port, parent; and the plain version's on
 the last tick. The inputs and corner cases of its tests
 (``rounds_inputs``, ``rounds_edge_cases``) live here too.
+
+With ``--rounds --sharded``, ``bitmap_fit_rounds_blocked`` on the inputs the
+zone-sharded tick gives it on one rank (a one-rank NCCL group): Exp5
+stationary and Exp6's storm at its 2400-tick geometry (the same 5000 nodes,
+20 x 301 block), kernel OOM and Airlock, ticks 200 to 219. For each, the
+traffic (:func:`profile_tick.rounds_traffic` on the block), then the
+graph-replay device ms of one call, the median over the 20 ticks (checked
+equal to the tick's outputs), and the plain version's on the last tick. The
+inputs of its tests (``blocked_split``, ``rounds_blocked_edge_cases``,
+``blocked_rounds_shapes``) live here too.
 
 With ``--address``, ``utility_topk_address`` (the DA addressing step in one
 launch) on the same 20 ticks of the same cells: what the tick gives it
@@ -234,6 +245,81 @@ def rounds_edge_cases(seed: int = 0) -> dict:
     put("first_fit", *base(300, 8192, queued=0.2, policy="first"))
     put("first_fit_words_8", *base(100, 2048, W=8, queued=0.3, policy="first"))
     put("exp7_all_queued", *base(65536, 131072, queued=1.0))
+    return out
+
+
+def jittered_counts(N: int, zone: int, seed: int = 0) -> np.ndarray:
+    """Contiguous zone sizes summing to ``N``: a first zone of ``zone`` nodes
+    (the block's width M), the others of ``zone // 2`` to ``zone``, so most
+    zone rows end in padding slots."""
+    rng = np.random.default_rng(seed)
+    sizes = [min(zone, N)]
+    left = N - sizes[0]
+    while left > 0:
+        sizes.append(min(left, int(rng.integers(max(1, zone // 2), zone + 1))))
+        left -= sizes[-1]
+    return np.asarray(sizes, np.int32)
+
+
+def blocked_split(args, kw, counts, rank: int = 0, ranks: int = 1):
+    """A ``bitmap_fit_rounds`` case on contiguous zones of ``counts`` nodes,
+    as rank ``rank`` of ``ranks`` sees it: the arguments of
+    ``bitmap_fit_rounds_blocked`` (the case's, then the rank's ``member``,
+    ``mask`` and ``local``, CPU tensors) and the keywords."""
+    from repro_torch.core.state import densify_zones
+    from repro_torch.parallel.engine_mesh import zone_block
+
+    counts = np.asarray(counts, np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    member, mask = densify_zones(starts, counts)
+    block = zone_block(torch.from_numpy(member), torch.from_numpy(mask), rank, ranks,
+                       args[5].shape[0])
+    return (*args, *block), kw
+
+
+def rounds_blocked_edge_cases(seed: int = 0) -> dict:
+    """``bitmap_fit_rounds_blocked`` inputs (CPU tensors, keywords) at the
+    corners: each of :func:`rounds_edge_cases` on jittered zones (padding
+    slots in most rows) as the one rank's block (``<name>/1``) and as each
+    of two ranks' (``<name>/2:0``, ``<name>/2:1``: the other's nodes off the
+    block; Exp7's shape on one rank only); and ``node0_beside_padding``, a third of
+    the queued probes on node 0, whose zone row ends in padding slots that
+    point at node 0 too, on one rank and as the first of two."""
+    out = {}
+    for i, (name, (args, kw)) in enumerate(rounds_edge_cases(seed).items()):
+        N = args[5].shape[0]
+        counts = jittered_counts(N, min(max(2, N // 5), 307), seed=seed + i)
+        out[f"{name}/1"] = blocked_split(args, kw, counts)
+        if not name.startswith("exp7"):
+            for rank in (0, 1):
+                out[f"{name}/2:{rank}"] = blocked_split(args, kw, counts, rank=rank, ranks=2)
+    rng = np.random.default_rng(seed)
+    args, kw = rounds_inputs(64, 4096, seed=int(rng.integers(1 << 30)), queued=0.3)
+    node = args[1].clone()
+    node[torch.from_numpy(rng.uniform(size=4096) < 0.3)] = 0
+    args = (args[0], node, *args[2:])
+    counts = np.array([9, 5, 12, 7, 12, 10, 9], np.int32)  # M = 12: node 0's row has 3 pads
+    out["node0_beside_padding/1"] = blocked_split(args, kw, counts)
+    out["node0_beside_padding/2:0"] = blocked_split(args, kw, counts, rank=0, ranks=2)
+    return out
+
+
+def blocked_rounds_shapes(seed: int = 0) -> dict:
+    """``bitmap_fit_rounds_blocked`` inputs at the main paths' blocks, one
+    rank, both policies: ragged (37 nodes in zones of up to 13, 1029 slots),
+    Exp5 (20 x 301, 65 536 slots) and Exp7's top cell (253 x 307, 131 072
+    slots), the zones as ``init_numpy`` lays them out."""
+    from repro_torch.core.state import build_zones
+    from repro_torch.profile_tick import exp5_config, exp7_config
+
+    out = {}
+    cells = {"ragged": (37, 1029, jittered_counts(37, 13, seed)),
+             "exp5": (5000, 65536, build_zones(exp5_config(False), np.random.default_rng(0))[1]),
+             "exp7": (65536, 131072, build_zones(exp7_config(), np.random.default_rng(0))[1])}
+    for label, (N, P, counts) in cells.items():
+        for policy in ("best", "first"):
+            out[f"{label}-{policy}"] = blocked_split(
+                *rounds_inputs(N, P, seed=N + seed, policy=policy), counts)
     return out
 
 
@@ -558,6 +644,61 @@ def rounds_bench(dev, parent_path: Path | None = None) -> list:
     return rows
 
 
+SHARDED_CELLS = {  # label: (config, first recorded tick)
+    "Exp5 kernel-OOM": (lambda: profile_tick.exp5_config(False), profile_tick.WARMUP_TICKS),
+    "Exp5 Airlock": (lambda: profile_tick.exp5_config(True), profile_tick.WARMUP_TICKS),
+    "Exp6 storm kernel-OOM": (lambda: storm_config(False), profile_tick.WARMUP_TICKS),
+    "Exp6 storm Airlock": (lambda: storm_config(True), profile_tick.WARMUP_TICKS),
+}
+
+
+def storm_config(airlock: bool):
+    """Exp6's storm at its full geometry (``bench_exp6_scenarios.py``: the
+    Exp5 geometry, mmpp arrivals, correlated node failures), 2400 ticks."""
+    import dataclasses
+
+    from repro_torch.workloads import SCENARIOS
+
+    return dataclasses.replace(profile_tick.exp5_config(airlock, ticks=2400),
+                               scenario=SCENARIOS["storm"])
+
+
+def rounds_blocked_bench(dev) -> list:
+    """``bitmap_fit_rounds_blocked`` rows of ``--rounds --sharded`` (see the
+    module docstring); needs an initialized one-rank process group."""
+    from repro_torch.kernels.bitmap_fit import bitmap_fit_rounds_blocked_ref
+    from repro_torch.kernels.bitmap_fit import ops as fit_ops
+    from repro_torch.kernels.bitmap_fit import plan as fit_plan
+
+    _build.build(["bitmap_fit"])
+    entry = "bitmap_fit_rounds_blocked"
+    rows = []
+    for label, (make_cfg, first) in SHARDED_CELLS.items():
+        cfg = make_cfg()
+        calls = profile_tick.tick_calls(cfg, first, 20, (entry,), device=dev, sharded=True)[entry]
+        traffic = profile_tick.rounds_traffic(calls)
+        profile_tick.print_traffic(f"{label}, sharded, ticks {first} to {first + 19}", traffic)
+        times = []
+        for args, kw, outs in calls:
+            plan = fit_plan.for_rounds_blocked_call(*args, **kw)
+            got = plan.new_outputs(dev)
+            fit_ops.launch_rounds_blocked(plan, got, *args, **kw)
+            if not all(torch.equal(g, w) for g, w in zip(got, outs)):
+                print(f"{label}: the kernel differs from the tick's outputs", file=sys.stderr)
+                raise SystemExit(1)
+            times.append(graph_ms(lambda: fit_ops.launch_rounds_blocked(plan, got, *args, **kw)))
+        args, kw, _ = calls[-1]
+        Zb, M = args[7].shape
+        row = dict(cell=label, N=cfg.num_nodes, P=cfg.probe_capacity, block=[Zb, M],
+                   traffic=traffic, graph_ms=float(np.median(times)),
+                   plain_ms=graph_ms(lambda: bitmap_fit_rounds_blocked_ref(*args, **kw)))
+        rows.append(row)
+        print(f"{label} N={cfg.num_nodes} P={cfg.probe_capacity} block {Zb} x {M}: graph-replay "
+              f"device ms of one call, median over the 20 ticks {row['graph_ms']:.6f}; plain "
+              f"version {row['plain_ms']:.6f} (last tick)", flush=True)
+    return rows
+
+
 def address_traffic(args, kw) -> dict:
     """What one ``utility_topk_address`` call was given: addressing slots,
     the warps (32 slots) holding one, and the sampled candidates whose
@@ -688,6 +829,8 @@ def main(argv=None) -> int:
                     help="survival_scan.cu of the nine-launch design (with --rounds: "
                          "another bitmap_fit.cu; with --address: another utility_topk.cu)")
     ap.add_argument("--rounds", action="store_true", help="bitmap_fit_rounds instead")
+    ap.add_argument("--sharded", action="store_true",
+                    help="with --rounds: bitmap_fit_rounds_blocked on the sharded tick's inputs")
     ap.add_argument("--address", action="store_true",
                     help="utility_topk_address and zone_aggregate_members instead")
     ap.add_argument("--phases", action="store_true",
@@ -701,6 +844,22 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable"
+    if args.rounds and args.sharded:
+        if args.parent is not None:
+            ap.error("--sharded times the port's blocked rounds alone (no --parent)")
+        import os
+        import tempfile
+
+        import torch.distributed as dist
+
+        torch.cuda.set_device(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1)
+            try:
+                return write(args.out, card, rounds_blocked_bench(dev))
+            finally:
+                dist.destroy_process_group()
     if args.rounds:
         return write(args.out, card, rounds_bench(dev, args.parent))
     if args.address:

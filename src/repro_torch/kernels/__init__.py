@@ -10,7 +10,8 @@ launches in ``<wrapper>.launches``.
   * ``bitmap_fit``    — per-node demand feasibility against bitmap words
     (and ``bitmap_fit_blocked``, the same kernel over zone-blocked rows;
     ``bitmap_fit_rounds``, every arbitration round of the flat tick in one
-    cluster launch)
+    cluster launch; ``bitmap_fit_rounds_blocked``, the same rounds on one
+    rank's zone block, the zone-sharded tick's)
   * ``utility_topk``  — fused DA utility scoring + candidate argmax (and
     ``utility_topk_address``, the whole DA addressing step in one launch)
   * ``zone_aggregate``— per-zone mean slack / total heat (and
@@ -37,6 +38,7 @@ WRAPPERS = {
     "bitmap_fit": bitmap_fit.bitmap_fit,
     "bitmap_fit_blocked": bitmap_fit.bitmap_fit_blocked,
     "bitmap_fit_rounds": bitmap_fit.bitmap_fit_rounds,
+    "bitmap_fit_rounds_blocked": bitmap_fit.bitmap_fit_rounds_blocked,
     "utility_topk": utility_topk.utility_topk,
     "utility_topk_address": utility_topk.utility_topk_address,
     "zone_aggregate": zone_aggregate.zone_aggregate,
@@ -47,6 +49,7 @@ PLANS = {
     "bitmap_fit": _bitmap_plan.for_call,
     "bitmap_fit_blocked": _bitmap_plan.for_blocked_call,
     "bitmap_fit_rounds": _bitmap_plan.for_rounds_call,
+    "bitmap_fit_rounds_blocked": _bitmap_plan.for_rounds_blocked_call,
     "utility_topk": _topk_plan.for_call,
     "utility_topk_address": _topk_plan.for_address_call,
     "zone_aggregate": _agg_plan.for_call,
@@ -57,6 +60,7 @@ LAUNCHERS = {
     "bitmap_fit": bitmap_fit.launch,
     "bitmap_fit_blocked": bitmap_fit.launch,
     "bitmap_fit_rounds": bitmap_fit.launch_rounds,
+    "bitmap_fit_rounds_blocked": bitmap_fit.launch_rounds_blocked,
     "utility_topk": utility_topk.launch,
     "utility_topk_address": utility_topk.launch_address,
     "zone_aggregate": zone_aggregate.launch,

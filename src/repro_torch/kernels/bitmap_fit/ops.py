@@ -1,13 +1,15 @@
 """bitmap_fit wrappers: the CUDA kernel for a CUDA tensor, else the plain version.
 
-Three entry points launch the kernels of ``csrc/bitmap_fit.cu``: the flat
+Four entry points launch the kernels of ``csrc/bitmap_fit.cu``: the flat
 ``bitmap_fit`` over ``(N, W)`` node rows and the zone-blocked
 ``bitmap_fit_blocked`` over the ``(Z * M, W)`` rows of a ``(Z, M, W)`` block
 launch ``bitmap_fit_kernel``; ``bitmap_fit_rounds`` launches
 ``bitmap_fit_rounds_kernel``, every arbitration round of a tick in one
-cluster launch. Each counts its own launches, so a run can tell which entry
-it went through. Grid and block come from the entry's launch plan
-(``plan.py``).
+cluster launch, and ``bitmap_fit_rounds_blocked`` launches
+``bitmap_fit_rounds_blocked_kernel``, the same rounds on one rank's zone
+block (the zone-sharded tick's). Each counts its own launches, so a run can
+tell which entry it went through. Grid and block come from the entry's
+launch plan (``plan.py``).
 """
 
 from __future__ import annotations
@@ -21,17 +23,19 @@ from repro_torch.kernels.bitmap_fit import plan as _plan
 from repro_torch.kernels.bitmap_fit.ref import (
     bitmap_fit_blocked_ref,
     bitmap_fit_ref,
+    bitmap_fit_rounds_blocked_ref,
     bitmap_fit_rounds_ref,
 )
 from repro_torch.kernels.launch_plan import LaunchPlan
 
-__all__ = ["bitmap_fit", "bitmap_fit_blocked", "bitmap_fit_rounds"]
+__all__ = ["bitmap_fit", "bitmap_fit_blocked", "bitmap_fit_rounds", "bitmap_fit_rounds_blocked"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {
     "bitmap_fit_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bitmap_fit_rounds_launch": [_P] * 13 + [_I] * 13 + [_P],
+    "bitmap_fit_rounds_blocked_launch": [_P] * 14 + [_I] * 14 + [_P],
 }
 
 
@@ -92,6 +96,26 @@ def bitmap_fit_blocked(
     return outs[0]
 
 
+def _rounds_operands(plan: LaunchPlan, outs, scratch, st, node, ev, mass, contig, words,
+                     throttled):
+    """Check a rounds call's columns (P,), replicated words (N, W) and
+    throttled flags (N,) and its outputs; returns the scratch, allocated
+    unless given."""
+    entry, P, (N, W) = plan.entry, st.shape[0], words.shape
+    for x, dtype, what in ((st, torch.int32, "st"), (node, torch.int32, "node"),
+                           (ev, torch.float32, "ev"), (mass, torch.int32, "mass"),
+                           (contig, torch.bool, "contig")):
+        _build.expect(x, dtype, (P,), f"{entry} {what}")
+    _build.expect(words, torch.int32, (N, W), f"{entry} words")
+    _build.expect(throttled, torch.bool, (N,), f"{entry} throttled")
+    for x, o in zip(outs, plan.outputs):
+        _build.expect(x, o.dtype, o.shape, f"{entry} {o.name}")
+    if scratch is None:
+        scratch = torch.empty(plan.scratch_words, dtype=torch.int32, device=st.device)
+    _build.expect(scratch, torch.int32, (plan.scratch_words,), f"{entry} scratch")
+    return scratch
+
+
 def launch_rounds(
     plan: LaunchPlan, outs, st, node, ev, mass, contig, words, throttled, *, rounds: int,
     atoms: int, policy: str, scratch=None, lib=None,
@@ -101,39 +125,52 @@ def launch_rounds(
     ``scratch`` (the plan's ``scratch_words`` int32: the election keys) is
     allocated here unless given; ``lib`` another build of the source (a
     benchmark's), else the port's. Counts nothing."""
-    P, (N, W) = st.shape[0], words.shape
-    for x, dtype, what in ((st, torch.int32, "st"), (node, torch.int32, "node"),
-                           (ev, torch.float32, "ev"), (mass, torch.int32, "mass"),
-                           (contig, torch.bool, "contig")):
-        _build.expect(x, dtype, (P,), f"bitmap_fit_rounds {what}")
-    _build.expect(words, torch.int32, (N, W), "bitmap_fit_rounds words")
-    _build.expect(throttled, torch.bool, (N,), "bitmap_fit_rounds throttled")
-    for x, o in zip(outs, plan.outputs):
-        _build.expect(x, o.dtype, o.shape, f"bitmap_fit_rounds {o.name}")
-    if scratch is None:
-        scratch = torch.empty(plan.scratch_words, dtype=torch.int32, device=st.device)
-    _build.expect(scratch, torch.int32, (plan.scratch_words,), "bitmap_fit_rounds scratch")
+    cols = (st, node, ev, mass, contig, words, throttled)
+    scratch = _rounds_operands(plan, outs, scratch, *cols)
     lib = lib or _build.load("bitmap_fit", _SIG)
-    ptr = _build.ptr
+    (N, W) = words.shape
     err = lib.bitmap_fit_rounds_launch(
-        *(ptr(x) for x in (st, node, ev, mass, contig, words, throttled, *outs, scratch)),
-        P, N, W, int(atoms), int(rounds), int(policy == "best"), *_plan.pack(plan),
+        *(_build.ptr(x) for x in (*cols, *outs, scratch)),
+        st.shape[0], N, W, int(atoms), int(rounds), int(policy == "best"), *_plan.pack(plan),
         plan.scratch_words, _build.stream(st),
     )
     _build.check(err, "bitmap_fit_rounds")
 
 
+def launch_rounds_blocked(
+    plan: LaunchPlan, outs, st, node, ev, mass, contig, words, throttled, member, mask, local, *,
+    rounds: int, atoms: int, policy: str, scratch=None,
+) -> None:
+    """Launch a ``bitmap_fit_rounds_blocked`` plan (one cluster) into
+    ``outs`` (winner, feas, alloc), allocated by the caller; ``scratch`` as
+    for :func:`launch_rounds`. Counts nothing."""
+    cols = (st, node, ev, mass, contig, words, throttled)
+    scratch = _rounds_operands(plan, outs, scratch, *cols)
+    (N, W), (Zb, M) = words.shape, member.shape
+    _build.expect(member, torch.int32, (Zb, M), "bitmap_fit_rounds_blocked member")
+    _build.expect(mask, torch.float32, (Zb, M), "bitmap_fit_rounds_blocked mask")
+    _build.expect(local, torch.int32, (N,), "bitmap_fit_rounds_blocked local")
+    lib = _build.load("bitmap_fit", _SIG)
+    err = lib.bitmap_fit_rounds_blocked_launch(
+        *(_build.ptr(x) for x in (*cols, member, mask, local, *outs, scratch)),
+        st.shape[0], N, Zb * M, W, int(atoms), int(rounds), int(policy == "best"),
+        *_plan.pack(plan), plan.scratch_words, _build.stream(st),
+    )
+    _build.check(err, "bitmap_fit_rounds_blocked")
+
+
 def rounds_cluster_occupancy(plan: LaunchPlan) -> dict:
-    """How the card takes a rounds plan's cluster launch, with the
-    launcher's attributes set: ``clusters`` that can be resident at once
-    (``cudaOccupancyMaxActiveClusters``; 0: it cannot launch) and the
+    """How the card takes a rounds plan's cluster launch (flat or blocked),
+    with the launcher's attributes set: ``clusters`` that can be resident at
+    once (``cudaOccupancyMaxActiveClusters``; 0: it cannot launch) and the
     kernel's ``nonportable`` attribute. Needs the card."""
     (L,) = plan.launches
     fn = "bitmap_fit_rounds_cluster_occupancy"
-    W = plan.outputs[2].shape[2]  # alloc (R, N, W)
-    lib = _build.load("bitmap_fit", {fn: [_I, _I, _I, _P]})
+    W = plan.outputs[2].shape[-1]  # alloc (R, N, W) or (R, Zb, M, W)
+    lib = _build.load("bitmap_fit", {fn: [_I, _I, _I, _I, _P]})
     out = (ctypes.c_int * 2)()
-    _build.check(getattr(lib, fn)(W, L.cluster, int(L.cluster_nonportable), out), fn)
+    blocked = int(plan.entry == "bitmap_fit_rounds_blocked")
+    _build.check(getattr(lib, fn)(W, L.cluster, int(L.cluster_nonportable), blocked, out), fn)
     return {"clusters": out[0], "nonportable": out[1]}
 
 
@@ -159,6 +196,31 @@ def bitmap_fit_rounds(
     return tuple(outs)
 
 
+def bitmap_fit_rounds_blocked(
+    st, node, ev, mass, contig, words, throttled, member, mask, local, *, rounds: int,
+    atoms: int, policy: str,
+):
+    """The arbitration rounds of a tick on one rank's zone block, in one
+    launch: (winner, feas, alloc), each ``(R, Zb, M, ...)``, as
+    :func:`bitmap_fit_rounds_blocked_ref` defines them.
+
+    The columns, ``words`` and ``throttled`` as :func:`bitmap_fit_rounds`
+    takes them (replicated); ``member`` (Zb, M) int32, ``mask`` (Zb, M)
+    float32, ``local`` (N,) int32 node -> its slot in the block or -1. CPU
+    tensors take :func:`bitmap_fit_rounds_blocked_ref`.
+    """
+    args = (st, node, ev, mass, contig, words, throttled, member, mask, local)
+    kw = dict(rounds=rounds, atoms=atoms, policy=policy)
+    if not st.is_cuda:
+        return bitmap_fit_rounds_blocked_ref(*args, **kw)
+    plan = _plan.for_rounds_blocked_call(*args, **kw)
+    outs = plan.new_outputs(st.device)
+    launch_rounds_blocked(plan, outs, *args, **kw)
+    bitmap_fit_rounds_blocked.launches += 1
+    return tuple(outs)
+
+
 bitmap_fit.launches = 0
 bitmap_fit_blocked.launches = 0
 bitmap_fit_rounds.launches = 0
+bitmap_fit_rounds_blocked.launches = 0

@@ -3,7 +3,8 @@
 ``bitmap_fit_ref`` is the one-round fit test; ``bitmap_fit_rounds_ref`` is
 the arbiter's round (``core.arbiter.elect``, the fit test and
 ``core.arbiter.alloc_round``) run ``rounds`` times, the plain version of the
-one-launch ``bitmap_fit_rounds`` kernel.
+one-launch ``bitmap_fit_rounds`` kernel; ``bitmap_fit_rounds_blocked_ref``
+is the same over the slots of one rank's zone block.
 """
 
 from __future__ import annotations
@@ -88,3 +89,49 @@ def bitmap_fit_rounds_ref(
                 torch.zeros((0, N), dtype=torch.bool, device=dev),
                 torch.zeros((0, N, W), dtype=torch.int32, device=dev), won, admit)
     return torch.stack(winners), torch.stack(feasible), torch.stack(taken), won, admit
+
+
+def block_view(st, node, words, throttled, member, mask, local):
+    """A zone block as an election of its own: the probes' rows are their
+    nodes' slots (``local``, -1 off the block: then not queued here), the
+    rows' words and throttled flags their members' (padding slots: no
+    words). Returns (st, slot, words (Zb * M, W), throttled (Zb * M,))."""
+    N = words.shape[0]
+    valid = (mask > 0).reshape(-1)
+    mem = member.reshape(-1).long()
+    inside = (node >= 0) & (node < N)
+    slot = torch.where(inside, local[torch.clamp(node, 0, N - 1).long()], -1)
+    return (torch.where(slot >= 0, st, -1), slot, torch.where(valid[:, None], words[mem], 0),
+            throttled[mem] & valid)
+
+
+def bitmap_fit_rounds_blocked_ref(
+    st: torch.Tensor,
+    node: torch.Tensor,
+    ev: torch.Tensor,
+    mass: torch.Tensor,
+    contig: torch.Tensor,
+    words: torch.Tensor,
+    throttled: torch.Tensor,
+    member: torch.Tensor,
+    mask: torch.Tensor,
+    local: torch.Tensor,
+    *,
+    rounds: int,
+    atoms: int,
+    policy: str,
+):
+    """:func:`bitmap_fit_rounds_ref` over the slots of one rank's zone block.
+
+    Columns (P,) and the replicated ``words`` (N, W), ``throttled`` (N,) as
+    there; ``member`` (Zb, M) int32 the node of each slot, ``mask`` (Zb, M)
+    its validity, ``local`` (N,) int32 node -> its slot in the block, -1 for
+    a node of another rank. Reads the block's nodes only. Returns (winner
+    (R, Zb, M) int32 global probe slot or -1, feas (R, Zb, M) bool, alloc
+    (R, Zb, M, W) int32); a padding slot has no winner."""
+    Zb, M = member.shape
+    st_b, slot, words_b, thr_b = block_view(st, node, words, throttled, member, mask, local)
+    winner, feas, alloc, _, _ = bitmap_fit_rounds_ref(
+        st_b, slot, ev, mass, contig, words_b, thr_b, rounds=rounds, atoms=atoms, policy=policy)
+    R, W = winner.shape[0], words.shape[1]
+    return winner.reshape(R, Zb, M), feas.reshape(R, Zb, M), alloc.reshape(R, Zb, M, W)

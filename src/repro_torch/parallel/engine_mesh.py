@@ -7,20 +7,21 @@ dimension. Each rank of a process group runs the same tick on its own
 device:
 
   sharded     the O(N * A) node-bitmap pipeline (bit-plane unpack, max-run
-              scans, per-winner feasibility and atom allocation, word
-              packing): each rank computes its block of ``ceil(Z / D)`` padded
-              zone rows (``MeshPlane``), through the same hot-path kernels as
-              the flat engine (``bitmap_fit_blocked``, ``zone_aggregate_members``).
+              scans, the arbitration rounds' election, feasibility and atom
+              allocation): each rank computes its block of ``ceil(Z / D)``
+              padded zone rows (``MeshPlane``), the rounds in one launch of
+              ``bitmap_fit_rounds_blocked`` and the zone sums in one of
+              ``zone_aggregate_members``.
 
   replicated  the probe table and every O(N) float vector. Every rank draws
               the same random values (same seed or same recorded draws) and
               runs the same deterministic ops, so all ranks hold identical
               copies.
 
-  exchanged   per tick, ``all_gather``s of (a) the (Z,) zone-aggregate table
-              (zS, zH) and (b) the per-node results of the sharded pipeline
-              (s_true / run_true and each round's allocation words and
-              feasibility flags).
+  exchanged   per tick, five ``all_gather``s: (a) the (Z,) zone-aggregate
+              table (zS, zH) and (b) the per-node results of the sharded
+              pipeline: s_true, run_true, and one int32 tensor of every
+              round's winner slot, feasibility flag and allocation words.
 
 With any group size the sharded engine equals the flat engine bit for bit:
 every cross-rank value is an exact gather of rows computed the same way the
@@ -42,12 +43,12 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import bitmap, hotpath, zhaf
+from repro_torch.core import arbiter, bitmap, hotpath, zhaf
 from repro_torch.core.config import LaminarConfig
 from repro_torch.core.engine import LaminarEngine
-from repro_torch.core.state import SimState, init_numpy, unpack_zoned
+from repro_torch.core.state import SimState, count, init_numpy, unpack_zoned
 
-__all__ = ["MeshPlane", "ZoneShardedEngine", "traffic_model", "zone_group"]
+__all__ = ["MeshPlane", "ZoneShardedEngine", "traffic_model", "zone_block", "zone_group"]
 
 
 def zone_group(num_devices: int | None = None, group=None) -> int:
@@ -63,6 +64,30 @@ def zone_group(num_devices: int | None = None, group=None) -> int:
     if d != world:
         raise ValueError(f"requested {d} devices, the process group has {world} ranks")
     return d
+
+
+def zone_block(zmember: torch.Tensor, zmask: torch.Tensor, rank: int, num_ranks: int,
+               num_nodes: int):
+    """Rank ``rank``'s block of the zone rows, padded to a multiple of
+    ``num_ranks`` rows (padding rows have no valid slot): ``member`` (Zb, M)
+    int32 node of each slot, ``mask`` (Zb, M) float32 validity, and
+    ``local`` (N,) int32, each node's slot in the flattened block, -1 for a
+    node of another rank. ``local`` is built from the mask alone: padding
+    slots point at node 0 in ``zmember``."""
+    Z, M = zmember.shape
+    Zb = -(-Z // num_ranks)
+    dev = zmember.device
+    member = torch.zeros((Zb * num_ranks, M), dtype=torch.int32, device=dev)
+    mask = torch.zeros((Zb * num_ranks, M), dtype=zmask.dtype, device=dev)
+    member[:Z] = zmember
+    mask[:Z] = zmask
+    rows = slice(rank * Zb, (rank + 1) * Zb)
+    member, mask = member[rows].contiguous(), mask[rows].contiguous()
+    # padding slots scatter to a spare entry that is cut off
+    tgt = torch.where(mask > 0, member, num_nodes).reshape(-1).long()
+    local = torch.full((num_nodes + 1,), -1, dtype=torch.int32, device=dev)
+    local.index_copy_(0, tgt, torch.arange(Zb * M, dtype=torch.int32, device=dev))
+    return member, mask, local[:num_nodes].contiguous()
 
 
 class MeshPlane:
@@ -85,23 +110,15 @@ class MeshPlane:
         self.D = dist.get_world_size(group)
         rank = dist.get_rank(group)
         Z, M = zmember.shape
-        Zb = -(-Z // self.D)
-        dev = zmember.device
-        # pad the zone rows to Zb * D (padding rows have no valid slot) and
-        # keep this rank's slice
-        member = torch.zeros((Zb * self.D, M), dtype=zmember.dtype, device=dev)
-        mask = torch.zeros((Zb * self.D, M), dtype=zmask.dtype, device=dev)
-        member[:Z] = zmember
-        mask[:Z] = zmask
-        rows = slice(rank * Zb, (rank + 1) * Zb)
-        self.Z, self.Zb, self.M = Z, Zb, M
-        self.mem_l = member[rows].contiguous()  # (Zb, M) int32 node index per slot
-        self.msk_l = mask[rows].contiguous()  # (Zb, M) f32 validity
-        self.valid = (self.msk_l > 0).reshape(-1)  # (Zb * M,)
+        self.Z, self.Zb, self.M = Z, -(-Z // self.D), M
+        # (Zb, M) int32 node index per slot, (Zb, M) f32 validity, (N,) int32
+        # node -> slot in this block (-1: another rank's)
+        self.mem_l, self.msk_l, self.local = zone_block(zmember, zmask, rank, self.D,
+                                                        cfg.num_nodes)
         self.valid_w = (self.msk_l > 0)[..., None]  # (Zb, M, 1)
         # node n's slot in the gathered (Zb * D * M,) rows: unpack_zoned of
         # the slot numbers, so a gather is the same as unpack_zoned
-        slots = torch.arange(Zb * self.D * M, device=dev).reshape(Zb * self.D, M)
+        slots = torch.arange(self.Zb * self.D * M, device=zmember.device).reshape(-1, M)
         self.slot_of = unpack_zoned(slots, zmember, zmask, cfg.num_nodes)
 
     # ---- blocked-layout plumbing ---------------------------------------
@@ -117,50 +134,49 @@ class MeshPlane:
         xb = self._gather(x_l)
         return xb.reshape((-1,) + tuple(xb.shape[2:]))[self.slot_of]
 
-    def _local_words(self, s: SimState) -> torch.Tensor:
-        """(Zb, M, W) free words of the local rows; padding slots zeroed."""
-        return torch.where(self.valid_w, s.free[self.mem_l], 0)
-
     # ---- the three node-plane hooks ------------------------------------
 
-    def build_view(self, cfg: LaminarConfig, s: SimState):
-        """Blocked view build; returns (NodeView with ``bits=None``, the
-        local (Zb * M, A) bit plane threaded across the arbitration rounds)."""
-        words_l = self._local_words(s).reshape(self.Zb * self.M, -1)
+    def build_view(self, cfg: LaminarConfig, s: SimState) -> zhaf.NodeView:
+        """Blocked view build: the true free atoms and longest free run of
+        the local rows, gathered (a NodeView with ``bits=None``)."""
+        words_l = torch.where(self.valid_w, s.free[self.mem_l], 0).reshape(self.Zb * self.M, -1)
         bits_l = bitmap.unpack_bits(words_l, cfg.atoms_per_node)
         s_true_l = torch.sum(bits_l, dim=-1).to(torch.float32)
         run_l = bitmap.max_run(bits_l).to(torch.float32)
         s_true = self._to_flat(s_true_l.reshape(self.Zb, self.M))
         run_true = self._to_flat(run_l.reshape(self.Zb, self.M))
         h_true = zhaf.node_heat(cfg, s).to(torch.float32)
-        return zhaf.NodeView(None, s_true, h_true, run_true), bits_l
+        return zhaf.NodeView(None, s_true, h_true, run_true)
 
-    def alloc_round(self, cfg: LaminarConfig, s: SimState, bits_l, ws, has_w):
-        """One admission round's bitmap math on the local zone block.
+    def arb_rounds(self, cfg: LaminarConfig, s: SimState, throttled: torch.Tensor) -> SimState:
+        """The tick's ``cfg.arb_rounds`` admission rounds: the same state as
+        the flat tick's ``arbiter.arbitrate_rounds``.
 
-        The flat path's op sequence per local row (feasibility kernel, class
-        allocation, word packing); padding rows are forced infeasible. Only
-        the packed words and the feasibility flags are gathered."""
-        Zb, M = self.Zb, self.M
-        ws_l = ws[self.mem_l].reshape(-1)
-        mass_l = s.mass[ws_l]
-        contig_l = s.contig[ws_l]
-        feas_hot = (
-            hotpath.bitmap_fit_blocked(
-                self._local_words(s), mass_l.reshape(Zb, M), contig_l.reshape(Zb, M)
-            ).reshape(-1)
-            != 0
-        )
-        alloc_bits_l, feas_l = bitmap.alloc_for_class(
-            bits_l, mass_l, contig_l, policy=cfg.alloc_policy
-        )
-        feas_l = feas_l & feas_hot & has_w[self.mem_l].reshape(-1) & self.valid
-        taken = alloc_bits_l & feas_l[:, None]
-        alloc_words_l = bitmap.pack_bits(taken)
-        bits_l = bits_l & ~taken
-        alloc_words = self._to_flat(alloc_words_l.reshape(Zb, M, -1))  # (N, W)
-        feas_n = self._to_flat(feas_l.reshape(Zb, M))  # (N,)
-        return alloc_words, feas_n, bits_l
+        One ``bitmap_fit_rounds_blocked`` (one launch on the card) elects,
+        tests and allocates every round on the local zone block; one gather
+        brings each node's (winner, feasibility, words) of every round to
+        all ranks, as one int32 tensor; each probe's transition is applied
+        once, for the round it won: probe p won round r iff it is the
+        winner of round r at its node."""
+        R, N, P = cfg.arb_rounds, cfg.num_nodes, s.st.shape[0]
+        winner, feas, alloc = hotpath.bitmap_fit_rounds_blocked(
+            cfg, s, throttled, self.mem_l, self.msk_l, self.local)
+        W = alloc.shape[-1]
+        rows = torch.cat([winner[..., None], feas[..., None].to(torch.int32), alloc], dim=-1)
+        rows = rows.permute(1, 2, 0, 3).reshape(self.Zb, self.M, R * (W + 2))
+        flat = self._to_flat(rows).reshape(N, R, W + 2)  # (N, R, winner | feas | words)
+        mine = flat[torch.clamp(s.node, 0, N - 1)]  # (P, R, W + 2): each probe's node
+        slot = torch.arange(P, dtype=torch.int32, device=s.st.device)
+        hit = mine[:, :, 0] == slot[:, None]  # (P, R): won round r
+        won = hit.any(dim=1)
+        admit = torch.any(hit & (mine[:, :, 1] != 0), dim=1)
+        # at most one round per probe, and the rounds take disjoint atoms:
+        # int32 sums of the words are ORs
+        probe_alloc = torch.sum(torch.where(hit[..., None], mine[:, :, 2:], 0), dim=1,
+                                dtype=torch.int32)
+        taken = torch.sum(flat[:, :, 2:], dim=1, dtype=torch.int32)
+        return arbiter._admissions(cfg, s, won, admit, probe_alloc, s.free & ~taken,
+                                   R * count(throttled))
 
     def zone_aggregates(self, cfg: LaminarConfig, s: SimState):
         """Local zone rows through the zone_aggregate_members kernel, then
@@ -176,7 +192,10 @@ def traffic_model(
     """Per-tick cross-shard bytes of the sharded tick, by category.
 
     The same arithmetic as the JAX package's ``traffic_model``: the bytes the
-    design moves, not a measurement of this engine's exchange.
+    design moves, not a measurement of this engine's exchange. The port's
+    exchange of the rounds also moves each round's int32 winner slot (R of
+    them a slot), in one gather of winner, feasibility and words together;
+    the model, kept equal to the reference's, leaves them out.
     ``control_plane_bytes_per_tick`` is the modelled Laminar control plane,
     the (zS, zH) table once per refresh interval: O(num_zones) floats.
     ``sim_sync_bytes_per_tick`` is the simulator-fidelity exchange (per-node

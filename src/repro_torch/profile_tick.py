@@ -8,12 +8,13 @@ and to finish it, the number of device kernels, the summed device kernel
 time (so the device's busy and idle shares of the wall time), each
 hand-written kernel's device time and launches, and the ops that take the
 most host time and the kernels that take the most device time
-(``torch.profiler``). On the flat tick it then records what the tick gives
-``bitmap_fit_rounds`` over 20 more ticks (:func:`rounds_traffic`: queued
-slots, winners, and the free runs of each node whose winner reaches the
-allocation). ``--sharded`` runs the tick of the zone-sharded engine on a
-one-rank NCCL group instead of the flat tick. It needs a CUDA card and
-exits non-zero without one.
+(``torch.profiler``). It then records what the tick gives its rounds
+(``bitmap_fit_rounds``, or on the sharded tick ``bitmap_fit_rounds_blocked``)
+over 20 more ticks (:func:`rounds_traffic`: queued slots, winners, and the
+free runs of each node whose winner reaches the allocation). ``--sharded``
+runs the tick of the zone-sharded engine on a one-rank NCCL group instead
+of the flat tick, and also counts its ``all_gather`` calls a tick. It needs
+a CUDA card and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ WINDOW_TICKS = 20
 EXP7_NODES = 65536  # bench_exp7_scale.py --full, top cell
 EXP7_TICKS = 100  # bench_exp7_scale.py NUM_TICKS
 # the port's hand-written kernels, as the profiler names them
-HAND_WRITTEN = ("bitmap_fit_rounds_kernel", "bitmap_fit_kernel", "utility_topk_address_kernel",
-                "utility_topk_kernel", "zone_aggregate_kernel", "survival_cluster_kernel")
+HAND_WRITTEN = ("bitmap_fit_rounds_kernel", "bitmap_fit_rounds_blocked_kernel",
+                "bitmap_fit_kernel", "utility_topk_address_kernel", "utility_topk_kernel",
+                "zone_aggregate_kernel", "survival_cluster_kernel")
 
 
 def exp5_config(airlock: bool, full: bool = True, ticks: int = 2400) -> LaminarConfig:
@@ -114,14 +116,20 @@ def recording(*entries: str):
 
 
 def tick_calls(cfg: LaminarConfig, warmup: int, ticks: int, entries, device="cuda",
-               seed: int = 0) -> dict:
+               seed: int = 0, sharded: bool = False) -> dict:
     """The calls of the named kernel entries (:func:`recording`) in the flat
     engine's ticks ``warmup`` to ``warmup + ticks - 1`` of a run from
-    ``seed``."""
-    eng = LaminarEngine(cfg, device=device)
+    ``seed``; ``sharded``: the zone-sharded engine's, on the initialized
+    process group."""
+    if sharded:
+        from repro_torch.parallel.engine_mesh import ZoneShardedEngine
+
+        eng = ZoneShardedEngine(cfg, device=device)
+    else:
+        eng = LaminarEngine(cfg, device=device)
     s, lam = eng.init(seed)
     draws = eng.draws(lam, s.zstart.shape[0], seed=seed)
-    step = make_step(cfg)
+    step = make_step(cfg, plane=eng._plane(s))
     for t in range(warmup):
         s, _ = step(s, draws.tick(t))
     with recording(*entries) as calls:
@@ -138,22 +146,32 @@ def tick_rounds(cfg: LaminarConfig, warmup: int, ticks: int, device="cuda", seed
 
 
 def rounds_traffic(calls) -> dict:
-    """What the recorded ``bitmap_fit_rounds`` calls were given, a call on
-    average: probe slots, queued slots (and those on unthrottled nodes),
-    winners (by round) and admissions; and the free runs, on the words of
-    that round, of each node whose winner passes the fit test and so
-    reaches the allocation (the kernel walks them): a count of such nodes
-    by free runs, for contiguous and for dispersed demands."""
+    """What the recorded ``bitmap_fit_rounds`` (or ``bitmap_fit_rounds_blocked``:
+    then on the rank's block, its slots as the nodes and the queued slots
+    those of its nodes) calls were given, a call on average: probe slots,
+    queued slots (and those on unthrottled nodes), winners (by round) and
+    admissions; and the free runs, on the words of that round, of each node
+    whose winner passes the fit test and so reaches the allocation (the
+    kernel walks them): a count of such nodes by free runs, for contiguous
+    and for dispersed demands."""
     from repro_torch.core.bitmap import unpack_bits
     from repro_torch.core.state import QUEUED
     from repro_torch.kernels.bitmap_fit import bitmap_fit_ref
+    from repro_torch.kernels.bitmap_fit.ref import block_view
 
     n = len(calls)
     sums = Counter()
     runs = {"contiguous": Counter(), "dispersed": Counter()}
     for args, kw, outs in calls:
-        st, node, _, mass, contig, words, throttled = args
         winner, feas, alloc = outs[:3]
+        if len(args) == 10:  # a zone block: its slots take the place of the nodes
+            st, node, words, throttled = block_view(args[0], args[1], *args[5:])
+            mass, contig = args[3], args[4]
+            R = winner.shape[0]
+            winner, feas = winner.reshape(R, -1), feas.reshape(R, -1)
+            alloc = alloc.reshape(R, -1, alloc.shape[-1])
+        else:
+            st, node, _, mass, contig, words, throttled = args
         N = words.shape[0]
         queued = st == QUEUED
         sums["slots"] += st.shape[0]
@@ -233,17 +251,18 @@ def profile(airlock: bool, engine_cls) -> int:
     torch.cuda.synchronize()
 
     n = WINDOW_TICKS
-    t0 = time.perf_counter()
-    for _ in range(n):
-        s, _ = step(s, draws.tick(t))
-        t += 1
-    t_enq = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t_all = time.perf_counter() - t0
+    with counting_gathers() as gathers:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            s, _ = step(s, draws.tick(t))
+            t += 1
+        t_enq = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
     print(f"profile_tick: {engine_cls.__name__}, {'airlock' if airlock else 'kernel-oom'}, "
           f"{cfg.num_nodes} nodes, {cfg.probe_capacity} slots, after {WARMUP_TICKS} ticks")
     print(f"host: enqueue {t_enq / n * 1e3:.3f} ms/tick, finished {t_all / n * 1e3:.3f} ms/tick "
-          f"({n / t_all:.1f} ticks/s)")
+          f"({n / t_all:.1f} ticks/s); {len(gathers) / n:.1f} all_gather calls/tick")
 
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
@@ -282,14 +301,34 @@ def profile(airlock: bool, engine_cls) -> int:
     print(f"host: {n_ops / n:.0f} aten ops/tick (nested ones included)")
     for e in cpu_ops[:12]:
         print(f"  host {e.self_cpu_time_total / n:9.1f} us/tick self, {e.count / n:6.1f} calls/tick  {e.key[:70]}")
-    if engine_cls is LaminarEngine:
-        with recording("bitmap_fit_rounds") as calls:
-            for _ in range(n):
-                s, _ = step(s, draws.tick(t))
-                t += 1
-        print_traffic(f"Exp5, {'airlock' if airlock else 'kernel-oom'}, ticks {t - n} to {t - 1}",
-                      rounds_traffic(calls["bitmap_fit_rounds"]))
+    entry = "bitmap_fit_rounds" if engine_cls is LaminarEngine else "bitmap_fit_rounds_blocked"
+    with recording(entry) as calls:
+        for _ in range(n):
+            s, _ = step(s, draws.tick(t))
+            t += 1
+    print_traffic(f"Exp5, {'airlock' if airlock else 'kernel-oom'}, ticks {t - n} to {t - 1}, "
+                  f"{entry}", rounds_traffic(calls[entry]))
     return 0
+
+
+@contextmanager
+def counting_gathers():
+    """Count the ``torch.distributed.all_gather`` calls made while the
+    block runs, into the list it yields (one entry a call)."""
+    import torch.distributed as dist
+
+    calls = []
+    real = dist.all_gather
+
+    def count(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    dist.all_gather = count
+    try:
+        yield calls
+    finally:
+        dist.all_gather = real
 
 
 if __name__ == "__main__":

@@ -180,20 +180,23 @@ def test_tick_set_covers_the_hot_path():
         ("engine.py", "make_step.step"),
         ("engine.py", "_inject_arrivals"),
         ("draws.py", "TorchDraws.tick"),
-        ("engine_mesh.py", "MeshPlane.alloc_round"),
+        ("engine_mesh.py", "MeshPlane.arb_rounds"),
+        ("engine_mesh.py", "zone_block"),
         ("hotpath.py", "survival_scan"),
-        ("hotpath.py", "bitmap_fit"),
-        ("hotpath.py", "bitmap_fit_blocked"),
         ("hotpath.py", "bitmap_fit_rounds"),
+        ("hotpath.py", "bitmap_fit_rounds_blocked"),
         ("arbiter.py", "arbitrate_rounds"),
+        ("arbiter.py", "_admissions"),
         ("hotpath.py", "utility_topk_address"),
         ("hotpath.py", "zone_aggregate_members"),
         ("ops.py", "launch"),
     ]:
         assert expect in traced, expect
-    # the tile entries are on no tick: addressing and refresh are one entry each
-    assert ("hotpath.py", "utility_topk") not in traced
-    assert ("hotpath.py", "zone_aggregate") not in traced
+    # the tile entries are on no tick: addressing and refresh are one entry
+    # each; nor are the one-round entries: both ticks run their rounds in one
+    for off in ("utility_topk", "zone_aggregate", "bitmap_fit", "bitmap_fit_blocked"):
+        assert ("hotpath.py", off) not in traced, off
+    assert ("arbiter.py", "arbitrate") not in traced
     assert not any(q in ("summarize", "LaminarEngine.run", "LaminarEngine.init") for _, q in traced)
 
 

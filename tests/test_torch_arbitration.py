@@ -17,9 +17,16 @@ Nets:
     bridged into the JAX package's: ``arbitrate_rounds`` equals
     ``arb_rounds`` calls of JAX's ``arbitrate``, and of the port's one-round
     ``arbitrate``, field for field, and ``bitmap_fit_rounds_ref`` gives each
-    round's winners, feasibility and taken words as the port's calls do.
+    round's winners, feasibility and taken words as the port's calls do;
+  * the zone-sharded tick's plain version, ``bitmap_fit_rounds_blocked_ref``
+    on one rank's zone block, equals the rows of ``bitmap_fit_rounds_ref``
+    mapped through the block's ``member`` (padding slots: no winner, no
+    words), on one-rank and two-rank splits of jittered zones, on the
+    bridged mid-run states, and at every corner above, node 0's probes
+    beside padding slots (which point at node 0) included; the ranks'
+    blocks together give every node's row once.
 
-The kernel itself runs only on the card (``test_torch_cuda.py``).
+The kernels themselves run only on the card (``test_torch_cuda.py``).
 """
 
 from __future__ import annotations
@@ -41,8 +48,20 @@ from repro.core import zhaf as jax_zhaf
 from repro_torch.core import arbiter, bitmap, zhaf
 from repro_torch.core import state as tstate
 from repro_torch.core.state import state_from_numpy, state_to_numpy
-from repro_torch.kernel_bench import rounds_edge_cases, rounds_inputs, rounds_tensors
-from repro_torch.kernels.bitmap_fit import bitmap_fit_rounds, bitmap_fit_rounds_ref
+from repro_torch.kernel_bench import (
+    blocked_split,
+    jittered_counts,
+    rounds_blocked_edge_cases,
+    rounds_edge_cases,
+    rounds_inputs,
+    rounds_tensors,
+)
+from repro_torch.kernels.bitmap_fit import (
+    bitmap_fit_rounds,
+    bitmap_fit_rounds_blocked,
+    bitmap_fit_rounds_blocked_ref,
+    bitmap_fit_rounds_ref,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 EXP5 = LaminarConfig(
@@ -267,3 +286,108 @@ def test_tick_rounds_records_the_flat_tick():
     assert wins > 0 and tr["winners"] == pytest.approx(wins / 3)
     nodes = sum(sum(c.values()) for c in tr["free_runs"].values())
     assert nodes == pytest.approx(3 * tr["reach_alloc"]) and 0 < tr["queued_share"] < 1
+
+
+# ---------------------------------------------------------------------------
+# the zone-sharded tick's rounds: one rank's block against the flat rounds
+# ---------------------------------------------------------------------------
+
+
+def _assert_block_is_flat_rows(args, kw, flat=None):
+    """The blocked plain version (and the CPU route of its entry) on one
+    rank's block equals the flat plain version's rows through ``member``;
+    padding slots have no winner and no words. Returns the blocked outputs."""
+    member, mask, local = args[7:]
+    got = bitmap_fit_rounds_blocked_ref(*args, **kw)
+    for g, w in zip(bitmap_fit_rounds_blocked(*args, **kw), got):  # the CPU route
+        assert torch.equal(g, w)
+    winner, feas, alloc = flat if flat is not None else bitmap_fit_rounds_ref(*args[:7], **kw)[:3]
+    R, (Zb, M), W = kw["rounds"], member.shape, args[5].shape[1]
+    assert got[0].shape == (R, Zb, M) and got[2].shape == (R, Zb, M, W)
+    valid = mask > 0
+    m = member.long()
+    torch.testing.assert_close(got[0], torch.where(valid, winner[:, m], -1), rtol=0, atol=0)
+    assert torch.equal(got[1], feas[:, m] & valid)
+    torch.testing.assert_close(got[2], torch.where(valid[..., None], alloc[:, m], 0),
+                               rtol=0, atol=0)
+    # local is the inverse of member on the valid slots
+    slots = torch.arange(Zb * M, dtype=torch.int32).reshape(Zb, M)
+    assert torch.equal(local[m][valid], slots[valid])
+    return got
+
+
+def _ranks_cover_every_node(args, kw, counts, ranks):
+    """Each rank's block equals the flat rows, and the blocks together give
+    every node's row exactly once."""
+    flat = bitmap_fit_rounds_ref(*args, **kw)[:3]
+    N = args[5].shape[0]
+    seen = torch.zeros(N, dtype=torch.int32)
+    for rank in range(ranks):
+        bargs, _ = blocked_split(args, kw, counts, rank=rank, ranks=ranks)
+        _assert_block_is_flat_rows(bargs, kw, flat)
+        member, mask = bargs[7], bargs[8]
+        seen.index_add_(0, member[mask > 0].long(), torch.ones(int((mask > 0).sum()),
+                                                               dtype=torch.int32))
+    assert bool((seen == 1).all())
+    return flat
+
+
+@pytest.mark.parametrize("name", CORNERS)
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_blocked_rounds_are_the_flat_rows_at_corners(corners, name, ranks):
+    args, kw = corners[name]
+    N = args[5].shape[0]
+    counts = jittered_counts(N, min(max(2, N // 5), 307), seed=len(name))
+    flat = _ranks_cover_every_node(args, kw, counts, ranks)
+    assert int((flat[0] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("seed,N,P,zone,ranks", [(0, 37, 1029, 13, 2), (1, 300, 8192, 61, 3),
+                                                 (2, 333, 4096, 40, 2), (3, 64, 2048, 64, 1),
+                                                 (4, 100, 4096, 7, 4)])
+def test_blocked_rounds_on_jittered_zones(seed, N, P, zone, ranks):
+    """Zones of jittered sizes (padding rows, zone rows that do not divide
+    by the ranks), both policies."""
+    for policy in ("best", "first"):
+        args, kw = rounds_inputs(N, P, seed=seed, queued=0.3, policy=policy)
+        _ranks_cover_every_node(args, kw, jittered_counts(N, zone, seed=seed), ranks)
+
+
+def test_blocked_corner_cases_hit_their_corners():
+    """``rounds_blocked_edge_cases``: node 0's probes win on node 0's slot,
+    never on the padding slots that point at node 0; a queued NaN or +inf
+    blocks its node's slot; the blocks equal the flat rows."""
+    cases = rounds_blocked_edge_cases()
+    assert {n.split("/")[0] for n in cases} == set(rounds_edge_cases()) | {"node0_beside_padding"}
+    for name in ("node0_beside_padding/1", "node0_beside_padding/2:0"):
+        args, kw = cases[name]
+        member, mask = args[7], args[8]
+        pads = (mask == 0) & (member == 0)
+        assert bool(pads.any())
+        winner = _assert_block_is_flat_rows(args, kw)[0]
+        slot0 = int(args[9][0])
+        assert slot0 >= 0 and int((winner.reshape(winner.shape[0], -1)[:, slot0] >= 0).sum()) > 0
+        assert bool((winner[:, pads] == -1).all())
+        q = args[0] == tstate.QUEUED
+        assert int((q & (args[1] == 0)).sum()) > 100
+    for name in ("nan/1", "inf_and_signed_zero/1"):
+        args, kw = cases[name]
+        st, node, ev = args[:3]
+        q = (st == tstate.QUEUED) & ~args[6][node]
+        bad = torch.unique(node[q & (torch.isnan(ev) | (ev == torch.inf))])
+        winner = _assert_block_is_flat_rows(args, kw)[0].reshape(kw["rounds"], -1)
+        assert len(bad) and bool((winner[:, args[9][bad].long()] == -1).all())
+
+
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_blocked_rounds_on_mid_run_states(staged, ranks):
+    """On the bridged mid-run state of the JAX engine, with its own zones:
+    each rank's block equals the flat rounds' rows."""
+    tc, rec = staged
+    s_in, _, extra = rec["arbitrate0"]
+    ts = state_from_numpy(jax_state_to_numpy(s_in), "cpu")
+    throttled = torch.from_numpy(np.array(extra["throttled"]))
+    args = (ts.st, ts.node, ts.ev, ts.mass, ts.contig, ts.free, throttled)
+    kw = dict(rounds=tc.arb_rounds, atoms=tc.atoms_per_node, policy=tc.alloc_policy)
+    flat = _ranks_cover_every_node(args, kw, ts.zcount.numpy(), ranks)
+    assert int((flat[0] >= 0).sum()) > 0

@@ -153,6 +153,65 @@ def test_bitmap_fit_rounds_cluster_fits_the_card(dev):
             assert occ["clusters"] >= 1 and occ["nonportable"] == 1, (W, g, occ)
 
 
+ROUNDS_BLOCKED_CASES = (
+    *(f"{c}/{split}" for c in ROUNDS_CASES[:12] for split in ("1", "2:0", "2:1")),
+    "exp7_all_queued/1", "node0_beside_padding/1", "node0_beside_padding/2:0",
+    "ragged-best", "ragged-first", "exp5-best", "exp5-first", "exp7-best", "exp7-first")
+
+
+def _rounds_blocked_cases():
+    from repro_torch.kernel_bench import blocked_rounds_shapes, rounds_blocked_edge_cases
+
+    return {**rounds_blocked_edge_cases(), **blocked_rounds_shapes()}
+
+
+@pytest.mark.parametrize("case", ROUNDS_BLOCKED_CASES)
+def test_bitmap_fit_rounds_blocked_matches_plain(dev, case):
+    """One launch a call, bit-equal to the plain version on CPU copies, at
+    the corner cases on one rank's block and on each of two ranks', and at
+    the ragged, Exp5 (20 x 301) and Exp7 (253 x 307) blocks under both
+    policies; for the NaN case also to the plain version on the card."""
+    args, kw = _rounds_blocked_cases()[case]
+    counters = (bitmap_fit.bitmap_fit_rounds_blocked, bitmap_fit.bitmap_fit_rounds,
+                bitmap_fit.bitmap_fit_blocked, bitmap_fit.bitmap_fit)
+    before = [c.launches for c in counters]
+    want, got = _both(bitmap_fit.bitmap_fit_rounds_blocked, args, kw, dev)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 0, 0, 0]
+    for name, w, g in zip(("winner", "feas", "alloc"), want, got):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+    if case.startswith("nan"):
+        plain_cuda = bitmap_fit.bitmap_fit_rounds_blocked_ref(*[a.to(dev) for a in args], **kw)
+        for name, w, g in zip(("winner", "feas", "alloc"), plain_cuda, got):
+            torch.testing.assert_close(g, w.cpu(), rtol=0, atol=0, msg=name)
+    if "/2" not in case:  # one rank's block holds every node: someone wins
+        assert int((want[0] >= 0).sum()) > 0
+
+
+def test_bitmap_fit_rounds_blocked_is_one_device_kernel(dev):
+    """A call captured in a CUDA graph is one kernel node and nothing else."""
+    from repro_torch.kernel_bench import blocked_rounds_shapes, graph_nodes
+
+    args, kw = blocked_rounds_shapes()["exp5-best"]
+    args = [a.to(dev) for a in args]
+    nodes = graph_nodes(lambda: bitmap_fit.bitmap_fit_rounds_blocked(*args, **kw))
+    assert nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0}, nodes
+
+
+def test_bitmap_fit_rounds_blocked_cluster_fits_the_card(dev):
+    """At every shape of kernel_contract.GEOMETRIES as one rank's block, and
+    for 1 to 8 words a node, the blocked kernel's one cluster can be
+    resident with the non-portable attribute."""
+    from repro_torch.analysis.kernel_contract import GEOMETRIES
+    from repro_torch.kernels.bitmap_fit import ops as bops
+    from repro_torch.kernels.bitmap_fit import plan as bp
+
+    for W in (1, 2, 3, 8):
+        for g in GEOMETRIES.values():
+            p = bp.rounds_blocked_plan(g["P"], g["N"], g["Z"], g["M"], W, 3, 32 * W)
+            occ = bops.rounds_cluster_occupancy(p)
+            assert occ["clusters"] >= 1 and occ["nonportable"] == 1, (W, g, occ)
+
+
 @pytest.mark.parametrize("P,K", [(1, 4), (777, 8), (65536, 8)])
 def test_utility_topk_matches_plain(dev, P, K):
     rng = np.random.default_rng(P * K)
@@ -362,11 +421,37 @@ def test_flat_tick_launches_bitmap_fit_rounds_once(dev):
     s, lam = eng.init(0)
     draws = eng.draws(lam, s.zstart.shape[0], 0)
     counters = (bitmap_fit.bitmap_fit_rounds, bitmap_fit.bitmap_fit,
-                bitmap_fit.bitmap_fit_blocked)
+                bitmap_fit.bitmap_fit_blocked, bitmap_fit.bitmap_fit_rounds_blocked)
     before = [c.launches for c in counters]
     eng.simulate(s, draws, 30)
     torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(counters, before)] == [30, 0, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == [30, 0, 0, 0]
+
+
+def test_sharded_tick_launches_bitmap_fit_rounds_blocked_once(dev, tmp_path):
+    """The zone-sharded tick (one NCCL rank) runs its arbitration rounds as
+    one bitmap_fit_rounds_blocked launch, never a one-round entry, and
+    equals the flat engine on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.engine_mesh import ZoneShardedEngine
+
+    cfg = dataclasses.replace(SMALL_EXP5, airlock=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = ZoneShardedEngine(cfg, device=dev)
+        counters = (bitmap_fit.bitmap_fit_rounds_blocked, bitmap_fit.bitmap_fit_rounds,
+                    bitmap_fit.bitmap_fit_blocked, bitmap_fit.bitmap_fit)
+        before = [c.launches for c in counters]
+        got = mesh.run(seed=0, num_ticks=30)
+        assert [c.launches - b for c, b in zip(counters, before)] == [30, 0, 0, 0]
+    finally:
+        dist.destroy_process_group()
+    want = LaminarEngine(cfg, device=dev).run(seed=0, num_ticks=30)
+    for f in want["timeseries"]:
+        np.testing.assert_array_equal(got["timeseries"][f], want["timeseries"][f], err_msg=f)
+    assert want["started"] > 0
 
 
 # ---------------------------------------------------------------------------

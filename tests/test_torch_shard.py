@@ -13,7 +13,11 @@
      engine equals the flat engine (storm, and a geometry whose zones do not
      divide); on two gloo ranks in two processes (``run_local``) it equals
      the live JAX flat engine on storm and bursty, and on 72 nodes with
-     zone size 32; ``run_batch`` equals the flat ``run_batch``.
+     zone size 32; ``run_batch`` equals the flat ``run_batch``;
+  6. the sharded tick's rounds: ``MeshPlane.arb_rounds`` equals the flat
+     ``arbiter.arbitrate_rounds`` on mid-run states, and the tick calls the
+     fused ``bitmap_fit_rounds_blocked`` once (no one-round entry) with five
+     ``all_gather``s.
 """
 
 from __future__ import annotations
@@ -185,7 +189,11 @@ def test_mesh_plane_gather_is_unpack(group1):
     x = torch.arange(72, dtype=torch.float32) * 3 + 1
     xb = tstate.pack_zoned(x, s.zmember, s.zmask)
     torch.testing.assert_close(plane._to_flat(xb), x, rtol=0, atol=0)
-    assert plane.valid.sum() == 72
+    assert (plane.msk_l > 0).sum() == 72
+    # one rank's block holds every node: local is the inverse of the slots
+    slots = torch.arange(plane.Zb * plane.M, dtype=torch.int32).reshape(plane.Zb, plane.M)
+    torch.testing.assert_close(plane.local, tstate.unpack_zoned(slots, s.zmember, s.zmask, 72),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("num_nodes", [64, 72])
@@ -247,3 +255,78 @@ def test_run_batch_matches_flat_run_batch(group1):
     assert flat[0]["arrived"] != flat[1]["arrived"]
     with pytest.raises(ValueError):
         tmesh.ZoneShardedEngine(cfg, device="cpu").run_batch([])
+
+
+# ---------------------------------------------------------------------------
+# 6. the sharded tick's rounds
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("airlock", [False, True])
+def test_arb_rounds_equal_the_flat_rounds(group1, monkeypatch, airlock):
+    """On the states the flat storm tick (memory on, node failures) hands
+    its rounds, ticks 0 to 59 on 72 nodes, one ``MeshPlane.arb_rounds``
+    gives the state ``arbiter.arbitrate_rounds`` gives, field for field;
+    again with a fifth of the nodes throttled."""
+    from repro_torch.core import arbiter
+    from test_torch_arbitration import _assert_states_equal
+
+    cfg = port_config(dataclasses.replace(SMALL, num_nodes=72, airlock=airlock,
+                                          scenario=J_SCENARIOS["storm"]))
+    eng = TorchEngine(cfg, device="cpu")
+    s, _ = eng.init(0)
+    plane = tmesh.MeshPlane(cfg, s.zmember, s.zmask)
+    real = arbiter.arbitrate_rounds
+    seen = {"won": 0, "throttled": 0}
+
+    def both(cfg_, s_, throttled):
+        want = real(cfg_, s_, throttled)
+        _assert_states_equal(plane.arb_rounds(cfg_, s_, throttled), want)
+        thr = torch.arange(cfg.num_nodes) % 5 == 0
+        _assert_states_equal(plane.arb_rounds(cfg_, s_, thr), real(cfg_, s_, thr))
+        seen["won"] += int(want.metrics.op_arb - s_.metrics.op_arb)
+        seen["throttled"] += int(throttled.sum())
+        return want
+
+    monkeypatch.setattr(arbiter, "arbitrate_rounds", both)
+    out = eng.run(seed=0, num_ticks=60)
+    assert seen["won"] > 0 and out["node_failures"] > 0
+    assert seen["throttled"] > 0 or not airlock
+
+
+def test_sharded_tick_calls_the_fused_rounds_once(group1):
+    """The sharded tick runs its rounds through one bitmap_fit_rounds_blocked
+    call, never a one-round entry nor the flat rounds, and makes five
+    all_gathers a tick (s_true, run_true, the rounds, zS, zH)."""
+    from repro_torch.profile_tick import counting_gathers, recording
+
+    cfg = port_config(dataclasses.replace(SMALL, horizon_ms=20.0))
+    entries = ("bitmap_fit_rounds_blocked", "bitmap_fit_rounds", "bitmap_fit_blocked",
+               "bitmap_fit")
+    eng = tmesh.ZoneShardedEngine(cfg, num_devices=1, device="cpu")
+    with recording(*entries) as calls, counting_gathers() as gathers:
+        out = eng.run(seed=0)
+    assert [len(calls[e]) for e in entries] == [cfg.num_ticks, 0, 0, 0]
+    assert len(gathers) == 5 * cfg.num_ticks
+    assert out["started"] > 0
+
+
+def test_tick_calls_records_the_sharded_tick(group1):
+    """``profile_tick.tick_calls(..., sharded=True)`` records what the sharded
+    tick gives ``bitmap_fit_rounds_blocked``: the recorded outputs are the
+    plain version's on the recorded inputs, and on one rank the traffic of
+    the block is the flat tick's traffic of the same ticks."""
+    from repro_torch import profile_tick
+    from repro_torch.kernels.bitmap_fit import bitmap_fit_rounds_blocked_ref
+
+    cfg = profile_tick.exp5_config(True, full=False)
+    entry = "bitmap_fit_rounds_blocked"
+    calls = profile_tick.tick_calls(cfg, 40, 3, (entry,), device="cpu", sharded=True)[entry]
+    assert len(calls) == 3
+    for args, kw, outs in calls:
+        assert len(args) == 10
+        want = bitmap_fit_rounds_blocked_ref(*args, **kw)
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+    flat = profile_tick.tick_rounds(cfg, 40, 3, device="cpu")
+    tr = profile_tick.rounds_traffic(calls)
+    assert tr == profile_tick.rounds_traffic(flat) and tr["winners"] > 0
