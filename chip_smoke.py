@@ -88,11 +88,23 @@ and no result line:
      memory on) through the zone-sharded engine, Airlock off then on: node
      failures, kills only without Airlock, task conservation, the launches
      and ``all_gather`` calls of phase 5's sharded run;
-  7. print the kernel table as JSON, the card's name and power limit, and
+  7. the Slurm-, Ray- and Flux-like baselines (``repro_torch.core.baselines``,
+     plain PyTorch, no kernel): each at Exp1's geometry (5000 nodes, rho
+     0.9, capacity 1 << 15; slurm also at Exp1b's 1 << 17) for 600 ticks,
+     its ticks/s, 0 host syncs in the steps, 0 kernel launches, the task
+     accounting bounds of ``tests/test_baselines.py`` and its signature
+     (slurm saturated, ray spillbacks, flux rollbacks); each
+     ``RUNNERS`` entry on the card at 64 nodes; then CPU against CUDA with
+     one generator's draws (every ``BaseMetrics`` field, summary entry,
+     per-tick series entry and the final state equal) at 64 nodes under
+     stationary and storm, at Exp1's geometry for 200 ticks (the lock
+     convoy and the root choke acting) and ray on the CPU tests' stressed
+     configuration (its USL acting);
+  8. print the kernel table as JSON, the card's name and power limit, and
      last the result line.
 
-Every launch counter is set to 0 just before each run of phases 3, 5 and 6
-and read just after; the table's ``launches`` sums those runs (0 for the
+Every launch counter is set to 0 just before each run of phases 3, 5, 6 and
+7 and read just after; the table's ``launches`` sums those runs (0 for the
 three fixture rows, whose ``smoke_launches`` counts phase 2b's own).
 """
 
@@ -124,6 +136,13 @@ PARITY_TICKS = 400
 SCENARIO_TICKS = 200  # phase 4's scenario presets
 EXP7_TICKS = 100  # bench_exp7_scale.py NUM_TICKS
 STORM_TICKS = 2400
+# phase 7: the baselines at Exp1's geometry (benchmarks/bench_exp1_mixed_load.py
+# runs them at capacity 1 << 15 for 60 000 ticks; bench_exp1b_scale_contrast.py
+# runs slurm at 1 << 17), cut to BASELINE_TICKS, and CPU against CUDA
+BASELINE_TICKS = 600
+BASELINE_PARITY_TICKS = 200
+EXP1_CAPACITY = 1 << 15
+EXP1B_CAPACITY = 1 << 17
 REPLACES = {
     "bitmap_fit": "src/repro/kernels/bitmap_fit/kernel.py:117",
     "bitmap_fit_rounds": "src/repro/kernels/bitmap_fit/kernel.py:117",  # redesigned
@@ -1125,6 +1144,168 @@ def phase6(dev, totals):
             check(out["evicted_killed"] > 0, f"[{tag}] no disruption kills without Airlock")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the Slurm-, Ray- and Flux-like baselines
+# ---------------------------------------------------------------------------
+
+
+def exp1_config():
+    """``benchmarks/common.py`` ``bench_cfg(full=True, rho=0.9,
+    two_phase=False)``: Exp1's top load point at paper geometry."""
+    from repro_torch.core import LaminarConfig
+
+    n = 5000
+    return LaminarConfig(
+        num_nodes=n, zone_size=min(256, max(32, n // 8)),
+        probe_capacity=min(1 << max(13, (n * 8 - 1).bit_length()), 1 << 17),
+        max_arrivals_per_tick=512, horizon_ms=30_000.0, rho=0.9, two_phase=False,
+    )
+
+
+def baseline_drive(name, cfg, bcfg, capacity, ticks, device, generator_device=None):
+    """One baseline run the way ``RUNNERS[name]`` composes it (``init``, the
+    generator-backed draws, ``simulate``, ``summarize_baseline``), with the
+    kernel counters at 0 just before the steps and host syncs counted inside
+    them. Returns (summary, final state, per-tick series, host syncs,
+    ticks/s, kernel launches). Host syncs are counted only where the
+    generator lives on the run's device: another generator's values arrive
+    by a synchronizing copy."""
+    from repro_torch.core.baselines import common as C
+    from repro_torch.core.baselines import flux_like, ray_like, slurm_like
+    from repro_torch.core.baselines.draws import TorchBaselineDraws
+    from repro_torch.kernels import WRAPPERS
+
+    mod = {"slurm": slurm_like, "ray": ray_like, "flux": flux_like}[name]
+    s, lam = mod.init(cfg, 0, capacity, device)
+    draws = TorchBaselineDraws(name, cfg, lam, capacity, 0, device, generator_device)
+    step = mod.make_step(cfg, bcfg)
+    cuda = torch.device(device).type == "cuda"
+    count_syncs = cuda and generator_device in (None, device)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    if cuda:
+        torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            final, ys = C.simulate(step, s, draws, ticks)
+        finally:
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode(0)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = sum(w.launches for w in WRAPPERS.values())
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    for w in syncs[:3]:
+        print(f"  sync: {w.message} ({w.filename}:{w.lineno})")
+    out = C.summarize_baseline(cfg, final.metrics, final.tt)
+    return out, final, ys.cpu().numpy(), len(syncs), ticks / wall, launches
+
+
+def engaged(name, bcfg, final):
+    """(what, the count its penalty reads, threshold) at the end of the run.
+    Nothing joins that count after the step reads it, so a count at the end
+    above the threshold means the penalty acted in the last tick."""
+    st, shard = final.tt.st, final.tt.shard
+    if name == "slurm":
+        return "lock convoy", int((st == 1).sum()), bcfg.slurm_convoy_depth
+    if name == "ray":
+        return "USL", int(((st == 1) & (shard != -1)).sum()), bcfg.ray_usl_depth
+    return "root choke", int(((st != 0) & (st != 3)).sum()), bcfg.flux_root_choke
+
+
+def baseline_parity(tag, name, cfg, bcfg, capacity, ticks, dev):
+    """CPU and CUDA runs of one model with one generator's draws (drawn on
+    the card, copied to the CPU for the CPU run): every BaseMetrics field,
+    summary entry, per-tick series entry and the whole final state equal."""
+    from repro_torch.core.baselines.common import state_to_numpy
+
+    t0 = time.perf_counter()
+    runs = [baseline_drive(name, cfg, bcfg, capacity, ticks, d, dev) for d in ("cpu", dev)]
+    (cpu, cfin, cys, _, cpu_tps, _), (gpu, gfin, gys, _, gpu_tps, _) = runs
+    a, b = state_to_numpy(cfin), state_to_numpy(gfin)
+
+    def differ(x, y, path=""):
+        if isinstance(x, dict):
+            return [d for k in x for d in differ(x[k], y[k], f"{path}{k}.")]
+        return [] if x.tobytes() == y.tobytes() else [path[:-1]]
+
+    diff = differ(a, b) + [k for k in cpu if not (cpu[k] == gpu[k] or (
+        isinstance(cpu[k], float) and np.isnan(cpu[k]) and np.isnan(gpu[k])))]
+    bad = np.nonzero((cys != gys).any(axis=-1))[0]
+    what, peak, threshold = engaged(name, bcfg, cfin)
+    print(f"phase 7 [{tag}, {name}]: {cfg.num_nodes} nodes, capacity {capacity}, {ticks} ticks, "
+          f"started={cpu['started']} disrupt_killed={cpu['disrupt_killed']}, {what} count at the "
+          f"end {peak} (threshold {threshold}); {time.perf_counter() - t0:.1f} s (CPU "
+          f"{cpu_tps:.1f}, CUDA {gpu_tps:.1f} ticks/s): "
+          + ("CPU == CUDA on every metric, summary entry, per-tick series and the final state"
+             if not diff and not len(bad) else
+             f"first series divergence at tick {bad[:1]}, differing {diff[:8]}"))
+    check(not diff and not len(bad), f"[{tag}, {name}] CPU and CUDA baseline runs diverge")
+    check(cpu["started"] > 0, f"[{tag}, {name}] degenerate parity run")
+    return cfin
+
+
+def phase7(dev):
+    from repro_torch.core import BaselineConfig, LaminarConfig
+    from repro_torch.core.baselines import RUNNERS
+    from repro_torch.workloads import SCENARIOS
+
+    cfg = exp1_config()
+    bcfg = BaselineConfig()
+    print(f"phase 7: the baselines at Exp1's geometry ({cfg.num_nodes} nodes, zone size "
+          f"{cfg.zone_size}, {cfg.max_arrivals_per_tick} arrivals/tick, rho {cfg.rho}), "
+          f"{BASELINE_TICKS} ticks per run (cut from Exp1's 60 000)")
+    signature = {"slurm": ("start_success_raw", lambda v: v < 0.5),
+                 "ray": ("spillbacks", lambda v: v > 0),
+                 "flux": ("rollbacks", lambda v: v > 0)}
+    for name, capacity in (("slurm", EXP1_CAPACITY), ("ray", EXP1_CAPACITY),
+                           ("flux", EXP1_CAPACITY), ("slurm", EXP1B_CAPACITY)):
+        out, final, _, syncs, tps, launches = baseline_drive(name, cfg, bcfg, capacity,
+                                                             BASELINE_TICKS, dev)
+        key, holds = signature[name]
+        accounted = out["started"] + out["failed"] + out["timeout"] + out["in_flight_end"]
+        what, peak, threshold = engaged(name, bcfg, final)
+        print(f"phase 7 [{name}, capacity {capacity}]: {tps:.1f} ticks/s, arrived={out['arrived']} "
+              f"started={out['started']} dropped={out['dropped']} spillbacks={out['spillbacks']} "
+              f"rollbacks={out['rollbacks']} start_success_raw={out['start_success_raw']:.6f} "
+              f"{what} count at the end {peak} "
+              f"(threshold {threshold}) host_syncs_in_steps={syncs} kernel_launches={launches}")
+        check(syncs == 0, f"[{name}] {syncs} host syncs inside the steps")
+        check(launches == 0, f"[{name}] a baseline launched {launches} hand-written kernels")
+        check(accounted <= out["arrived"] + 1
+              and accounted >= 0.9 * out["arrived"] - out["dropped"] - 1,
+              f"[{name}] task accounting broken")
+        check(holds(out[key]), f"[{name}] no signature: {key}={out[key]}")
+    small = LaminarConfig(num_nodes=64, zone_size=32, probe_capacity=1024,
+                          max_arrivals_per_tick=64, horizon_ms=100.0, rho=0.8)
+    for name, run in RUNNERS.items():  # the entry point itself, on the card
+        out = run(small, capacity=1 << 12, num_ticks=50)
+        check(out["arrived"] > 0, f"[{name}] RUNNERS entry point ran nothing")
+    for scenario in ("stationary", "storm"):
+        c64 = dataclasses.replace(small, scenario=SCENARIOS[scenario])
+        for name in RUNNERS:
+            baseline_parity(f"64 nodes, {scenario}", name, c64, bcfg, 1 << 12,
+                            BASELINE_PARITY_TICKS, dev)
+    for name in RUNNERS:
+        fin = baseline_parity("Exp1", name, cfg, bcfg, EXP1_CAPACITY, BASELINE_PARITY_TICKS, dev)
+        what, peak, threshold = engaged(name, bcfg, fin)
+        if name != "ray":  # Ray's spillbacks stay under its USL depth here
+            check(peak > threshold, f"[Exp1, {name}] no {what}")
+    # the USL on the card: the CPU tests' stressed configuration (512 nodes,
+    # rho 0.9, ray_usl_depth 20)
+    stressed = LaminarConfig(num_nodes=512, zone_size=64, probe_capacity=8192,
+                             max_arrivals_per_tick=512, horizon_ms=300.0, rho=0.9)
+    ray_bcfg = BaselineConfig(ray_usl_depth=20)
+    fin = baseline_parity("stressed", "ray", stressed, ray_bcfg, EXP1_CAPACITY,
+                          BASELINE_PARITY_TICKS, dev)
+    check(engaged("ray", ray_bcfg, fin)[1] > ray_bcfg.ray_usl_depth, "[stressed, ray] no USL")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1177,7 +1358,8 @@ def main() -> int:
             totals = {name: 0 for name in WRAPPERS}
             gloo = dist.new_group(ranks=[0], backend="gloo")
             for k, run in ((3, lambda: phase3(dev, totals)), (4, lambda: phase4(dev, gloo)),
-                           (5, lambda: phase5(dev, totals)), (6, lambda: phase6(dev, totals))):
+                           (5, lambda: phase5(dev, totals)), (6, lambda: phase6(dev, totals)),
+                           (7, lambda: phase7(dev))):
                 t1 = time.perf_counter()
                 run()
                 print(f"phase {k}: {time.perf_counter() - t1:.1f} s wall")

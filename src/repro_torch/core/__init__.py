@@ -8,6 +8,7 @@ with runtime survival, as plain functions on tensors on one device.
   * :mod:`repro_torch.core.airlock`  — bounded runtime survival
   * :mod:`repro_torch.core.draws`    — per-tick random values
   * :mod:`repro_torch.core.engine`   — the tick loop
+  * :mod:`repro_torch.core.baselines` — the Slurm-, Ray- and Flux-like models
 """
 
 from repro_torch.core.config import (

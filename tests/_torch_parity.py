@@ -13,7 +13,12 @@ between the two packages as numpy arrays:
   * :func:`jax_reference_run`, :func:`jax_tape`, :func:`check_run_matches_jax`
     — a live JAX run, its tape, and the port's run held to it;
   * :func:`assert_outputs_equal` / :func:`first_divergence` — compare two
-    ``summarize()`` dicts.
+    ``summarize()`` dicts;
+  * for the baselines: :func:`port_baseline_config`, :class:`JaxBaselineTape`
+    (each model's key chain, drawn a tick at a time), :func:`jax_baseline_run`
+    (a live JAX run built as its ``run`` builds it), :func:`port_baseline_run`,
+    :func:`assert_summaries_equal`, :func:`state_differences` and
+    :func:`check_baseline_run`.
 """
 
 from __future__ import annotations
@@ -66,6 +71,45 @@ def _split_ways(cfg: jcfg.LaminarConfig) -> int:
     return 9 if cfg.scenario.disruption.enabled else 8
 
 
+def _arrival_draws(cfg: jcfg.LaminarConfig, lam, key) -> dict:
+    """The ``arr_*`` values ``workload.sample_arrivals(cfg, key, lam)`` draws."""
+    n_max = cfg.max_arrivals_per_tick
+    w = cfg.workload
+    r = jax.random
+
+    def choice(k, values, probs):
+        p = jnp.asarray(probs, jnp.float32)
+        idx = r.choice(k, len(values), shape=(n_max,), p=p / p.sum())
+        return jnp.asarray(values, jnp.float32)[idx]
+
+    a = r.split(key, 11)
+    tp = jnp.asarray(w.tier_probs, jnp.float32)
+    return {
+        "arr_n": r.poisson(a[0], lam).astype(jnp.int32),
+        "arr_l": r.uniform(a[1], (n_max,)),
+        "arr_squat": r.uniform(a[2], (n_max,)),
+        "arr_tier": r.choice(
+            a[10], len(w.tier_probs), shape=(n_max,), p=tp / tp.sum()
+        ).astype(jnp.int32),
+        "arr_mass_f": choice(a[3], w.f_masses, w.f_mass_probs),
+        "arr_mass_l": choice(a[4], w.l_masses, w.l_mass_probs),
+        "arr_pri_f": choice(a[5], w.f_priorities, w.f_priority_probs),
+        "arr_pri_l": choice(a[6], w.l_priorities, w.l_priority_probs),
+        "arr_svc_exp": r.exponential(a[7], (n_max,)),
+        "arr_svc_norm": r.normal(a[8], (n_max,)),
+        "arr_pull_exp": r.exponential(a[9], (n_max,)),
+    }
+
+
+def _disruption_draws(cfg: jcfg.LaminarConfig, key) -> dict:
+    """The two values ``workloads.disruption_step`` draws from ``key``."""
+    k_evt, k_site = jax.random.split(key)
+    return {
+        "dis_u": jax.random.uniform(k_evt, ()),
+        "dis_start": jax.random.randint(k_site, (), 0, cfg.num_nodes),
+    }
+
+
 def _draws_from_keys(cfg: jcfg.LaminarConfig, lam, num_zones: int, ks) -> dict:
     """Every random value of one tick, drawn exactly as ``repro.core`` draws
     it from the tick's subkeys ``ks`` (``engine.make_step``'s split); ``lam``
@@ -73,14 +117,7 @@ def _draws_from_keys(cfg: jcfg.LaminarConfig, lam, num_zones: int, ks) -> dict:
     N, P = cfg.num_nodes, cfg.probe_capacity
     n_max, K = cfg.max_arrivals_per_tick, cfg.candidate_k
     D = max_dispatch(port_config(cfg))
-    w = cfg.workload
     r = jax.random
-
-    def choice(key, values, probs):
-        p = jnp.asarray(probs, jnp.float32)
-        idx = r.choice(key, len(values), shape=(n_max,), p=p / p.sum())
-        return jnp.asarray(values, jnp.float32)[idx]
-
     out = {}
     # airlock.memory_dynamics (ks[1])
     k_n, k_b, k_bs = r.split(ks[1], 3)
@@ -93,21 +130,7 @@ def _draws_from_keys(cfg: jcfg.LaminarConfig, lam, num_zones: int, ks) -> dict:
     out["rep_jit"] = r.normal(k_jit, (N,))
     # engine._inject_arrivals (ks[2]) -> workload.sample_arrivals
     k_batch, k_oc, k_ocv = r.split(ks[2], 3)
-    a = r.split(k_batch, 11)
-    out["arr_n"] = r.poisson(a[0], lam).astype(jnp.int32)
-    out["arr_l"] = r.uniform(a[1], (n_max,))
-    out["arr_squat"] = r.uniform(a[2], (n_max,))
-    tp = jnp.asarray(w.tier_probs, jnp.float32)
-    out["arr_tier"] = r.choice(
-        a[10], len(w.tier_probs), shape=(n_max,), p=tp / tp.sum()
-    ).astype(jnp.int32)
-    out["arr_mass_f"] = choice(a[3], w.f_masses, w.f_mass_probs)
-    out["arr_mass_l"] = choice(a[4], w.l_masses, w.l_mass_probs)
-    out["arr_pri_f"] = choice(a[5], w.f_priorities, w.f_priority_probs)
-    out["arr_pri_l"] = choice(a[6], w.l_priorities, w.l_priority_probs)
-    out["arr_svc_exp"] = r.exponential(a[7], (n_max,))
-    out["arr_svc_norm"] = r.normal(a[8], (n_max,))
-    out["arr_pull_exp"] = r.exponential(a[9], (n_max,))
+    out.update(_arrival_draws(cfg, lam, k_batch))
     out["oc_u"] = r.uniform(k_oc, (n_max,))
     out["oc_v"] = r.uniform(k_ocv, (n_max,))
     # da.move (ks[3])
@@ -121,10 +144,7 @@ def _draws_from_keys(cfg: jcfg.LaminarConfig, lam, num_zones: int, ks) -> dict:
     out["cand_u"] = r.uniform(k_cand, (P, K - 1))
     out["addr_eps"] = r.normal(k_noise, (P, K))
     if cfg.scenario.disruption.enabled:
-        # workloads.disruption_step (ks[7])
-        k_evt, k_site = r.split(ks[7])
-        out["dis_u"] = r.uniform(k_evt, ())
-        out["dis_start"] = r.randint(k_site, (), 0, N)
+        out.update(_disruption_draws(cfg, ks[7]))  # workloads.disruption_step
     return out
 
 
@@ -361,3 +381,195 @@ def address_composition(
     new_st = torch.where(ff, dissipated, new_st)
     counts = torch.stack([count(active), count(bounce & ~ff), count(ff)])
     return new_st, new_node, new_zone, new_timer, patience, counts
+
+
+# ---------------------------------------------------------------------------
+# the baseline models: tape, live JAX reference, port run
+# ---------------------------------------------------------------------------
+
+# the step's key split without disruption (one more way with it), whose
+# first key is the next tick's: slurm_like.py:41, ray_like.py:54, flux_like.py:51
+BASELINE_SPLIT = {"slurm": 3, "ray": 5, "flux": 4}
+
+
+def port_baseline_config(bcfg: jcfg.BaselineConfig) -> tcfg.BaselineConfig:
+    """The port's ``BaselineConfig`` with every field of ``bcfg``."""
+    return tcfg.BaselineConfig(**dataclasses.asdict(bcfg))
+
+
+def _baseline_draws_from_keys(name: str, cfg: jcfg.LaminarConfig, lam, capacity: int, ks) -> dict:
+    """Every random value of one step of baseline ``name``, drawn exactly as
+    ``repro.core.baselines`` draws it from the step's subkeys ``ks`` (the
+    split less its first key); ``lam`` is the tick's Poisson intensity."""
+    from repro_torch.core.baselines.draws import LEAF_GROUP, RAY_CANDIDATES, num_leaves
+
+    N, C = cfg.num_nodes, capacity
+    r = jax.random
+    out = _arrival_draws(cfg, lam, ks[0])
+    if name == "ray":
+        out["local_node"] = r.randint(ks[1], (C,), 0, N)
+        out["shard_u"] = r.uniform(ks[2], (C,))
+        out["pick_node"] = r.randint(ks[3], (C, RAY_CANDIDATES), 0, N)
+    elif name == "flux":
+        out["leaf_gumbel"] = r.gumbel(ks[1], (C, num_leaves(port_config(cfg))))
+        out["leaf_off"] = r.randint(ks[2], (C,), 0, LEAF_GROUP)
+    if cfg.scenario.disruption.enabled:
+        out.update(_disruption_draws(cfg, ks[-1]))
+    return out
+
+
+class JaxBaselineTape:
+    """Replays baseline ``name``'s key chain from ``PRNGKey(seed)`` (and the
+    arrival schedule from ``schedule_key(seed)``) for ``num_ticks`` ticks:
+    one jitted scan records each tick's subkeys, and ``tick(t)`` draws that
+    tick's values after their distribution as the port's ``BaselineDraws``
+    (CPU tensors). Drawing a tick at a time keeps the flux model's (C,
+    n_leaves) Gumbel table out of memory for all ticks at once."""
+
+    def __init__(self, name: str, cfg: jcfg.LaminarConfig, lam: float, capacity: int,
+                 seed: int, num_ticks: int):
+        from repro_torch.core.baselines.draws import BaselineDraws
+
+        self._cls = BaselineDraws
+        self.model, self.capacity = name, capacity
+        self.scenario = port_config(cfg).scenario
+        ways = BASELINE_SPLIT[name] + int(cfg.scenario.disruption.enabled)
+        sched = cfg.scenario.schedule
+        sched_key = jsched.schedule_key(seed)
+
+        def chain(key, _):
+            keys = jax.random.split(key, ways)
+            return keys[0], keys[1:]
+
+        _, self.subkeys = jax.jit(
+            lambda k: jax.lax.scan(chain, k, None, length=num_ticks)
+        )(jax.random.PRNGKey(seed))
+
+        def draw(ks, t):
+            if sched.kind == "stationary":
+                lam_t = lam  # the reference's exact pre-scenario arrival stream
+            else:
+                lam_t = jsched.rate_per_tick(sched, lam, t, sched_key, cfg.dt_ms)
+            return _baseline_draws_from_keys(name, cfg, lam_t, capacity, ks)
+
+        self._draw = jax.jit(draw)
+
+    def tick(self, t: int):
+        d = self._draw(self.subkeys[t], jnp.int32(t))
+        return self._cls(**{k: torch.from_numpy(np.array(v)) for k, v in d.items()})
+
+
+def jax_tree_to_numpy(x):
+    """A JAX state (nested NamedTuples) as nested dicts of numpy arrays."""
+    if hasattr(x, "_fields"):
+        return {f: jax_tree_to_numpy(getattr(x, f)) for f in x._fields}
+    return np.asarray(x)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_baseline_run(name: str, cfg: jcfg.LaminarConfig, bcfg: jcfg.BaselineConfig,
+                     seed: int, capacity: int, num_ticks: int):
+    """A live run of the JAX baseline ``name``: its state built exactly as
+    its ``run`` builds it, the same ``jax.jit(lax.scan(step, ...))``. Returns
+    ``(summary, final state as numpy, (T, 3) per-tick series, lam)``, cached
+    per process."""
+    from repro.core import bitmap as jbitmap
+    from repro.core.baselines import common as JC
+    from repro.core.baselines import flux_like, ray_like, slurm_like
+
+    mod = {"slurm": slurm_like, "ray": ray_like, "flux": flux_like}[name]
+    free, lam = JC.init_cluster(cfg, seed)
+    base = dict(
+        tt=JC.TaskTable.empty(capacity, free.shape[1]),
+        free=free,
+        t=jnp.zeros((), jnp.int32),
+        key=jax.random.PRNGKey(seed),
+        scen=JC.scenario_init(cfg, seed, free),
+        metrics=JC.BaseMetrics.zeros(),
+    )
+    zero = jnp.zeros((), jnp.float32)
+    true_S = jnp.sum(jbitmap.unpack_bits(free, cfg.atoms_per_node), axis=-1).astype(jnp.float32)
+    if name == "slurm":
+        s = mod.SlurmState(carry=zero, **base)
+    elif name == "ray":
+        s = mod.RayState(stale_S=true_S, carry_hot=zero, carry_cold=zero, **base)
+    else:
+        n_leaves = max(1, cfg.num_nodes // 32)
+        leaf_S = true_S[: n_leaves * 32].reshape(n_leaves, 32).sum(axis=-1)
+        s = mod.FluxState(stale_leaf_S=leaf_S, carry=zero, **base)
+    step = mod.make_step(cfg, bcfg, lam)
+    final, ys = jax.jit(lambda s0: jax.lax.scan(step, s0, None, length=num_ticks))(s)
+    out = JC.summarize_baseline(cfg, final.metrics, final.tt)
+    out["lambda_per_s"] = lam / cfg.dt_ms * 1e3
+    return out, jax_tree_to_numpy(final), np.asarray(ys), lam
+
+
+def port_baseline_run(name: str, cfg: jcfg.LaminarConfig, bcfg: jcfg.BaselineConfig,
+                      seed: int, capacity: int, num_ticks: int, draws, observe=None):
+    """The port's baseline ``name`` on the CPU fed ``draws``: ``(summary,
+    final state as numpy, (T, 3) per-tick series)``. ``observe(state)`` is
+    called with the state each step leaves."""
+    from repro_torch.core.baselines import common as TC
+    from repro_torch.core.baselines import flux_like, ray_like, slurm_like
+
+    mod = {"slurm": slurm_like, "ray": ray_like, "flux": flux_like}[name]
+    pcfg = port_config(cfg)
+    s, lam = mod.init(pcfg, seed, capacity, device="cpu")
+    TC.check_draws(draws, name, pcfg, capacity)
+    step = mod.make_step(pcfg, port_baseline_config(bcfg))
+    if observe is not None:
+        inner = step
+
+        def step(s, d):
+            s, y = inner(s, d)
+            observe(s)
+            return s, y
+
+    final, ys = TC.simulate(step, s, draws, num_ticks)
+    out = TC.summarize_baseline(pcfg, final.metrics, final.tt)
+    out["lambda_per_s"] = lam / cfg.dt_ms * 1e3
+    return out, TC.state_to_numpy(final), ys.numpy()
+
+
+def assert_summaries_equal(a: dict, b: dict) -> None:
+    """Two baseline summaries equal key for key (NaN equals NaN)."""
+    assert set(a) == set(b), set(a) ^ set(b)
+    for k in a:
+        if isinstance(a[k], float) and np.isnan(a[k]):
+            assert np.isnan(b[k]), k
+        else:
+            assert a[k] == b[k], (k, a[k], b[k])
+
+
+def state_differences(want: dict, got: dict, prefix: str = "") -> list:
+    """Fields of the port's state (nested numpy dicts) that differ from the
+    reference's, bit for bit (floats by their bits); fields the port does
+    not hold (the PRNG keys) are skipped."""
+    diff = []
+    for f, g in got.items():
+        if isinstance(g, dict):
+            diff += state_differences(want[f], g, f"{prefix}{f}.")
+            continue
+        w = np.asarray(want[f])
+        if w.dtype != g.dtype or w.shape != g.shape or w.tobytes() != g.tobytes():
+            diff.append(prefix + f)
+    return diff
+
+
+def check_baseline_run(name: str, cfg: jcfg.LaminarConfig, bcfg: jcfg.BaselineConfig,
+                       capacity: int, observe=None) -> dict:
+    """The port's baseline ``name`` on the CPU, fed ``JaxBaselineTape``,
+    equals the live JAX run: the per-tick series, the final state bit for
+    bit (task table, words, scenario state, every float carry) and the
+    summary. Returns the port's summary."""
+    want, wfin, wys, lam = jax_baseline_run(name, cfg, bcfg, 0, capacity, cfg.num_ticks)
+    tape = JaxBaselineTape(name, cfg, lam, capacity, 0, cfg.num_ticks)
+    got, gfin, gys = port_baseline_run(name, cfg, bcfg, 0, capacity, cfg.num_ticks, tape,
+                                       observe)
+    bad = np.nonzero((wys != gys).any(axis=-1))[0]
+    assert len(bad) == 0, f"series differ first at tick {bad[0]}"
+    diff = state_differences(wfin, gfin)
+    assert not diff, diff
+    assert_summaries_equal(want, got)
+    return got
+

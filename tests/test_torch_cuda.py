@@ -593,3 +593,38 @@ def test_launcher_refuses_a_block_it_was_not_built_for(dev):
     bad = dc.replace(good, launches=(dc.replace(good.launches[0], block=128),))
     with pytest.raises(RuntimeError, match="cudaError 9"):
         bops.launch(bad, bad.new_outputs(dev), words, mass, contig)
+
+
+@pytest.mark.parametrize("scenario", ["stationary", "storm"])
+@pytest.mark.parametrize("name", ["slurm", "ray", "flux"])
+def test_baseline_equals_cpu_run(dev, name, scenario):
+    """A baseline model on the card and on the CPU with one CPU generator's
+    draws: every metric, the per-tick series and the final state equal (no
+    kernel: plain PyTorch ops, XLA's float32 rounding rebuilt from IEEE
+    operations that round alike on both devices)."""
+    from repro_torch.core import BaselineConfig
+    from repro_torch.core.baselines import common as C
+    from repro_torch.core.baselines import flux_like, ray_like, slurm_like
+    from repro_torch.core.baselines.draws import TorchBaselineDraws
+    from repro_torch.workloads import SCENARIOS
+
+    mod = {"slurm": slurm_like, "ray": ray_like, "flux": flux_like}[name]
+    cfg = LaminarConfig(num_nodes=64, zone_size=32, probe_capacity=1024,
+                        max_arrivals_per_tick=64, horizon_ms=100.0, rho=0.8,
+                        scenario=SCENARIOS[scenario])
+    runs = []
+    for device in ("cpu", dev):
+        s, lam = mod.init(cfg, 0, 1 << 12, device)
+        draws = TorchBaselineDraws(name, cfg, lam, 1 << 12, 0, device, generator_device="cpu")
+        final, ys = C.simulate(mod.make_step(cfg, BaselineConfig()), s, draws, cfg.num_ticks)
+        runs.append((C.state_to_numpy(final), ys.cpu().numpy()))
+    (a, ya), (b, yb) = runs
+    np.testing.assert_array_equal(ya, yb)
+
+    def flat(d, path=""):
+        for k, v in d.items():
+            yield from flat(v, f"{path}{k}.") if isinstance(v, dict) else [(path + k, v)]
+
+    for (k, x), (_, y) in zip(flat(a), flat(b)):
+        assert x.tobytes() == y.tobytes(), k
+    assert int(a["metrics"]["started"]) > 0
