@@ -100,12 +100,27 @@ and no result line:
      stationary and storm, at Exp1's geometry for 200 ticks (the lock
      convoy and the root choke acting) and ray on the CPU tests' stressed
      configuration (its USL acting);
-  8. print the kernel table as JSON, the card's name and power limit, and
+  8. the LM serving path (``repro_torch.models``, ``sched``, ``launch.serve``;
+     plain PyTorch, no hand-written kernel) at qwen3-1.7b's full width (28
+     layers, d_model 2048, vocab 151 936, random weights from seed 0): (a)
+     decode after prefill against forward's last logits at S = 2048
+     (streaming attention) and S = 24 (dense), in float32 and bfloat16
+     compute, rtol = atol = 0.05 (bfloat16 at S = 2048: 2**-5 of the
+     logits' scale), prefill and decode ms, peak memory and a profiled
+     decode step; (c) ``launch.serve`` at full width (24 requests, 2
+     replicas, 120 ticks), its stats equal to a CPU run at ``--smoke``, its
+     tokens/s; (b) the width cut to 2 layers on the card and the CPU with
+     the same parameters, greedy tokens equal where the margin is clear;
+     (d) ``moe_ffn`` at olmoe-1b-7b's layer width on
+     ``bench_moe_router.py``'s 2048-token traffic, dropped slots and loads
+     equal to the CPU's; every launch counter reads 0 after it;
+  9. print the kernel table as JSON, the card's name and power limit, and
      last the result line.
 
-Every launch counter is set to 0 just before each run of phases 3, 5, 6 and
-7 and read just after; the table's ``launches`` sums those runs (0 for the
-three fixture rows, whose ``smoke_launches`` counts phase 2b's own).
+Every launch counter is set to 0 just before each run of phases 3, 5, 6, 7
+and 8 and read just after; the table's ``launches`` sums the runs of phases
+3, 5 and 6 (0 for the three fixture rows, whose ``smoke_launches`` counts
+phase 2b's own).
 """
 
 from __future__ import annotations
@@ -1306,6 +1321,269 @@ def phase7(dev):
     check(engaged("ray", ray_bcfg, fin)[1] > ray_bcfg.ray_usl_depth, "[stressed, ray] no USL")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the LM serving path at qwen3-1.7b's full width (no hand-written
+# kernel: plain PyTorch, as the reference is plain jnp)
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen3-1.7b"  # repro/launch/serve.py's default arch
+LONG_PROMPT = 2048  # Sq * Sk > 4 * 512 * 1024: the streaming attention path
+SHORT_PROMPT = 24  # the dense path
+DECODE_TOL = 0.05  # tests/test_models.py's decode-vs-forward rtol and atol
+BF16_TOL = 2.0**-5  # of the logits' scale: tests/test_torch_models.py's bfloat16 bound
+MOE_ARCH = "olmoe-1b-7b"  # d_model 2048, 64 experts, top-8, d_ff_expert 1024
+MOE_TOKENS = 2048  # benchmarks/bench_moe_router.py's traffic
+MOE_BOUNCES = 2
+
+
+def host_ms(fn, reps=10):
+    """Wall time of one call ending in a synchronize (host launch cost
+    included), the median of ``reps`` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def decode_vs_forward(cfg, params, S, B, dev):
+    """prefill(S - 1) plus one decode_step against forward's last logits;
+    returns (max abs err, logits scale, entries outside rtol = atol =
+    DECODE_TOL, prefill ms, forward ms)."""
+    from repro_torch.models import lm
+
+    g = torch.Generator(device=dev).manual_seed(S)
+    tok = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev, dtype=torch.int32)
+    t0 = time.perf_counter()
+    full, _ = lm.forward(cfg, params, tok)
+    want = full[:, -1].float()
+    del full
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    caches = lm.init_cache(cfg, B, S + 4, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, caches = lm.prefill(cfg, params, tok[:, : S - 1], caches)
+    torch.cuda.synchronize()
+    pf_ms = (time.perf_counter() - t0) * 1e3
+    got = lm.decode_step(cfg, params, tok[:, S - 1:], S - 1, caches)[0][:, 0].float()
+    check(bool(torch.isfinite(got).all()), f"[S={S}] decode logits not finite")
+    d = (got - want).abs()
+    outside = int((d > DECODE_TOL + DECODE_TOL * want.abs()).sum())
+    return float(d.max()), float(want.abs().max()), outside, pf_ms, fwd_ms
+
+
+def phase8a(cfg, params, dev):
+    """qwen3-1.7b at full width: decode after prefill against forward at S =
+    2048 (streaming attention) and S = 24 (dense); prefill and decode
+    times."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import lm
+
+    for S, B in ((LONG_PROMPT, 1), (SHORT_PROMPT, 2)):
+        for cd in (torch.float32, torch.bfloat16):
+            err, scale, outside, pf_ms, fwd_ms = decode_vs_forward(
+                dataclasses.replace(cfg, compute_dtype=cd), params, S, B, dev)
+            tag = f"[S={S}, B={B}, {str(cd).removeprefix('torch.')} compute]"
+            print(f"phase 8 (a) {tag}: decode after prefill of {S - 1} tokens against forward's "
+                  f"last logits: max abs err {err:.4g} at logit scale {scale:.4g}, {outside} of "
+                  f"{B * cfg.vocab} outside rtol = atol = {DECODE_TOL}; prefill {pf_ms:.1f} ms, "
+                  f"forward {fwd_ms:.1f} ms (first calls)")
+            if cd == torch.bfloat16 and S == LONG_PROMPT:
+                # bfloat16 over 2047 positions and two attention paths
+                # (streaming in forward and prefill, dense in decode): held to
+                # the bfloat16 bound the CPU parity tests state
+                check(err <= BF16_TOL * scale, f"{tag} decode differs from forward by {err}")
+            else:
+                check(outside == 0, f"{tag} decode differs from forward by {err}")
+    for B in (1, 2):  # prefill again, warm
+        g = torch.Generator(device=dev).manual_seed(B)
+        tok = torch.randint(0, cfg.vocab, (B, LONG_PROMPT - 1), generator=g, device=dev)
+        ms = host_ms(lambda: lm.prefill(cfg, params, tok, lm.init_cache(cfg, B, LONG_PROMPT, dev)),
+                     reps=3)
+        print(f"phase 8 (a): prefill of {LONG_PROMPT - 1} tokens at B={B}: {ms:.2f} ms "
+              f"({B * (LONG_PROMPT - 1) / ms * 1e3:.0f} tokens/s)")
+    for B in (1, 2, 4):
+        tok = torch.randint(0, cfg.vocab, (B, 1), device=dev, dtype=torch.int32)
+        ms = host_ms(lambda: lm.decode_step(cfg, params, tok, 10,
+                                            lm.init_cache(cfg, B, tserve.S_MAX, dev)))
+        print(f"phase 8 (a): decode step at B={B}, cache {tserve.S_MAX}: {ms:.2f} ms a step "
+              f"({B / ms * 1e3:.1f} tokens/s)")
+    print(f"phase 8 (a): torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    decode_profile(cfg, params, dev)
+
+
+def decode_profile(cfg, params, dev, B=2, steps=5):
+    """Where a decode step's time goes (the serve driver's step: a fresh
+    cache of S_MAX, B = 2): host wall, aten ops and device kernels a step,
+    device busy share, the largest device kernels (torch.profiler)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import lm
+
+    tok = torch.randint(0, cfg.vocab, (B, 1), device=dev, dtype=torch.int32)
+    step = lambda: lm.decode_step(cfg, params, tok, 10, lm.init_cache(cfg, B, tserve.S_MAX, dev))  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    dev_us, dev_n = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[e.name] = dev_us.get(e.name, 0.0) + e.time_range.elapsed_us()
+            dev_n += 1
+    n_ops = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
+    busy = sum(dev_us.values()) / 1e6 / steps
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:4]
+    print(f"phase 8 (a): profiled decode step (B={B}, cache {tserve.S_MAX}): {wall * 1e3:.2f} ms "
+          f"wall, {n_ops / steps:.0f} aten ops (nested ones included) and {dev_n / steps:.0f} "
+          f"device kernels a step, device busy {busy * 1e3:.3f} ms = {busy / wall:.1%} of wall; "
+          f"largest: " + "; ".join(f"{us / steps / 1e3:.3f} ms {name[:60]}" for name, us in top))
+
+
+def phase8c(cfg, params, dev):
+    """The serve driver at full width on the card; its stats against a CPU
+    run of the same driver at --smoke (they depend only on the numpy
+    generator)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import lm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats, emitted, _ = tserve.serve(cfg, params, requests=24, replicas=2, ticks=120, seed=0,
+                                     device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(v) for v in emitted.values())
+    smoke = get_smoke(cfg.name)
+    cpu_stats, _, _ = tserve.serve(smoke, lm.init_params(smoke, 0, "cpu"), requests=24,
+                                   replicas=2, ticks=120, seed=0, device="cpu")
+    print(f"phase 8 (c): launch.serve at full width on the card (24 requests, 2 replicas, 120 "
+          f"ticks, seed 0): {stats}; {n_tok} tokens in {wall:.2f} s wall "
+          f"({n_tok / wall:.1f} tokens/s)")
+    check(stats == cpu_stats, f"[serve] card stats {stats} != CPU --smoke stats {cpu_stats}")
+    check(stats["completed"] > 0 and n_tok > 0, "[serve] nothing decoded")
+    print("phase 8 (c): the stats equal a CPU run of the driver at --smoke")
+
+
+def phase8b(cfg, dev):
+    """The full width cut to 2 layers on the card and on the CPU with the
+    same parameters; returns the logits' max difference relative to their
+    scale."""
+    from repro_torch.models import blocks, lm
+
+    cfg2 = cfg.scaled(n_layers=2)
+    p_dev = lm.init_params(cfg2, 1, dev)
+    p_cpu = blocks.tree_map(lambda a: a.cpu(), p_dev)
+    g = torch.Generator().manual_seed(2)
+    tok = torch.randint(0, cfg.vocab, (2, 32), generator=g, dtype=torch.int32)
+    want, _ = lm.forward(cfg2, p_cpu, tok)
+    got = lm.forward(cfg2, p_dev, tok.to(dev))[0].cpu()
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > diff
+    same = got.argmax(-1) == want.argmax(-1)
+    print(f"phase 8 (b): {cfg.name} cut to 2 layers (n_layers {cfg.n_layers} -> 2, the only cut), "
+          f"2 x 32 tokens, CUDA vs CPU: max logit diff {diff:.4g} at logit scale {scale:.4g} "
+          f"({diff / scale:.3g} of it); greedy tokens equal at {int(same.sum())} of "
+          f"{same.numel()} positions, {int(clear.sum())} with a CPU top-2 margin above the diff")
+    check(bool(torch.isfinite(got).all()), "[2 layers] CUDA logits not finite")
+    check(bool(same[clear].all()), "[2 layers] a greedy token differs at a clear margin")
+    return diff / scale
+
+
+def phase8d(dev, rel):
+    """MoE at olmoe-1b-7b's full layer width on bench_moe_router.py's
+    traffic (2048 tokens, skews 0 / 0.5 / 0.9, capacity factors 0.5 / 1.0 /
+    1.5, both routers, 2 bounces): dropped slots and loads on the card equal
+    the CPU's; the bfloat16 outputs within BF16_TOL of their scale, the
+    bound phase 8a holds bfloat16 logits to (phase 8b's measured relative
+    difference, ``rel``, is printed beside it)."""
+    from repro_torch.configs import get
+    from repro_torch.models import blocks, moe
+
+    mcfg = get(MOE_ARCH)
+    mp_dev = moe.init_moe_params(torch.Generator(device=dev).manual_seed(0), mcfg)
+    mp_cpu = blocks.tree_map(lambda a: a.cpu(), mp_dev)
+    rng = torch.Generator().manual_seed(0)
+    base = torch.randn((1, 1, mcfg.d_model), generator=rng)
+    noise = torch.randn((1, MOE_TOKENS, mcfg.d_model), generator=rng)
+    tol = BF16_TOL
+    rows = []
+    for skew in (0.0, 0.5, 0.9):
+        x = (skew * base + (1 - skew) * noise).to(torch.bfloat16)
+        xd = x.to(dev)
+        for capacity in (0.5, 1.0, 1.5):
+            for router in ("topk", "laminar"):
+                c = dataclasses.replace(mcfg, moe=dataclasses.replace(
+                    mcfg.moe, router=router, capacity_factor=capacity,
+                    laminar_bounces=MOE_BOUNCES))
+                tag = f"[moe {router}, skew {skew}, capacity {capacity}]"
+                out_d, aux_d = moe.moe_ffn(mp_dev, c, xd)
+                out_c, aux_c = moe.moe_ffn(mp_cpu, c, x)
+                dd, dc = int(aux_d["moe_dropped_slots"]), int(aux_c["moe_dropped_slots"])
+                check(dd == dc, f"{tag} dropped {dd} != CPU {dc}")
+                check(torch.equal(aux_d["moe_load"].cpu(), aux_c["moe_load"]), f"{tag} moe_load")
+                err = float((out_d.cpu().float() - out_c.float()).abs().max())
+                ref = float(out_c.float().abs().max())
+                check(err <= tol * ref, f"{tag} output err {err} > {tol:.3g} of {ref}")
+                ms = host_ms(lambda: moe.moe_ffn(mp_dev, c, xd), reps=5)
+                rows.append(f"{router}/{skew}/{capacity}: dropped {dd}, err {err / ref:.2g}, "
+                            f"{ms:.2f} ms")
+    print(f"phase 8 (d): moe_ffn at {MOE_ARCH}'s layer width (d_model {mcfg.d_model}, "
+          f"{mcfg.moe.num_experts} experts, top-{mcfg.moe.top_k}, d_ff_expert "
+          f"{mcfg.moe.d_ff_expert}), {MOE_TOKENS} tokens; dropped slots and moe_load == CPU, "
+          f"output within {tol:.3g} of its scale (phase 8b's model: {rel:.3g}); relative err "
+          f"and card ms a call by router/skew/capacity: " + "; ".join(rows))
+
+
+def phase8(dev):
+    """The LM serving path on the card: (a) the model at full width, (c) the
+    serve driver, (b) CUDA against CPU at 2 layers, (d) MoE at full layer
+    width. Every launch counter is set to 0 before and must read 0 after."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels.block_copy import block_copy
+    from repro_torch.models import blocks, lm
+
+    counters = {**WRAPPERS, "block_copy": block_copy}
+    for w in counters.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        cfg = get(SERVE_ARCH)
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, 0, dev)
+        torch.cuda.synchronize()
+        n_params = sum(a.numel() for a in blocks.tree_leaves(params))
+        print(f"phase 8 (a): {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.d_head}, "
+              f"d_ff {cfg.d_ff}, vocab {cfg.vocab}): {n_params} float32 parameters drawn on the "
+              f"card in {time.perf_counter() - t0:.2f} s")
+        phase8a(cfg, params, dev)
+        phase8c(cfg, params, dev)
+        del params
+        rel = phase8b(cfg, dev)
+        phase8d(dev, rel)
+    launched = {name: w.launches for name, w in counters.items()}
+    check(not any(launched.values()), f"phase 8 launched hand-written kernels: {launched}")
+    print(f"phase 8: 0 hand-written kernel launches; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1359,7 +1637,7 @@ def main() -> int:
             gloo = dist.new_group(ranks=[0], backend="gloo")
             for k, run in ((3, lambda: phase3(dev, totals)), (4, lambda: phase4(dev, gloo)),
                            (5, lambda: phase5(dev, totals)), (6, lambda: phase6(dev, totals)),
-                           (7, lambda: phase7(dev))):
+                           (7, lambda: phase7(dev)), (8, lambda: phase8(dev))):
                 t1 = time.perf_counter()
                 run()
                 print(f"phase {k}: {time.perf_counter() - t1:.1f} s wall")

@@ -27,17 +27,15 @@ import torch
 
 from repro_torch.core import bitmap, workload
 from repro_torch.core.arbiter import _free_atoms_at
-from repro_torch.core.baselines import floatops
 from repro_torch.core.baselines.draws import TorchBaselineDraws
 from repro_torch.core.config import NUM_TIERS, TIER_NAMES, BaselineConfig, LaminarConfig
 from repro_torch.core.disrupt import disrupted_capacity
 from repro_torch.core.state import (
     HIST_BUCKETS,
-    HIST_MIN_MS,
-    HIST_PER_OCTAVE,
     count,
     hist_quantile,
     init_numpy,
+    latency_bucket,
     tier_counts,
 )
 from repro_torch.core.teg import compact, scatter_rows
@@ -167,17 +165,6 @@ def select_oldest(pool: torch.Tensor, arrival: torch.Tensor, k: int, budget: tor
     take = torch.arange(k, dtype=torch.int32, device=pool.device) < budget
     sel = scatter_rows(torch.zeros_like(pool), torch.where(take, idx, P), True)
     return sel & pool
-
-
-def latency_bucket(lat_ms: torch.Tensor) -> torch.Tensor:
-    """``state.latency_bucket`` rounded as the reference's jitted program
-    computes it: ``log2(x)`` is XLA's ``log(x)`` times the folded float32
-    constant ``4 / ln 2``. (Plain ``log2`` puts the latencies of exactly
-    4096 and 16384 ticks one bucket higher.)"""
-    scale = floatops.f32(floatops.recip(floatops.f32(np.log(2.0))) * HIST_PER_OCTAVE)
-    x = torch.clamp(lat_ms, min=HIST_MIN_MS) * floatops.recip(HIST_MIN_MS)
-    b = torch.floor(floatops.log(x) * scale)
-    return torch.clamp(b.to(torch.int32), 0, HIST_BUCKETS - 1)
 
 
 # ---------------------------------------------------------------------------

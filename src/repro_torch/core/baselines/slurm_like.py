@@ -17,7 +17,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.core.baselines import common as C
-from repro_torch.core.baselines import floatops as fo
+from repro_torch.core import floatops as fo
 from repro_torch.core.baselines.draws import BaselineDraws
 from repro_torch.core.config import BaselineConfig, LaminarConfig
 from repro_torch.core.engine import _resolve_device

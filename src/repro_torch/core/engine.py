@@ -199,8 +199,8 @@ def _resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "LaminarEngine: CUDA is not available; pass device='cpu' to run the "
-            "plain PyTorch versions on the CPU"
+            "CUDA is not available; pass device='cpu' to run the plain PyTorch "
+            "versions on the CPU"
         )
     return dev
 

@@ -14,11 +14,13 @@ the two packages as numpy arrays.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import floatops
 from repro_torch.core.config import NUM_TIERS, LaminarConfig
 
 # ---------------------------------------------------------------------------
@@ -132,12 +134,44 @@ HIST_MIN_MS = 0.25
 HIST_PER_OCTAVE = 4.0
 
 
+def _xla_bucket(x: torch.Tensor) -> torch.Tensor:
+    """``floor(log2(x) * 4)`` for float32 ``x >= 1`` as the reference's
+    jitted program rounds it: ``log2(x)`` is XLA's ``log(x)`` times the
+    folded float32 constant ``4 / ln 2`` (``floatops``, float64 inside)."""
+    scale = floatops.f32(floatops.recip(floatops.f32(np.log(2.0))) * HIST_PER_OCTAVE)
+    return torch.floor(floatops.log(x) * scale)
+
+
+def _bucket_edges() -> list:
+    """The smallest float32 latency (ms) of each histogram bucket 1 .. 63 as
+    the reference assigns buckets: a bisection over float32 bit patterns,
+    run on the host once. (Plain ``log2`` puts the latencies of exactly
+    4096 and 16384 ticks one bucket higher.)"""
+    k = torch.arange(1, HIST_BUCKETS, dtype=torch.float32)
+    lo = torch.ones_like(k).view(torch.int32)  # bucket 0
+    hi = torch.full_like(k, 2.0 ** (HIST_BUCKETS / HIST_PER_OCTAVE + 1)).view(torch.int32)
+    while bool((hi - lo > 1).any()):
+        mid = lo + (hi - lo) // 2
+        ok = _xla_bucket(mid.view(torch.float32)) >= k
+        hi, lo = torch.where(ok, mid, hi), torch.where(ok, lo, mid)
+    return (hi.view(torch.float32) * HIST_MIN_MS).tolist()  # x = lat / 0.25, exact
+
+
+BUCKET_EDGES_MS = _bucket_edges()
+
+
+@functools.lru_cache(maxsize=None)
+def _edges_on(device: torch.device) -> torch.Tensor:
+    # built from scalars on the device: no host-to-device copy, no sync
+    return torch.stack([torch.full((), e, dtype=torch.float32, device=device)
+                        for e in BUCKET_EDGES_MS])
+
+
 def latency_bucket(lat_ms: torch.Tensor) -> torch.Tensor:
-    b = torch.floor(
-        torch.log2(torch.clamp(lat_ms, min=HIST_MIN_MS) / HIST_MIN_MS)
-        * HIST_PER_OCTAVE
-    )
-    return torch.clamp(b.to(torch.int32), 0, HIST_BUCKETS - 1)
+    """The log-spaced histogram bucket of each float32 latency, equal to the
+    reference's jitted ``latency_bucket``: the number of bucket edges
+    (:data:`BUCKET_EDGES_MS`) at or below it. No float64 reaches the tick."""
+    return torch.bucketize(lat_ms, _edges_on(lat_ms.device), right=True).to(torch.int32)
 
 
 def bucket_upper_ms(i: np.ndarray) -> np.ndarray:

@@ -18,7 +18,12 @@ between the two packages as numpy arrays:
     (each model's key chain, drawn a tick at a time), :func:`jax_baseline_run`
     (a live JAX run built as its ``run`` builds it), :func:`port_baseline_run`,
     :func:`assert_summaries_equal`, :func:`state_differences` and
-    :func:`check_baseline_run`.
+    :func:`check_baseline_run`;
+  * for the LM serving path: :func:`port_arch` (a reference ``ArchConfig``
+    as the port's), :func:`jax_params` (the reference's parameters, also
+    as the port's tensors), :func:`jax_moe_picks` (each routing round's
+    experts), :func:`jax_serve` (a replica of ``repro/launch/serve.py``'s
+    loop) and :func:`serving_drive` (``bench_serving.py``'s drive).
 """
 
 from __future__ import annotations
@@ -573,3 +578,151 @@ def check_baseline_run(name: str, cfg: jcfg.LaminarConfig, bcfg: jcfg.BaselineCo
     assert_summaries_equal(want, got)
     return got
 
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: configs, parameters, the MoE routing, the serve loop
+# ---------------------------------------------------------------------------
+
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def port_arch(cfg):
+    """A ``repro`` ``ArchConfig`` as the port's, field for field (the
+    ``jnp`` dtypes as ``torch`` dtypes)."""
+    from repro_torch.models import common as tcm
+
+    d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    for k in ("param_dtype", "compute_dtype"):
+        d[k] = TORCH_DTYPE[jnp.dtype(d[k]).name]
+    if cfg.moe is not None:
+        d["moe"] = tcm.MoEConfig(**dataclasses.asdict(cfg.moe))
+    if cfg.ssm is not None:
+        d["ssm"] = tcm.SSMConfig(**dataclasses.asdict(cfg.ssm))
+    return tcm.ArchConfig(**d)
+
+
+def jax_params(cfg, seed: int = 0):
+    """The reference's ``lm.init_params`` and the same values as the
+    port's tensors on the CPU."""
+    from repro.models import lm as jlm
+    from repro_torch.models import bridge
+
+    jp = jax.jit(functools.partial(jlm.init_params, cfg))(jax.random.PRNGKey(seed))
+    return jp, bridge.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def jax_moe_picks(params, cfg, x):
+    """The experts and kept flags of each routing round of the reference's
+    ``moe.moe_ffn`` (its router prelude and ``_assign_round`` loop, line for
+    line), as numpy (rounds, T) arrays."""
+    from repro.models import moe as jmoe
+
+    mc = cfg.moe
+    T = x.shape[0] * x.shape[1]
+    xt = x.reshape(T, -1)
+    E = mc.num_experts
+    C = jmoe._capacity(mc, T)
+    logits = (xt.astype(jnp.float32)) @ params["router"]
+    probs = jax.nn.softmax(logits, axis=-1)
+    if mc.router == "laminar":
+        load = jnp.sum(probs, axis=0) / jnp.maximum(T, 1)
+        logits = logits - mc.laminar_gamma * jnp.log2(1.0 + load * E)[None, :]
+        probs = jax.nn.softmax(logits, axis=-1)
+    n_rounds = mc.top_k + (mc.laminar_bounces if mc.router == "laminar" else 0)
+    scores, used = logits, jnp.zeros((E,), jnp.int32)
+    granted = jnp.zeros((T,), jnp.int32)
+    experts, kept_all = [], []
+    for _ in range(n_rounds):
+        need = granted < mc.top_k
+        e, kept, pos, used = jmoe._assign_round(scores, used, C, need, cfg.moe_assoc_scan)
+        experts.append(np.asarray(e))
+        kept_all.append(np.asarray(kept))
+        granted = granted + kept.astype(jnp.int32)
+        scores = jnp.where(
+            jax.nn.one_hot(e, E, dtype=bool) & (need & jnp.isfinite(scores.max(-1)))[:, None],
+            -jnp.inf, scores,
+        )
+    return np.stack(experts), np.stack(kept_all)
+
+
+def jax_serve(cfg, params, *, requests=24, replicas=2, ticks=120, seed=0):
+    """A replica of ``repro/launch/serve.py``'s loop (its ``main`` has no
+    function to call), line for line. Returns the scheduler, each request's
+    emitted tokens, the prompts, and for each request the top-2 margin of
+    the reference's logits at each of its emitted tokens."""
+    from repro.models import lm as jlm
+    from repro.sched.serving import LaminarServingScheduler, ServeConfig
+
+    rng = np.random.default_rng(seed)
+    scfg = ServeConfig(pages_per_replica=128, max_slots=4)
+    sched = LaminarServingScheduler(scfg, num_replicas=replicas, seed=seed)
+
+    S_MAX = 96
+    decode = jax.jit(lambda p, t, i, c: jlm.decode_step(cfg, p, t, i, c))
+    prompts, positions, emitted, margins = {}, {}, {}, {}
+
+    submitted = 0
+    for _ in range(ticks):
+        while submitted < requests and rng.uniform() < 0.5:
+            pr = float(rng.choice([8.0, 32.0, 128.0]))
+            rid = sched.submit(
+                prompt_len=int(rng.integers(4, 16)),
+                max_new=int(rng.integers(4, 12)), priority=pr,
+            )
+            prompts[rid] = jax.random.randint(
+                jax.random.PRNGKey(rid), (1, sched.requests[rid].prompt_len),
+                0, cfg.vocab,
+            )
+            emitted[rid], margins[rid] = [], []
+            submitted += 1
+        actions = sched.tick()
+        for rid in actions["prefill"]:
+            sched.on_prefill_done(rid)
+            positions[rid] = prompts[rid].shape[1]
+        for ri in range(replicas):
+            running = sched.running(ri)
+            if not running:
+                continue
+            toks = jnp.concatenate(
+                [
+                    prompts[rid][:, -1:]
+                    if not emitted[rid]
+                    else jnp.asarray([[emitted[rid][-1]]])
+                    for rid in running
+                ],
+                axis=0,
+            )
+            cache = jlm.init_cache(cfg, toks.shape[0], S_MAX)
+            logits, _ = decode(
+                params, toks, jnp.asarray(positions[running[0]], jnp.int32), cache
+            )
+            nxt = jnp.argmax(logits[:, 0], axis=-1)
+            top2 = np.sort(np.asarray(logits[:, 0]), axis=-1)[:, -2:]
+            for j, rid in enumerate(running):
+                emitted[rid].append(int(nxt[j]))
+                margins[rid].append(float(top2[j, 1] - top2[j, 0]))
+                sched.on_token(rid)
+    return sched, emitted, {r: np.asarray(p) for r, p in prompts.items()}, margins
+
+
+def serving_drive(sched, ticks, submit_rate, rng, hi_frac=0.2):
+    """``benchmarks/bench_serving.py``'s ``drive``, line for line (the
+    benchmarks are not a package the tests import): Poisson arrivals of
+    mixed priorities, an ideal data plane (prefill done at once, one token
+    a tick for every running sequence)."""
+    for _ in range(ticks):
+        for _ in range(rng.poisson(submit_rate)):
+            hi = rng.uniform() < hi_frac
+            sched.submit(
+                prompt_len=int(rng.integers(16, 128)),
+                max_new=int(rng.integers(8, 64)),
+                priority=256.0 if hi else float(rng.choice([4.0, 8.0, 16.0])),
+            )
+        actions = sched.tick()
+        for rid in actions["prefill"]:
+            sched.on_prefill_done(rid)
+        for ri in range(len(sched.replicas)):
+            for rid in list(sched.running(ri)):
+                sched.on_token(rid)
+    return sched

@@ -40,7 +40,7 @@ from repro.core.state import latency_bucket as jax_latency_bucket
 from repro.workloads.scenario import SCENARIOS
 from repro_torch.core.baselines import RUNNERS, flux_like, ray_like, slurm_like
 from repro_torch.core.baselines import common as TC
-from repro_torch.core.baselines import floatops
+from repro_torch.core import floatops
 from repro_torch.core.baselines.draws import (
     ArrayBaselineDraws,
     BaselineDraws,

@@ -628,3 +628,110 @@ def test_baseline_equals_cpu_run(dev, name, scenario):
     for (k, x), (_, y) in zip(flat(a), flat(b)):
         assert x.tobytes() == y.tobytes(), k
     assert int(a["metrics"]["started"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (plain PyTorch, no hand-written kernel)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,B", [(2048, 1), (24, 2)])
+def test_full_width_decode_matches_forward(dev, S, B, compute):
+    """qwen3-1.7b at full width: prefill(S - 1) plus one decode_step gives
+    forward's last logits; S = 2048 takes the streaming attention path,
+    S = 24 the dense one. rtol = atol = 0.05 (tests/test_models.py's), but
+    bfloat16 at S = 2048, where the two paths' bfloat16 roundings over 2047
+    positions part by up to 0.09 at a logit scale of 8.5 (float32: 2e-5):
+    2**-5 of the scale, the CPU parity tests' bfloat16 bound."""
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get("qwen3-1.7b"), compute_dtype=getattr(torch, compute))
+    with torch.inference_mode():
+        p = lm.init_params(cfg, 0, dev)
+        tok = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(S))
+        want = lm.forward(cfg, p, tok)[0][:, -1]
+        caches = lm.init_cache(cfg, B, S + 4, dev)
+        _, caches = lm.prefill(cfg, p, tok[:, : S - 1], caches)
+        got = lm.decode_step(cfg, p, tok[:, S - 1:], S - 1, caches)[0][:, 0]
+    assert torch.isfinite(got).all()
+    if compute == "bfloat16" and S == 2048:
+        assert float((got - want).abs().max()) <= 2.0**-5 * float(want.abs().max())
+    else:
+        torch.testing.assert_close(got, want, rtol=0.05, atol=0.05)
+
+
+def test_two_layers_cuda_matches_cpu(dev):
+    """qwen3-1.7b's full width cut to 2 layers, the same parameters on both
+    devices: logits within 2**-5 of their scale, and the greedy tokens equal
+    wherever the CPU's top-2 margin exceeds the largest difference."""
+    from repro_torch.configs import get
+    from repro_torch.models import blocks, lm
+
+    cfg = get("qwen3-1.7b").scaled(n_layers=2)
+    with torch.inference_mode():
+        p = lm.init_params(cfg, 1, dev)
+        tok = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(2))
+        want = lm.forward(cfg, blocks.tree_map(lambda a: a.cpu(), p), tok)[0]
+        got = lm.forward(cfg, p, tok.to(dev))[0].cpu()
+    diff = float((got - want).abs().max())
+    assert diff <= 2.0**-5 * float(want.abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > diff
+    assert torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("router", ["topk", "laminar"])
+def test_moe_dropped_slots_equal_cpu(dev, router):
+    """olmoe-1b-7b's MoE layer at full width, 2048 tokens of
+    bench_moe_router.py's skewed traffic: the dropped-slot counts, loads and
+    each round's experts on the card equal the CPU's."""
+    from repro_torch.configs import get
+    from repro_torch.models import blocks, moe
+
+    cfg = get("olmoe-1b-7b")
+    p = moe.init_moe_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    pc = blocks.tree_map(lambda a: a.cpu(), p)
+    g = torch.Generator().manual_seed(0)
+    base, noise = torch.randn((1, 1, 2048), generator=g), torch.randn((1, 2048, 2048), generator=g)
+    for skew in (0.0, 0.9):
+        x = (skew * base + (1 - skew) * noise).bfloat16()
+        for capacity in (0.5, 1.5):
+            c = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, router=router, capacity_factor=capacity, laminar_bounces=2))
+            with torch.inference_mode():
+                _, ad = moe.moe_ffn(p, c, x.to(dev))
+                _, ac = moe.moe_ffn(pc, c, x)
+                pd = moe.route(p, c, x.reshape(-1, 2048).to(dev))[0]
+                pcpu = moe.route(pc, c, x.reshape(-1, 2048))[0]
+            assert int(ad["moe_dropped_slots"]) == int(ac["moe_dropped_slots"])
+            assert torch.equal(ad["moe_load"].cpu(), ac["moe_load"])
+            for a, b in zip(pd, pcpu):
+                assert torch.equal(a.expert.cpu(), b.expert) and torch.equal(a.kept.cpu(), b.kept)
+
+
+def test_serve_cli_runs_on_the_card(dev, capsys):
+    """``python -m repro_torch.launch.serve --arch qwen3-1.7b`` at full width,
+    on the card by default; its stats are the CPU --smoke run's."""
+    from repro_torch.launch import serve as tserve
+
+    tserve.main(["--arch", "qwen3-1.7b"])
+    out = capsys.readouterr().out.splitlines()
+    tserve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu"])
+    smoke = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("arch=qwen3-1.7b replicas=2 arrived=24")
+    assert out[0] == smoke[0]
+
+
+def test_router_argmax_ties_match_cpu(dev):
+    """torch.argmax on the card takes the lowest index on ties and on an
+    all -inf row, as on the CPU (and as jnp.argmax)."""
+    rows = torch.tensor([[1.0, 3.0, 3.0, 0.0], [-float("inf")] * 4, [2.0] * 4,
+                         [-float("inf"), -float("inf"), 5.0, 5.0]])
+    wide = torch.full((4096, 64), -float("inf"))
+    wide[::3, 7] = wide[::3, 40] = 1.0
+    for x in (rows, wide):
+        assert torch.equal(torch.argmax(x.to(dev), dim=-1).cpu(), torch.argmax(x, dim=-1))
+    assert torch.argmax(rows.to(dev), dim=-1).tolist() == [1, 0, 0, 2]

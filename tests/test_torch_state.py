@@ -202,6 +202,24 @@ def test_latency_bucket_and_hist_quantile():
     assert tstate.hist_quantile(np.zeros(64), 0.5) == 0.0
 
 
+def test_engine_latency_bucket_equals_jitted_jax_at_every_latency():
+    """Every whole-tick latency of 0 .. 2**18 ticks at dt_ms 0.5, formed as
+    the arbiter forms it (``(t - arrival)`` as float32 times ``dt_ms``),
+    through the jitted reference and the engine's ``latency_bucket``: equal,
+    the exactly-4096- and 16384-tick latencies included. The baselines use
+    the same function."""
+    from repro_torch.core.baselines import common as tcommon
+
+    dt_ms = 0.5
+    t = np.int32(1 << 18)
+    arrival = np.arange((1 << 18) + 1, dtype=np.int32)
+    want = np.asarray(jax.jit(
+        lambda a: jstate.latency_bucket((t - a).astype(jnp.float32) * dt_ms))(arrival))
+    got = tstate.latency_bucket((torch.tensor(t) - T(arrival)).to(torch.float32) * dt_ms)
+    np.testing.assert_array_equal(want, got.numpy())
+    assert tcommon.latency_bucket is tstate.latency_bucket
+
+
 def test_tier_counts():
     rng = np.random.default_rng(4)
     tier = rng.integers(0, 3, 500).astype(np.int32)
