@@ -114,11 +114,25 @@ and no result line:
      (d) ``moe_ffn`` at olmoe-1b-7b's layer width on
      ``bench_moe_router.py``'s 2048-token traffic, dropped slots and loads
      equal to the CPU's; every launch counter reads 0 after it;
-  9. print the kernel table as JSON, the card's name and power limit, and
+  9. the training path (``repro_torch.train``, ``launch.train``; plain
+     PyTorch, no hand-written kernel) and the RG-LRU / SSD families: (a) the
+     train driver at qwen3-1.7b's full width (float32 parameters, bfloat16
+     compute, remat per block), batch 2 x seq 4096, 6 steps with a
+     checkpoint every 4 (20.6 GB each): the losses (finite), ms a step, tokens/s, peak
+     memory, then a restart from the newest checkpoint (3 steps, as
+     ``tests/test_train.py`` counts) and a profiled step; (b) the width cut
+     to 2 layers, one train step on the card and on the CPU with the same
+     parameters: float32 loss, grad norm and parameters within the CPU
+     tests' bounds, bfloat16 loss within 2**-5, and decode after prefill
+     against forward at S = 2048; (c) mamba2-130m and recurrentgemma-2b at
+     full width: decode after prefill against forward at S = 2048 (float32
+     and bfloat16), forward and decode ms, one train step (seq 2048 / 1024)
+     and peak memory; every launch counter reads 0 after it;
+  10. print the kernel table as JSON, the card's name and power limit, and
      last the result line.
 
-Every launch counter is set to 0 just before each run of phases 3, 5, 6, 7
-and 8 and read just after; the table's ``launches`` sums the runs of phases
+Every launch counter is set to 0 just before each run of phases 3, 5, 6, 7,
+8 and 9 and read just after; the table's ``launches`` sums the runs of phases
 3, 5 and 6 (0 for the three fixture rows, whose ``smoke_launches`` counts
 phase 2b's own).
 """
@@ -1330,7 +1344,14 @@ SERVE_ARCH = "qwen3-1.7b"  # repro/launch/serve.py's default arch
 LONG_PROMPT = 2048  # Sq * Sk > 4 * 512 * 1024: the streaming attention path
 SHORT_PROMPT = 24  # the dense path
 DECODE_TOL = 0.05  # tests/test_models.py's decode-vs-forward rtol and atol
-BF16_TOL = 2.0**-5  # of the logits' scale: tests/test_torch_models.py's bfloat16 bound
+# bfloat16 bound, a share of the scale, where two orders of computation
+# meet: decode after prefill against forward at S = 2048 (streaming
+# attention, and the RG-LRU's log-depth scan, against one step at a time;
+# ROADMAP C shows qwen3-1.7b's gap to be the reference's own, and
+# recurrentgemma-2b's equal to the reference's at 3 and 6 layers), and the
+# card against the CPU (phases 8d, 9b). The CPU tests hold the port to the
+# reference, one order against the same order, at 2**-7.
+BF16_TOL = 2.0**-5
 MOE_ARCH = "olmoe-1b-7b"  # d_model 2048, 64 experts, top-8, d_ff_expert 1024
 MOE_TOKENS = 2048  # benchmarks/bench_moe_router.py's traffic
 MOE_BOUNCES = 2
@@ -1584,6 +1605,236 @@ def phase8(dev):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the training path at qwen3-1.7b's full width, CUDA against CPU on
+# one train step, and the RG-LRU / SSD families at full width (no
+# hand-written kernel: plain PyTorch, as the reference is plain jnp)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_SEQ = 4096  # train_4k's sequence length
+TRAIN_BATCH = 2  # cut from train_4k's global batch of 256
+TRAIN_STEPS = 6
+# tests/test_train.py checkpoints every 2 steps; at full width a checkpoint
+# writes 20.6 GB, so every 4 keeps the run's disk writes to one checkpoint,
+# and the restart still resumes at step 4
+CKPT_EVERY = 4
+RESTART_STEPS = 7  # tests/test_train.py's restart: 6 steps, then 7 from the newest checkpoint
+RESTART_WANT = 3  # resumed at step 4, ran 4, 5, 6
+LOSS_RTOL = 1e-6  # tests/test_torch_train.py's float32 bounds (CPU against JAX)
+GNORM_RTOL = 1e-5
+STEP_PARAM_LR_TOL = 0.25
+FAMILIES = (("mamba2-130m", 2048), ("recurrentgemma-2b", 1024))  # (arch, train seq)
+
+
+def profile_step(fn, label, steps=1):
+    """aten ops, device kernels and device busy share of ``fn`` (after one
+    warm-up call), torch.profiler."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    fn()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    dev_us, dev_n = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[e.name] = dev_us.get(e.name, 0.0) + e.time_range.elapsed_us()
+            dev_n += 1
+    n_ops = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
+    busy = sum(dev_us.values()) / 1e6 / steps
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+    print(f"{label}: {wall * 1e3:.1f} ms wall, {n_ops / steps:.0f} aten ops (nested ones "
+          f"included) and {dev_n / steps:.0f} device kernels, device busy "
+          f"{busy * 1e3:.1f} ms = {busy / wall:.1%} of wall; largest: "
+          + "; ".join(f"{us / steps / 1e3:.2f} ms {name[:50]}" for name, us in top))
+
+
+def phase9a(dev, ckpt_dir):
+    """The train driver's path (``launch.train.main``: ``make_pipeline`` and
+    ``Trainer``) at qwen3-1.7b's full width: 6 steps with a checkpoint every
+    ``CKPT_EVERY``, then a restart from the newest checkpoint; a profiled
+    step."""
+    from repro_torch.configs import get
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm
+    from repro_torch.train import data, optimizer
+
+    cfg = get(TRAIN_ARCH)
+    check(cfg.remat == "block" and cfg.compute_dtype == torch.bfloat16, f"{cfg.name} config")
+    args = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(CKPT_EVERY), "--device", dev.type]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.main(args + ["--steps", str(TRAIN_STEPS)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses, secs = out["losses"], out["step_seconds"]
+    check(out["steps"] == TRAIN_STEPS and np.isfinite(losses).all(), f"[train] losses {losses}")
+    ms = float(np.median(secs[2:6])) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 9 (a): launch.train at {cfg.name}'s full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, float32 parameters, bfloat16 compute, remat {cfg.remat!r}), "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ} (train_4k's length; its global batch 256 cut "
+          f"to {TRAIN_BATCH}), {TRAIN_STEPS} steps, a checkpoint every {CKPT_EVERY}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step seconds "
+          f"{', '.join(f'{x:.3f}' for x in secs)}; {ms:.1f} ms a step (median of steps 2-5, "
+          f"host clock ending in a synchronize) = {tokens / ms * 1e3:.0f} tokens/s; "
+          f"max_memory_allocated {peak:.2f} GiB; {wall:.1f} s wall with the checkpoints")
+    t0 = time.perf_counter()
+    again = train.main(args + ["--steps", str(RESTART_STEPS)])
+    print(f"phase 9 (a): restart with --steps {RESTART_STEPS} from the newest checkpoint: "
+          f"{again['steps']} steps (the reference's count: {RESTART_WANT}), losses "
+          f"{', '.join(f'{x:.4f}' for x in again['losses'])}; {time.perf_counter() - t0:.1f} s "
+          f"wall with the restore")
+    check(again["steps"] == RESTART_WANT and np.isfinite(again["losses"]).all(),
+          f"[restart] ran {again['steps']} steps, want {RESTART_WANT}")
+
+    ocfg = optimizer.OptConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+    params = lm.init_params(cfg, 0, dev)
+    state = optimizer.init_opt_state(ocfg, params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             next(data.make_pipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)).items()}
+    step = steps.make_train_step(cfg, ocfg)
+    profile_step(lambda: step(params, state, batch)[2]["loss"].item(),
+                 "phase 9 (a): profiled train step")
+
+
+def phase9b(dev):
+    """qwen3-1.7b's full width cut to 2 layers: one train step on the card
+    and on the CPU with the same parameters (carried by the bridge) and
+    batch, float32 and bfloat16 compute; decode after prefill against
+    forward at S = 2048 in bfloat16 (``scripts/torch_decode_gap.py``
+    measures the reference's on the CPU: 0.0234375)."""
+    from repro_torch.configs import get
+    from repro_torch.launch import steps
+    from repro_torch.models import bridge, lm
+    from repro_torch.train import data, optimizer
+
+    base = get(TRAIN_ARCH).scaled(n_layers=2)
+    ocfg = optimizer.OptConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+    p_np = bridge.params_to_numpy(lm.init_params(base, 0, "cpu"))
+    b = next(data.make_pipeline(base.vocab, 1, 256, seed=0))
+    for cd in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(base, compute_dtype=cd)
+        out = {}
+        for d in ("cpu", dev):
+            p = bridge.params_from_numpy(p_np, d)
+            st = optimizer.init_opt_state(ocfg, p)
+            p, st, m = steps.make_train_step(cfg, ocfg)(
+                p, st, {k: torch.from_numpy(v).to(d) for k, v in b.items()})
+            out[str(d)] = (p, m)
+        (pc, mc), (pd, md) = out["cpu"], out[str(dev)]
+        lc, ld = float(mc["loss"]), float(md["loss"])
+        tag = f"[2 layers, {str(cd).removeprefix('torch.')} compute]"
+        gap = abs(ld - lc) / abs(lc)
+        check(np.isfinite(ld) and float(md["lr"]) == float(mc["lr"]), f"{tag} loss / lr")
+        if cd == torch.float32:
+            gn = abs(float(md["grad_norm"]) - float(mc["grad_norm"])) / float(mc["grad_norm"])
+            dp = max(float((a - c.cpu()).abs().max())
+                     for a, c in zip(optimizer.sorted_leaves(pc), optimizer.sorted_leaves(pd)))
+            print(f"phase 9 (b) {tag}: one train step (batch 1 x seq 256), CUDA vs CPU: loss "
+                  f"{ld:.7f} vs {lc:.7f} ({gap:.3g} of it), grad_norm {gn:.3g} of it, lr equal, "
+                  f"parameters within {dp / ocfg.lr:.3g} lr")
+            check(gap <= LOSS_RTOL and gn <= GNORM_RTOL and dp <= STEP_PARAM_LR_TOL * ocfg.lr,
+                  f"{tag} CUDA differs from CPU")
+        else:
+            print(f"phase 9 (b) {tag}: loss {ld:.6f} vs {lc:.6f} ({gap:.3g} of it)")
+            check(gap <= BF16_TOL, f"{tag} loss differs by {gap:.3g}")
+        del out, pc, pd
+    cfg = base
+    with torch.inference_mode():
+        params = bridge.params_from_numpy(p_np, dev)
+        err, scale, outside, _, _ = decode_vs_forward(cfg, params, LONG_PROMPT, 1, dev)
+    print(f"phase 9 (b): 2 layers, bfloat16, S = {LONG_PROMPT}: decode after prefill vs "
+          f"forward's last logits on the card: max abs {err:.6g} at logit scale {scale:.6g}, "
+          f"{outside} past rtol = atol = {DECODE_TOL}")
+    check(err <= BF16_TOL * scale, f"[2 layers, S={LONG_PROMPT}] decode gap {err}")
+
+
+def phase9c(dev):
+    """mamba2-130m and recurrentgemma-2b at full width: forward at S = 2048,
+    decode after prefill against forward's last logits (float32 and
+    bfloat16, as phase 8a holds qwen3), one train step; ms and peak
+    memory."""
+    from repro_torch.configs import get
+    from repro_torch.launch import steps
+    from repro_torch.models import blocks, lm
+    from repro_torch.train import data, optimizer
+
+    for arch, train_seq in FAMILIES:
+        cfg = get(arch)
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_params(cfg, 0, dev)
+        n = sum(a.numel() for a in blocks.tree_leaves(params))
+        with torch.inference_mode():
+            for cd in (torch.float32, torch.bfloat16):
+                c = dataclasses.replace(cfg, compute_dtype=cd)
+                err, scale, outside, pf_ms, fwd_ms = decode_vs_forward(c, params, LONG_PROMPT, 1,
+                                                                        dev)
+                tag = f"[{arch}, S={LONG_PROMPT}, {str(cd).removeprefix('torch.')} compute]"
+                print(f"phase 9 (c) {tag}: decode after prefill against forward's last logits: "
+                      f"max abs err {err:.4g} at logit scale {scale:.4g}, {outside} outside "
+                      f"rtol = atol = {DECODE_TOL}")
+                if cd == torch.bfloat16:
+                    check(err <= BF16_TOL * scale, f"{tag} decode differs from forward by {err}")
+                else:
+                    check(outside == 0, f"{tag} decode differs from forward by {err}")
+            tok = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), device=dev)
+            fwd = host_ms(lambda: lm.forward(cfg, params, tok), reps=3)
+            caches = lm.init_cache(cfg, 1, LONG_PROMPT + 4, dev)
+            _, caches = lm.prefill(cfg, params, tok[:, :-1], caches)
+            dec = host_ms(lambda: lm.decode_step(cfg, params, tok[:, -1:], LONG_PROMPT - 1,
+                                                 caches), reps=5)
+            del caches
+        infer_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        ocfg = optimizer.OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        state = optimizer.init_opt_state(ocfg, params)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 next(data.make_pipeline(cfg.vocab, 1, train_seq, seed=0)).items()}
+        step = steps.make_train_step(cfg, ocfg)
+        losses = [step(params, state, batch)[2]["loss"].item()]
+        train_ms = host_ms(lambda: losses.append(step(params, state, batch)[2]["loss"].item()),
+                           reps=2)
+        check(np.isfinite(losses).all(), f"[{arch}] train losses {losses}")
+        print(f"phase 9 (c): {arch} at full width ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {n} float32 parameters, bfloat16 compute): forward of "
+              f"{LONG_PROMPT} tokens {fwd:.1f} ms, decode step {dec:.2f} ms, peak "
+              f"{infer_peak:.2f} GiB; train step at batch 1 x seq {train_seq} (train_4k's "
+              f"4096 and batch 256 cut) {train_ms:.1f} ms, losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del params, state, step, batch
+
+
+def phase9(dev):
+    """The training path and the new families on the card; every launch
+    counter is set to 0 before and must read 0 after."""
+    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels.block_copy import block_copy
+
+    counters = {**WRAPPERS, "block_copy": block_copy}
+    for w in counters.values():
+        w.launches = 0
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
+        for part, run in (("a", lambda: phase9a(dev, ckpt_dir)), ("b", lambda: phase9b(dev)),
+                          ("c", lambda: phase9c(dev))):
+            t1 = time.perf_counter()
+            run()
+            torch.cuda.empty_cache()
+            print(f"phase 9 ({part}): {time.perf_counter() - t1:.1f} s wall")
+    launched = {name: w.launches for name, w in counters.items()}
+    check(not any(launched.values()), f"phase 9 launched hand-written kernels: {launched}")
+    print("phase 9: 0 hand-written kernel launches")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1637,7 +1888,8 @@ def main() -> int:
             gloo = dist.new_group(ranks=[0], backend="gloo")
             for k, run in ((3, lambda: phase3(dev, totals)), (4, lambda: phase4(dev, gloo)),
                            (5, lambda: phase5(dev, totals)), (6, lambda: phase6(dev, totals)),
-                           (7, lambda: phase7(dev)), (8, lambda: phase8(dev))):
+                           (7, lambda: phase7(dev)), (8, lambda: phase8(dev)),
+                           (9, lambda: phase9(dev))):
                 t1 = time.perf_counter()
                 run()
                 print(f"phase {k}: {time.perf_counter() - t1:.1f} s wall")

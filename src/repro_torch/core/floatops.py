@@ -23,6 +23,9 @@ Every function keeps float32 tensors in and out.
 
 from __future__ import annotations
 
+import math
+import struct
+
 import numpy as np
 import torch
 
@@ -36,13 +39,21 @@ def _hex(bits: int) -> float:
 
 
 def f32(x: float) -> float:
-    """``x`` rounded to float32 (a host constant)."""
-    return float(np.float32(x))
+    """``x`` rounded to float32 (a host constant), by the C cast ``struct``
+    packs with: round to nearest even; past float32's range, an infinity of
+    its sign (``struct`` raises there), as ``np.float32`` gives."""
+    try:
+        return struct.unpack("<f", struct.pack("<f", x))[0]
+    except OverflowError:
+        return math.copysign(math.inf, x)
 
 
 def recip(x: float) -> float:
-    """The float32 reciprocal XLA folds a division by ``x`` into."""
-    return float(np.float32(1.0) / np.float32(x))
+    """The float32 reciprocal XLA folds a division by ``x`` into: the double
+    quotient rounded once to float32 is the float32 quotient (double carries
+    more than 2 * 24 + 2 bits); an infinity of its sign at zero."""
+    d = f32(x)
+    return math.copysign(math.inf, d) if d == 0 else f32(1.0 / d)
 
 
 def div(a: float, b: torch.Tensor) -> torch.Tensor:

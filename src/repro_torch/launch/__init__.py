@@ -1,2 +1,3 @@
-"""Launchers (a port of ``repro.launch``): the serving driver
-``python -m repro_torch.launch.serve``."""
+"""Launchers (a port of ``repro.launch``): the step builders
+(``launch.steps``), the training driver ``python -m repro_torch.launch.train``
+and the serving driver ``python -m repro_torch.launch.serve``."""

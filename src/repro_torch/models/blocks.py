@@ -2,11 +2,13 @@
 ``repro.models.blocks``.
 
 A *group* is one repetition of the arch's layer pattern (e.g. gemma2 =
-("local", "global")). Parameters and caches carry a leading ``n_groups``
+("local", "global"), recurrentgemma = ("recurrent", "recurrent", "local"),
+mamba2 = ("ssd",)). Parameters and caches carry a leading ``n_groups``
 axis, as in the reference; the stack loops over the groups in Python where
-the reference scans. This package has the attention kinds ``global`` and
-``local`` (with cross-attention and post-norm); the recurrent (RG-LRU) and
-SSD kinds are not ported yet.
+the reference scans, each stacked leaf split into its groups by one
+``unbind`` (whose backward is one ``stack``). Under ``cfg.remat == "block"``
+with grad enabled each group runs under ``torch.utils.checkpoint``, as the
+reference's scanned body runs under ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -14,25 +16,18 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, mlp, moe
+from repro_torch.models import attention, mlp, moe, rglru, ssd
 from repro_torch.models import common as cm
 from repro_torch.models.common import ArchConfig, Params
 
 ATTENTION_KINDS = ("global", "local")
-
-
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} (RG-LRU / SSD) is not ported to PyTorch yet "
-        "(ROADMAP A 14: models/rglru.py and models/ssd.py)"
-    )
+KINDS = ATTENTION_KINDS + ("recurrent", "ssd")
 
 
 def _check_kind(kind: str) -> None:
-    if kind in ("recurrent", "ssd"):
-        raise _unported(kind)
-    if kind not in ATTENTION_KINDS:
+    if kind not in KINDS:
         raise ValueError(kind)
 
 
@@ -45,9 +40,14 @@ def init_block_params(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Param
     _check_kind(kind)
     dt = cfg.param_dtype
     p: Params = {"ln1": cm.zeros(gen, (cfg.d_model,), dt)}
-    p["mixer"] = attention.init_attn_params(gen, cfg)
+    if kind in ATTENTION_KINDS:
+        p["mixer"] = attention.init_attn_params(gen, cfg)
+    elif kind == "recurrent":
+        p["mixer"] = rglru.init_rglru_params(gen, cfg)
+    else:
+        p["mixer"] = ssd.init_ssd_params(gen, cfg)
 
-    if cfg.cross_attention:
+    if cfg.cross_attention and kind in ATTENTION_KINDS:
         p["ln_x"] = cm.zeros(gen, (cfg.d_model,), dt)
         p["xattn"] = attention.init_attn_params(gen, cfg)
 
@@ -66,6 +66,10 @@ def init_block_params(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Param
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, s_cache: int, device) -> Any:
     _check_kind(kind)
+    if kind == "recurrent":
+        return rglru.init_rglru_state(cfg, batch, device)
+    if kind == "ssd":
+        return ssd.init_ssd_state(cfg, batch, device)
     size = s_cache if kind == "global" else min(s_cache, cfg.window or s_cache)
     return attention.KVCache.zeros(cfg, batch, size, device)
 
@@ -82,24 +86,41 @@ def apply_block(
     aux: Optional[dict] = None,
     causal: bool = True,
 ) -> Tuple[torch.Tensor, Any]:
+    x, _, new_cache = _block(p, cfg, kind, x, None, pos, cache, cache_at, enc_out, aux, causal)
+    return x, new_cache
+
+
+def _block(p, cfg, kind, x, xs, pos, cache, cache_at, enc_out, aux, causal):
+    """One block; ``xs`` is ``x`` before its rounding to the compute dtype
+    (float32; ``None``: ``x`` as it is). Every norm of a residual sum reads
+    that float32 sum, as the reference's XLA program does (it drops the
+    round trip between the add and the norm's float32 cast inside a group).
+    Returns (x, xs, new_cache)."""
     _check_kind(kind)
-    h = cm.rms_norm(p["ln1"], x)
-    out, new_cache = attention.attend(
-        p["mixer"], cfg, h, pos, kind, causal=causal, cache=cache, cache_at=cache_at,
-    )
+    h = cm.rms_norm(p["ln1"], x if xs is None else xs, dtype=x.dtype)
+    if kind in ATTENTION_KINDS:
+        out, new_cache = attention.attend(
+            p["mixer"], cfg, h, pos, kind, causal=causal, cache=cache, cache_at=cache_at,
+        )
+    elif kind == "recurrent":
+        out, new_cache = rglru.rglru_block(p["mixer"], cfg, h, cache)
+    else:
+        out, new_cache = ssd.ssd_block(p["mixer"], cfg, h, cache)
     if cfg.post_norm:
         out = cm.rms_norm(p["ln1b"], out)
-    x = x + out
+    xs = x.float() + out.float()
+    x = xs.to(x.dtype)
 
-    if cfg.cross_attention and enc_out is not None:
-        hx = cm.rms_norm(p["ln_x"], x)
+    if cfg.cross_attention and enc_out is not None and kind in ATTENTION_KINDS:
+        hx = cm.rms_norm(p["ln_x"], xs, dtype=x.dtype)
         xo, _ = attention.attend(
             p["xattn"], cfg, hx, pos, "global", causal=False, xk=enc_out, rope=False,
         )
-        x = x + xo
+        xs = x.float() + xo.float()
+        x = xs.to(x.dtype)
 
     if "ffn" in p:
-        h2 = cm.rms_norm(p["ln2"], x)
+        h2 = cm.rms_norm(p["ln2"], xs, dtype=x.dtype)
         if cfg.moe is not None:
             f, moe_aux = moe.moe_ffn(p["ffn"], cfg, h2)
             if aux is not None:
@@ -108,8 +129,9 @@ def apply_block(
             f = mlp.mlp(p["ffn"], cfg, h2)
         if cfg.post_norm:
             f = cm.rms_norm(p["ln2b"], f)
-        x = x + f
-    return x, new_cache
+        xs = x.float() + f.float()
+        x = xs.to(x.dtype)
+    return x, xs, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +158,33 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_flatten(tree, prefix: str = ""):
+    """(paths, leaves) in JAX's ``tree_flatten_with_path`` order (dict keys
+    sorted, NamedTuple fields in order, ``None`` no leaf), each path joined
+    as the reference's checkpoints join it (``opt/.mu/embed``)."""
+    if tree is None:
+        return [], []
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = [(f".{f}", v) for f, v in zip(tree._fields, tree)]
+    elif isinstance(tree, (tuple, list)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [prefix], [tree]
+    paths, leaves = [], []
+    for name, sub in items:
+        k, v = tree_flatten(sub, f"{prefix}/{name}" if prefix else name)
+        paths += k
+        leaves += v
+    return paths, leaves
+
+
+def sorted_leaves(tree) -> list:
+    """The leaves in JAX's flattening order (``tree_flatten``)."""
+    return tree_flatten(tree)[1]
+
+
 def init_group_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     return {f"b{i}": init_block_params(gen, cfg, kind) for i, kind in enumerate(cfg.pattern)}
 
@@ -154,6 +203,18 @@ def init_stacked_cache(cfg: ArchConfig, batch: int, s_cache: int, device):
     return tree_map(lambda x: x[None].expand(cfg.n_groups, *x.shape).clone(), one)
 
 
+def unstack(tree, n: int) -> list:
+    """A tree whose leaves carry a leading axis of ``n`` as ``n`` trees: one
+    ``unbind`` a leaf (a ``select`` a group would add a full-size zero stack
+    a group in the backward pass)."""
+    parts = [leaf.unbind(0) for leaf in tree_leaves(tree)]
+    out = []
+    for g in range(n):
+        it = iter(p[g] for p in parts)
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
+
+
 def apply_stack(
     params_stacked: Params,
     cfg: ArchConfig,
@@ -165,22 +226,33 @@ def apply_stack(
     causal: bool = True,
 ):
     """Apply the grouped decoder stack. Returns (x, new_caches, aux)."""
-    dropped = torch.zeros((), dtype=torch.int32, device=x.device)
-    new_caches = []
-    for g in range(cfg.n_groups):
-        gp = tree_map(lambda a: a[g], params_stacked)
-        gc = tree_map(lambda a: a[g], caches) if caches is not None else None
+
+    def group_apply(xc, gp, gc):
+        """One group; returns its MoE dropped slots rather than adding them to
+        an outer count, so a recompute under remat counts nothing twice."""
         new_gc = {}
         aux_local: dict = {}
+        xs = None  # a group's input is rounded (the scan's carry)
         for i, kind in enumerate(cfg.pattern):
-            x, upd = apply_block(
-                gp[f"b{i}"], cfg, kind, x, pos,
-                cache=gc[f"b{i}"] if gc is not None else None, cache_at=cache_at,
-                enc_out=enc_out, aux=aux_local, causal=causal,
+            xc, xs, new_gc[f"b{i}"] = _block(
+                gp[f"b{i}"], cfg, kind, xc, xs, pos,
+                gc[f"b{i}"] if gc is not None else None, cache_at, enc_out, aux_local, causal,
             )
-            new_gc[f"b{i}"] = upd
-        if "moe_dropped_slots" in aux_local:
-            dropped = dropped + aux_local["moe_dropped_slots"]
+        dropped = aux_local.get("moe_dropped_slots")
+        return xc, dropped, new_gc if gc is not None else None
+
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    dropped = torch.zeros((), dtype=torch.int32, device=x.device)
+    group_params = unstack(params_stacked, cfg.n_groups)
+    group_caches = unstack(caches, cfg.n_groups) if caches is not None else [None] * cfg.n_groups
+    new_caches = []
+    for gp, gc in zip(group_params, group_caches):
+        if remat:
+            x, d, new_gc = checkpoint(group_apply, x, gp, gc, use_reentrant=False)
+        else:
+            x, d, new_gc = group_apply(x, gp, gc)
+        if d is not None:
+            dropped = dropped + d
         new_caches.append(new_gc)
     aux = {"moe_dropped_slots": dropped}
     if caches is None:

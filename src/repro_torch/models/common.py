@@ -84,7 +84,11 @@ class ArchConfig:
     # numerics
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    remat: str = "block"  # none | block (a training knob; inference ignores it)
+    # none | block: under "block", a stack run with grad enabled recomputes
+    # each group's activations in the backward pass
+    # (torch.utils.checkpoint, the reference's jax.checkpoint); a run without
+    # grad (inference) keeps none to recompute
+    remat: str = "block"
 
     # --- performance knobs, kept so a config means what it means in the
     # reference. The sharding knobs (sharded_xent, cast_params_once,
@@ -124,12 +128,79 @@ def scalar(value: float, dtype: torch.dtype) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# elementwise functions as the reference's XLA program computes them: each
+# step of the JAX source is one op in the input's dtype, so in bfloat16 each
+# step rounds to bfloat16 as XLA rounds it (a fused PyTorch op computes in
+# float32 and rounds once)
+# ---------------------------------------------------------------------------
+
+
+def sigmoid(x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (``lax.logistic``): ``1 / (1 + exp(-x))``.
+    ``dtype=torch.float32``: the last step unrounded, as XLA leaves it when
+    the source casts the sigmoid straight to float32."""
+    den = torch.exp(-x) + 1.0
+    return torch.reciprocal(den if dtype is None else den.to(dtype))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``."""
+    return x * sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation):
+    ``x * (0.5 * (1 + tanh(sqrt(2 / pi) * (x + 0.044715 * x**3))))``."""
+    dt = x.dtype
+    inner = x + scalar(0.044715, dt) * (x * x * x)
+    cdf = scalar(0.5, dt) * (torch.tanh(scalar(math.sqrt(2.0 / math.pi), dt) * inner) + 1.0)
+    return x * cdf
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``jnp.logaddexp(x, 0)``:
+    ``max(x, 0) + log1p(exp(-|x|))`` (``x`` where that is NaN)."""
+    out = torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x, out)
+
+
+def associative_scan(fn, elems: Tuple[torch.Tensor, ...], dim: int = 1):
+    """``jax.lax.associative_scan(fn, elems, axis=dim)``: the same odd / even
+    recursion in whole-tensor strided ops (log2(n) levels), so ``fn``
+    combines the same pairs in the same order as the reference."""
+
+    def sl(t, start, stop=None, step=1):
+        return t[(slice(None),) * dim + (slice(start, stop, step),)]
+
+    def interleave(even, odd):
+        n_odd = odd.shape[dim]
+        both = torch.stack([sl(even, 0, n_odd), odd], dim=dim + 1)
+        both = both.flatten(dim, dim + 1)
+        return torch.cat([both, sl(even, n_odd)], dim=dim) if even.shape[dim] > n_odd else both
+
+    def scan(xs):
+        n = xs[0].shape[dim]
+        if n < 2:
+            return xs
+        odd = scan(fn([sl(x, 0, -1, 2) for x in xs], [sl(x, 1, None, 2) for x in xs]))
+        left = [sl(o, 0, -1) for o in odd] if n % 2 == 0 else odd
+        even = fn(left, [sl(x, 2, None, 2) for x in xs])
+        even = [torch.cat([sl(x, 0, 1), e], dim=dim) for x, e in zip(xs, even)]
+        return [interleave(e, o) for e, o in zip(even, odd)]
+
+    return tuple(scan(list(elems)))
+
+
+# ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    dt = x.dtype
+def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``dtype``: of the output, when not ``x``'s (a float32 residual sum
+    normed before its rounding, see ``blocks._block``)."""
+    dt = dtype or x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
@@ -147,9 +218,11 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """``cap * tanh(x / cap)``, the division by the constant a multiply by
+    its reciprocal in ``x``'s dtype, as XLA folds it."""
     if cap is None:
         return x
-    return cap * torch.tanh(x / cap)
+    return cap * torch.tanh(x * scalar(1.0 / cap, x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -199,20 +272,36 @@ def apply_mrope(
 # ---------------------------------------------------------------------------
 
 
-def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+def device_of(gen: Optional[torch.Generator]) -> torch.device:
+    """Where an initializer puts its tensors: the generator's device, or
+    ``meta`` for ``None`` (shapes and dtypes only, as ``jax.eval_shape``)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def normal(gen: Optional[torch.Generator], shape, std: float, dtype) -> torch.Tensor:
     """Standard normal float32 draws from ``gen`` (on its device) times
     ``std``, cast to ``dtype``."""
-    z = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    z = torch.randn(shape, generator=gen, device=device_of(gen), dtype=torch.float32)
     return (z * std).to(dtype)
 
 
-def zeros(gen: torch.Generator, shape, dtype) -> torch.Tensor:
-    return torch.zeros(shape, dtype=dtype, device=gen.device)
+def uniform(gen: Optional[torch.Generator], shape, lo: float, hi: float) -> torch.Tensor:
+    """Uniform float32 draws in [lo, hi) from ``gen``."""
+    u = torch.rand(shape, generator=gen, device=device_of(gen), dtype=torch.float32)
+    return lo + (hi - lo) * u
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype) -> torch.Tensor:
+def zeros(gen: Optional[torch.Generator], shape, dtype) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device_of(gen))
+
+
+def ones(gen: Optional[torch.Generator], shape, dtype) -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype, device=device_of(gen))
+
+
+def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int, dtype) -> torch.Tensor:
     return normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype)
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
+def embed_init(gen: Optional[torch.Generator], vocab: int, d: int, dtype) -> torch.Tensor:
     return normal(gen, (vocab, d), 0.02, dtype)

@@ -1,16 +1,18 @@
 """Top-level models: decoder-only LM, encoder-decoder (whisper), VLM
-backbone. A port of ``repro.models.lm``'s inference surface.
+backbone. A port of ``repro.models.lm``.
 
 Public entry points (plain functions of (cfg, params, ...) on the params'
 device):
 
   * ``init_params``            — full parameter tree, on the card by default
-  * ``forward``                — forward -> logits (B, S, V)
+                                 (``device="meta"``: shapes and dtypes only)
+  * ``forward``                — training forward -> logits (B, S, V)
+  * ``loss_fn``                — next-token cross-entropy
   * ``init_cache`` / ``prefill`` / ``decode_step``
 
 Modality frontends are stubs as in the reference: whisper takes
 precomputed frame embeddings (B, enc_seq, d_model); qwen2-vl takes token
-ids plus M-RoPE position ids (3, B, S). ``loss_fn`` comes with training.
+ids plus M-RoPE position ids (3, B, S).
 """
 
 from __future__ import annotations
@@ -26,11 +28,15 @@ from repro_torch.models import common as cm
 from repro_torch.models.common import ArchConfig, Params
 
 
-def _generator(seed_or_generator: Union[int, torch.Generator], device) -> torch.Generator:
-    """A seed as a ``torch.Generator`` on ``device``; a generator as is."""
+def _generator(seed_or_generator: Union[int, torch.Generator], device):
+    """A seed as a ``torch.Generator`` on ``device`` (``None`` on ``meta``,
+    where the initializers draw nothing); a generator as is."""
     if isinstance(seed_or_generator, torch.Generator):
         return seed_or_generator
-    return torch.Generator(device=_resolve_device(device)).manual_seed(int(seed_or_generator))
+    dev = _resolve_device(device)
+    if dev.type == "meta":
+        return None
+    return torch.Generator(device=dev).manual_seed(int(seed_or_generator))
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +112,7 @@ def _positions(cfg: ArchConfig, batch: int, seq: int, device, pos3=None):
 
 
 # ---------------------------------------------------------------------------
-# forward
+# training forward + loss
 # ---------------------------------------------------------------------------
 
 
@@ -123,6 +129,34 @@ def forward(
     enc_out = _encode(cfg, p, enc_embeds) if cfg.enc_layers > 0 else None
     x, _, aux = blocks.apply_stack(p["stack"], cfg, x, pos, enc_out=enc_out)
     return _head(cfg, p, x), aux
+
+
+def loss_fn(
+    cfg: ArchConfig,
+    p: Params,
+    batch: Dict[str, torch.Tensor],
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Mean next-token cross-entropy over the labels >= 0. As
+    ``jnp.take_along_axis`` does, a label of -1 reads the last vocab entry
+    (the mask then zeroes it); ``torch.gather`` would refuse it."""
+    logits, aux = forward(cfg, p, batch["tokens"], batch.get("pos3"), batch.get("enc_embeds"))
+    labels = batch["labels"].long()
+    mask = (labels >= 0).to(torch.float32)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    if cfg.sharded_xent:
+        # the reference's vocab-shard-aware form: logsumexp and the label
+        # logit, both reductions over the vocab axis (one device here: the
+        # one-hot contraction is the gathered logit, exactly)
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+        ll = label_logit - lse
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        idx = torch.where(labels < 0, labels + logits.shape[-1], labels)
+        ll = torch.gather(logp, -1, idx[..., None])[..., 0]
+    loss = -torch.sum(ll * mask) / denom
+    aux["loss"] = loss
+    return loss, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,18 @@
 """Feed-forward layers: SwiGLU / GeGLU / plain GELU. A port of
 ``repro.models.mlp``; ``jax.nn.gelu`` is the tanh approximation, and so is
-the GELU here."""
+the GELU here. SiLU and GELU run as the reference's steps
+(``common.silu`` / ``common.gelu``), each rounded to the compute dtype as
+XLA rounds it."""
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import common as cm
 from repro_torch.models.common import ArchConfig, Params
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")
+gelu = cm.gelu
 
 
 def init_mlp_params(gen: torch.Generator, cfg: ArchConfig, d_ff: int | None = None) -> Params:
@@ -37,8 +37,8 @@ def mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.act in ("swiglu", "geglu"):
         g = x @ p["w_gate"].to(cd)
         u = x @ p["w_up"].to(cd)
-        act = F.silu(g) if cfg.act == "swiglu" else gelu(g)
+        act = cm.silu(g) if cfg.act == "swiglu" else cm.gelu(g)
         return (act * u) @ p["w_down"].to(cd)
     h = x @ p["w_up"].to(cd) + p["b_up"].to(cd)
-    h = gelu(h)
+    h = cm.gelu(h)
     return h @ p["w_down"].to(cd) + p["b_down"].to(cd)

@@ -155,7 +155,7 @@ def moe_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor):
     # ---- expert FFN (batched over experts) --------------------------------
     g = torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(cd))
     u = torch.einsum("ecd,edf->ecf", buf, p["w_up"].to(cd))
-    h = F.silu(g) * u
+    h = cm.silu(g) * u
     y = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(cd)).reshape(E * C, d)
 
     # ---- combine: weighted gather back ------------------------------------

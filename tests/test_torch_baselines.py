@@ -3,7 +3,8 @@
   * ``common.top_k`` against ``jax.lax.top_k`` on keys full of ties: the
     same indices in the same order;
   * ``floatops`` (XLA's float32 ``exp`` / ``log`` / ``log1p``) and the
-    baselines' latency bucket against jitted JAX;
+    baselines' latency bucket against jitted JAX; its host constants
+    (``f32``, ``recip``) against numpy's float32;
   * ``inject``, ``admit_fifo`` (score ties included), ``complete``,
     ``expire``, ``scenario_disrupt`` and ``summarize_baseline`` on JAX
     mid-run states carried into the port (``common.state_from_numpy``);
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -187,6 +189,21 @@ def test_fma_rounds_once():
     # a * a = 1 + 2**-22 + 2**-46: one rounding keeps the 2**-46, two lose it
     assert floatops.fma(a, a, c).item() == 2.0**-46
     assert (a * a + c).item() == 0.0
+
+
+@pytest.mark.parametrize("fn", ["f32", "recip"])
+def test_host_constants_equal_numpy_float32(fn):
+    """``f32`` / ``recip`` equal numpy's float32 cast and quotient, the edges
+    too: zeros, subnormals, overflow to infinity, infinities and NaN."""
+    rng = np.random.default_rng(0)
+    xs = [0.0, -0.0, 1e-50, -1e-50, 1e-45, 3.4028235e38, 3.40282356e38, 1e39, -1e39,
+          math.inf, -math.inf, math.nan,
+          *(rng.standard_normal(2000) * 10.0 ** rng.integers(-40, 40, 2000))]
+    want = {"f32": lambda x: np.float32(x), "recip": lambda x: np.float32(1) / np.float32(x)}[fn]
+    with np.errstate(all="ignore"):
+        for x in xs:
+            np.testing.assert_array_equal(np.float64(getattr(floatops, fn)(x)), np.float64(want(x)))
+            assert math.copysign(1, getattr(floatops, fn)(x)) == math.copysign(1, want(x)) or x != x
 
 
 # ---------------------------------------------------------------------------

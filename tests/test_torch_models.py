@@ -10,13 +10,18 @@ What was measured, and the tolerances it sets:
     rsqrt, sin, cos, tanh, are XLA's own polynomials there and differ from
     PyTorch's in the last bits). Tolerance: ``F32_TOL`` (1e-5) of the
     tensor's largest magnitude.
-  * bfloat16 compute (the configs' own): XLA rounds each bfloat16
-    elementwise op to bfloat16 and uses those polynomials, so single values
-    move by a bfloat16 ulp or two and carry through the stack: logits within
-    1.8 % of the output's scale (0.0547 at 4.09). Tolerance: ``BF16_TOL``
-    (2**-5) of the largest magnitude. In the MoE archs such a step can flip
-    a router choice at a near-tie, and that token's output moves as a whole;
-    there the bound holds for ``MOE_BF16_SHARE`` of the logits.
+  * bfloat16 compute (the configs' own): the port rounds each elementwise
+    step where the reference's XLA program rounds it (``common.silu`` /
+    ``gelu`` / ``sigmoid`` as the source's steps; a value the source casts
+    straight to float32, such as a residual sum read by the next norm, stays
+    unrounded, as XLA leaves it). Logits, caches and dropped slots are then
+    bit-equal for 8 of the 10 archs; whisper-base's non-causal encoder stays
+    within 0.0050 of the logits' scale, recurrentgemma-2b and mamba2-130m
+    within 0.0014 (XLA's own exp / log1p in their gates). Before this
+    rounding (``F.silu``, a rounded residual): up to 0.0212, and olmoe's
+    router flipped at near-ties (97.9 % of its logits within 2**-5).
+    Tolerance: ``BF16_TOL`` (2**-7) of the largest magnitude, for every
+    logit (``MOE_BF16_SHARE`` 1.0: the MoE archs too).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from repro.configs import ARCHS as J_ARCHS
 from repro.configs import SMOKE as J_SMOKE
 from repro.configs import shapes as jshapes
 from repro.models import attention as jattn
+from repro.models import blocks as jblocks
 from repro.models import common as jcm
 from repro.models import lm as jlm
 from repro.models import mlp as jmlp
@@ -49,11 +55,12 @@ from repro_torch.models import lm as tlm
 from repro_torch.models import mlp as tmlp
 
 F32_TOL = 1e-5
-BF16_TOL = 2.0**-5
-MOE_BF16_SHARE = 0.9
-# the archs whose block kinds this package has (no recurrent / ssd layers)
+BF16_TOL = 2.0**-7
+MOE_BF16_SHARE = 1.0
+# every arch: each block kind is ported (attention, RG-LRU, SSD)
 PORTED = ["qwen2.5-32b", "gemma2-9b", "qwen3-1.7b", "qwen1.5-110b", "olmoe-1b-7b",
-          "phi3.5-moe-42b-a6.6b", "whisper-base", "qwen2-vl-7b"]
+          "phi3.5-moe-42b-a6.6b", "whisper-base", "qwen2-vl-7b", "recurrentgemma-2b",
+          "mamba2-130m"]
 B, S = 2, 24
 
 
@@ -327,9 +334,13 @@ def test_model_matches_jax(arch, dtype):
     want_c = jax.tree.map(np.asarray, jcache)
     got_c = bridge.cache_to_numpy(tcache)
     for name in want_c:
-        np.testing.assert_array_equal(want_c[name].pos, got_c[name].pos)
-        for f in ("k", "v"):
-            assert_close(getattr(want_c[name], f), getattr(got_c[name], f), tol, share, f"cache {f}")
+        assert type(want_c[name]).__name__ == type(got_c[name]).__name__
+        for f in want_c[name]._fields:  # KVCache (k, v, pos); RGLRUState / SSDState (h, conv)
+            if f == "pos":
+                np.testing.assert_array_equal(want_c[name].pos, got_c[name].pos)
+            else:
+                assert_close(getattr(want_c[name], f), getattr(got_c[name], f), tol, share,
+                             f"cache {f}")
 
     jd, _ = jax.jit(lambda *a: jlm.decode_step(jc, *a))(
         jp, J(tok[:, S - 1:]), jnp.asarray(S - 1, jnp.int32), jcache, None, J(enc))
@@ -337,7 +348,7 @@ def test_model_matches_jax(arch, dtype):
     assert_close(jd, td, tol, share, "decode")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-9b", "recurrentgemma-2b", "mamba2-130m"])
 def test_decode_matches_forward(arch):
     """The port's own contract between its training and serving paths, as
     ``tests/test_models.py`` holds the reference to it: prefill(S - 1) plus
@@ -392,10 +403,17 @@ def test_bridge_round_trips_params_and_bf16_caches():
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-130m"])
 def test_recurrent_and_ssd_blocks_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A 14"):
-        tlm.init_params(T_SMOKE[arch], 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A 14"):
-        tblocks.init_block_cache(T_SMOKE[arch], T_SMOKE[arch].pattern[0], 1, 8, "cpu")
+    """They are ported now: the blocks build, and their caches are the
+    reference's (``RGLRUState`` / ``SSDState``: fields, shapes, dtypes)."""
+    tc, jc = T_SMOKE[arch], J_SMOKE[arch]
+    kind = tc.pattern[0]
+    got = tblocks.init_block_cache(tc, kind, 1, 8, "cpu")
+    want = jax.eval_shape(lambda: jblocks.init_block_cache(jc, kind, 1, 8))
+    assert type(got).__name__ == type(want).__name__ and got._fields == want._fields
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape and g.dtype == getattr(torch, str(w.dtype))
+    assert set(tblocks.init_block_params(torch.Generator().manual_seed(0), tc, kind)) == \
+        set(jax.eval_shape(lambda: jblocks.init_block_params(jax.random.PRNGKey(0), jc, kind)))
 
 
 def test_entry_points_default_to_cuda():
@@ -405,3 +423,32 @@ def test_entry_points_default_to_cuda():
         tlm.init_params(T_SMOKE["qwen3-1.7b"], 0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tlm.init_cache(T_SMOKE["qwen3-1.7b"], 1, 8)
+
+
+def test_decode_gap_at_2048_is_the_reference_s():
+    """Decode after prefill against forward's last logits at S = 2048
+    (streaming attention in forward and prefill, dense in decode), bfloat16:
+    the reference shows the same gap as the port, so the gap is the
+    algorithm's, not the port's (``scripts/torch_decode_gap.py`` measures it
+    at the full width cut to 2 layers: 0.0234375 in both packages). Here at
+    the smoke width: each gap within a factor 2 of the other, both inside
+    rtol = atol = 0.05."""
+    jc = dataclasses.replace(J_SMOKE["qwen3-1.7b"], n_layers=2)
+    tc = port_arch(jc)
+    jp, tp = jax_params(jc, seed=0)
+    n = 2048
+    tok = np.random.default_rng(n).integers(0, jc.vocab, (1, n)).astype(np.int32)
+    jfull = np.asarray(jax.jit(lambda p, t: jlm.forward(jc, p, t)[0][:, -1])(jp, tok))
+    _, cache = jax.jit(lambda p, t, c: jlm.prefill(jc, p, t, c))(
+        jp, tok[:, : n - 1], jlm.init_cache(jc, 1, n + 4))
+    jdec = np.asarray(jax.jit(lambda p, t, c: jlm.decode_step(jc, p, t, jnp.int32(n - 1), c)[0])(
+        jp, tok[:, n - 1:], cache))[:, 0]
+    tt = T(tok)
+    tfull = tlm.forward(tc, tp, tt)[0][:, -1].numpy()
+    _, tcache = tlm.prefill(tc, tp, tt[:, : n - 1], tlm.init_cache(tc, 1, n + 4, "cpu"))
+    tdec = tlm.decode_step(tc, tp, tt[:, n - 1:], n - 1, tcache)[0][:, 0].numpy()
+    ref_gap = float(np.abs(jdec - jfull).max())
+    port_gap = float(np.abs(tdec - tfull).max())
+    assert ref_gap > 0 and 0.5 <= port_gap / ref_gap <= 2.0, (ref_gap, port_gap)
+    for dec, full in ((jdec, jfull), (tdec, tfull)):
+        np.testing.assert_allclose(dec, full, rtol=0.05, atol=0.05)

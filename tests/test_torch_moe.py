@@ -8,9 +8,10 @@ The routing is integer work on float32 router logits, which the port forms
 as the reference does (the same float32 product at this width, XLA's ``log2``
 rounding in the laminar router's heat term), so it is held exactly: every
 round's chosen experts and kept flags, ``moe_dropped_slots`` and
-``moe_load``. The output goes through bfloat16 expert FFNs whose
-elementwise rounding differs (``test_torch_models.py``): within ``BF16_TOL``
-of its largest magnitude.
+``moe_load``. The output goes through bfloat16 expert FFNs whose SiLU
+rounds each step as XLA does (``common.silu``): within 0.00081 of its
+largest magnitude over the sweep (0.0162 before that rounding, with
+``F.silu``). Tolerance ``BF16_TOL`` (2**-9) of the largest magnitude.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from repro.models import moe as jmoe
 from repro_torch.models import bridge
 from repro_torch.models import moe as tmoe
 
-BF16_TOL = 2.0**-5
+BF16_TOL = 2.0**-9
 N_TOK = 2048
 
 
