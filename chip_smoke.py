@@ -128,13 +128,26 @@ and no result line:
      full width: decode after prefill against forward at S = 2048 (float32
      and bfloat16), forward and decode ms, one train step (seq 2048 / 1024)
      and peak memory; every launch counter reads 0 after it;
-  10. print the kernel table as JSON, the card's name and power limit, and
+  10. the device mesh (``launch.mesh``, ``parallel.sharding``; plain
+     PyTorch and DTensor, no hand-written kernel): (a) the train driver with
+     phase 9 (a)'s own arguments plus ``--mesh 1x1`` (a ``DeviceMesh`` of
+     the one-rank NCCL group; parameters, moments and batches DTensors
+     placed by the sharding rules), its losses bit-equal to 9 (a)'s (else
+     the gap printed and held to the CPU tests' float32 bound 1e-6), a
+     restart, ms a step, tokens/s, peak memory and a profiled step's aten
+     ops beside 9 (a)'s; (b) in a CPU process of its own, started beside
+     (a): the dry-run of qwen3-1.7b x train_4k on the (16, 16) and
+     (2, 16, 16) production meshes (a fake process group; per-device
+     FLOPs, bytes and collective bytes by kind) and the H100 roofline at 9
+     (a)'s shape on a (1, 1) mesh beside 9 (a)'s measured ms a step; every
+     launch counter reads 0 after it;
+  11. print the kernel table as JSON, the card's name and power limit, and
      last the result line.
 
 Every launch counter is set to 0 just before each run of phases 3, 5, 6, 7,
-8 and 9 and read just after; the table's ``launches`` sums the runs of phases
-3, 5 and 6 (0 for the three fixture rows, whose ``smoke_launches`` counts
-phase 2b's own).
+8, 9 and 10 and read just after; the table's ``launches`` sums the runs of
+phases 3, 5 and 6 (0 for the three fixture rows, whose ``smoke_launches``
+counts phase 2b's own).
 """
 
 from __future__ import annotations
@@ -1653,6 +1666,8 @@ def profile_step(fn, label, steps=1):
           f"included) and {dev_n / steps:.0f} device kernels, device busy "
           f"{busy * 1e3:.1f} ms = {busy / wall:.1%} of wall; largest: "
           + "; ".join(f"{us / steps / 1e3:.2f} ms {name[:50]}" for name, us in top))
+    return {"wall_ms": wall * 1e3, "aten_ops": n_ops / steps, "kernels": dev_n / steps,
+            "busy": busy / wall}
 
 
 def phase9a(dev, ckpt_dir):
@@ -1701,8 +1716,10 @@ def phase9a(dev, ckpt_dir):
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
              next(data.make_pipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)).items()}
     step = steps.make_train_step(cfg, ocfg)
-    profile_step(lambda: step(params, state, batch)[2]["loss"].item(),
-                 "phase 9 (a): profiled train step")
+    prof = profile_step(lambda: step(params, state, batch)[2]["loss"].item(),
+                        "phase 9 (a): profiled train step")
+    return {"losses": losses, "restart_losses": again["losses"], "ms": ms,
+            "tokens_s": tokens / ms * 1e3, "peak": peak, "profile": prof}
 
 
 def phase9b(dev):
@@ -1823,16 +1840,188 @@ def phase9(dev):
     for w in counters.values():
         w.launches = 0
     (ROOT / "build").mkdir(exist_ok=True)
+    out = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
         for part, run in (("a", lambda: phase9a(dev, ckpt_dir)), ("b", lambda: phase9b(dev)),
                           ("c", lambda: phase9c(dev))):
             t1 = time.perf_counter()
-            run()
+            out[part] = run()
             torch.cuda.empty_cache()
             print(f"phase 9 ({part}): {time.perf_counter() - t1:.1f} s wall")
     launched = {name: w.launches for name, w in counters.items()}
     check(not any(launched.values()), f"phase 9 launched hand-written kernels: {launched}")
     print("phase 9: 0 hand-written kernel launches")
+    return out["a"]
+
+
+# phase 10 (b): the dry-run and the roofline, in a CPU process of their own
+# (no card: the fake process group and fake tensors trace every rank's
+# shapes); one JSON line out
+DRYRUN_CODE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(2)
+from repro_torch.configs import get
+from repro_torch.configs.shapes import SHAPES, ShapeSpec
+from repro_torch.launch import dryrun, roofline
+from repro_torch.launch.mesh import fake_process_group, make_mesh
+arch, batch = sys.argv[2], int(sys.argv[3])
+out = {"cells": [dryrun.run_cell(arch, "train_4k", mp, verbose=False) for mp in (False, True)]}
+s = SHAPES["train_4k"]
+with fake_process_group(1):
+    out["roofline"] = roofline.analyze(get(arch), ShapeSpec(s.name, s.seq_len, batch, s.kind),
+                                       make_mesh((1, 1), ("data", "model"), "cpu"))
+print(json.dumps(out))
+"""
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryrun():
+    """Phase 10 (b)'s process, started to run beside phase 10 (a)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CODE, str(SRC), TRAIN_ARCH, str(TRAIN_BATCH)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def phase10a(dev, ckpt_dir, base):
+    """The train driver with phase 9a's own arguments plus ``--mesh 1x1``:
+    a ``DeviceMesh("cuda", (1, 1))`` over the one-rank NCCL group, the
+    parameters, moments and batches DTensors placed by the sharding rules;
+    the losses against 9a's, a restart, ms a step, peak memory and a
+    profiled step beside 9a's."""
+    from repro_torch.configs import get
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding
+    from repro_torch.train import data, optimizer
+
+    cfg = get(TRAIN_ARCH)
+    args = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(CKPT_EVERY), "--device", dev.type,
+            "--mesh", "1x1"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.main(args + ["--steps", str(TRAIN_STEPS)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses, secs = out["losses"], out["step_seconds"]
+    check(out["steps"] == TRAIN_STEPS and np.isfinite(losses).all(), f"[mesh] losses {losses}")
+    equal = np.array_equal(losses, base["losses"])
+    gap = float(np.max(np.abs(losses - base["losses"]) / np.abs(base["losses"])))
+    ms = float(np.median(secs[2:6])) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 10 (a): launch.train --mesh 1x1 at {cfg.name}'s full width, phase 9 (a)'s "
+          f"arguments: losses {', '.join(f'{x:.4f}' for x in losses)}: "
+          + ("bit-equal to phase 9 (a)'s" if equal else
+             f"NOT bit-equal to phase 9 (a)'s (largest gap {gap:.3g} of the loss)")
+          + f"; step seconds {', '.join(f'{x:.3f}' for x in secs)}; {ms:.1f} ms a step "
+          f"(9 (a): {base['ms']:.1f}) = {tokens / ms * 1e3:.0f} tokens/s (9 (a): "
+          f"{base['tokens_s']:.0f}); max_memory_allocated {peak:.2f} GiB (9 (a): "
+          f"{base['peak']:.2f}); {wall:.1f} s wall with the checkpoints")
+    check(equal or gap <= LOSS_RTOL, f"[mesh] losses differ from phase 9 (a)'s by {gap:.3g}")
+    t0 = time.perf_counter()
+    again = train.main(args + ["--steps", str(RESTART_STEPS)])
+    same = np.array_equal(again["losses"], base["restart_losses"])
+    print(f"phase 10 (a): restart with --steps {RESTART_STEPS} from the newest checkpoint: "
+          f"{again['steps']} steps, losses {', '.join(f'{x:.4f}' for x in again['losses'])} "
+          f"({'bit-equal to' if same else 'NOT equal to'} phase 9 (a)'s restart); "
+          f"{time.perf_counter() - t0:.1f} s wall with the restore")
+    check(again["steps"] == RESTART_WANT and np.isfinite(again["losses"]).all(),
+          f"[mesh restart] ran {again['steps']} steps, want {RESTART_WANT}")
+
+    mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+    ocfg = optimizer.OptConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+    params = lm.init_params(cfg, 0, dev)
+    specs = sharding.tree_param_specs(mesh, params)
+    state = optimizer.init_opt_state(ocfg, params)
+    params = sharding.distribute(mesh, params, specs)
+    state = optimizer.AdamState(step=sharding.distribute(mesh, state.step, ()),
+                                mu=sharding.distribute(mesh, state.mu, specs),
+                                nu=sharding.distribute(mesh, state.nu, specs), err=None)
+    batch = sharding.distribute(mesh, {
+        k: torch.from_numpy(v).to(dev) for k, v in
+        next(data.make_pipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)).items()},
+        sharding.tokens_spec(mesh))
+    step = steps.make_train_step(cfg, ocfg)
+
+    prof = profile_step(lambda: step(params, state, batch)[2]["loss"].full_tensor().item(),
+                        "phase 10 (a): profiled train step on the 1x1 mesh")
+    base_ops = base["profile"]["aten_ops"]
+    print(f"phase 10 (a): DTensor's cost on the 1x1 step: {prof['aten_ops']:.0f} aten ops "
+          f"(9 (a): {base_ops:.0f}, x{prof['aten_ops'] / base_ops:.3f}), "
+          f"{prof['wall_ms']:.1f} ms profiled wall (9 (a): {base['profile']['wall_ms']:.1f}), "
+          f"device busy {prof['busy']:.1%} (9 (a): {base['profile']['busy']:.1%})")
+
+
+def phase10b(proc, base):
+    """Phase 10 (b)'s results: qwen3-1.7b x train_4k on the (16, 16) and
+    (2, 16, 16) production meshes (per device), the roofline at phase 9
+    (a)'s shape on (1, 1) beside 9 (a)'s measured ms a step."""
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0, f"phase 10 (b): the dry-run process failed:\n{stderr[-3000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    for rec in out["cells"]:
+        check(rec["status"] == "ok", f"phase 10 (b): dry-run cell {rec}")
+        c, m, coll = rec["cost"], rec["memory"], rec["collectives"]
+        kinds = ", ".join(f"{k} {v:.4g}" for k, v in coll.items()
+                          if k not in ("count", "total_bytes"))
+        print(f"phase 10 (b): dry-run {rec['arch']} x {rec['shape']} on the "
+              f"{'multi' if rec['multi_pod'] else 'single'}-pod mesh ({rec['devices']} devices, "
+              f"traced in {rec['compile_s']} s on the host CPU), per device: {c['flops']:.4g} "
+              f"FLOPs, {c['bytes_accessed']:.4g} bytes accessed (unfused), "
+              f"{c['transcendentals']:.4g} transcendentals; collectives {kinds} "
+              f"({coll['count']} calls, {coll['total_bytes']:.4g} bytes); argument "
+              f"{m['argument_bytes'] / 2**30:.3f} GiB, output {m['output_bytes'] / 2**30:.3f} "
+              f"GiB, temp {m['temp_bytes'] / 2**30:.3f} GiB")
+    r = out["roofline"]
+    check(r["status"] == "ok", f"phase 10 (b): roofline {r}")
+    bound_s = max(r["compute_s"], r["memory_s"], r["collective_s"])
+    measured_s = base["ms"] / 1e3
+    print(f"phase 10 (b): H100 roofline of {r['arch']} at phase 9 (a)'s shape (seq "
+          f"{TRAIN_SEQ}, batch {TRAIN_BATCH}) on a (1, 1) mesh: compute "
+          f"{r['compute_s'] * 1e3:.1f} ms ({r['flops_per_device']:.4g} FLOPs at 989 TFLOP/s "
+          f"bf16), memory {r['memory_s'] * 1e3:.1f} ms ({r['bytes_per_device']:.4g} unfused "
+          f"bytes at 3.35 TB/s), collective {r['collective_s'] * 1e3:.3f} ms; dominant "
+          f"{r['dominant']}; roofline fraction {r['roofline_fraction']:.3f} (model FLOPs "
+          f"{r['model_flops_global']:.4g}, useful ratio {r['useful_flops_ratio']:.3f}); "
+          f"measured {base['ms']:.1f} ms a step in 9 (a): the bound is "
+          f"{bound_s / measured_s:.1%} of it")
+
+
+def phase10(dev, base):
+    """The mesh-aware trainer and the dry-run / roofline; every launch
+    counter is set to 0 before and must read 0 after."""
+    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels.block_copy import block_copy
+
+    counters = {**WRAPPERS, "block_copy": block_copy}
+    for w in counters.values():
+        w.launches = 0
+    proc = start_dryrun()
+    try:
+        t1 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
+            phase10a(dev, ckpt_dir, base)
+        torch.cuda.empty_cache()
+        print(f"phase 10 (a): {time.perf_counter() - t1:.1f} s wall")
+        t1 = time.perf_counter()
+        phase10b(proc, base)
+        print(f"phase 10 (b): {time.perf_counter() - t1:.1f} s wall after (a)")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    launched = {name: w.launches for name, w in counters.items()}
+    check(not any(launched.values()), f"phase 10 launched hand-written kernels: {launched}")
+    print("phase 10: 0 hand-written kernel launches")
 
 
 def main() -> int:
@@ -1886,12 +2075,13 @@ def main() -> int:
             print(f"phase 2b: {time.perf_counter() - t1:.1f} s wall")
             totals = {name: 0 for name in WRAPPERS}
             gloo = dist.new_group(ranks=[0], backend="gloo")
+            done = {}
             for k, run in ((3, lambda: phase3(dev, totals)), (4, lambda: phase4(dev, gloo)),
                            (5, lambda: phase5(dev, totals)), (6, lambda: phase6(dev, totals)),
                            (7, lambda: phase7(dev)), (8, lambda: phase8(dev)),
-                           (9, lambda: phase9(dev))):
+                           (9, lambda: phase9(dev)), (10, lambda: phase10(dev, done[9]))):
                 t1 = time.perf_counter()
-                run()
+                done[k] = run()
                 print(f"phase {k}: {time.perf_counter() - t1:.1f} s wall")
             for name, n in totals.items():
                 rows[name]["launches"] = n  # the fixture rows keep 0: on no main path

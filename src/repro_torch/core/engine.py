@@ -20,7 +20,8 @@ its disruption process is a stage of the tick.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -225,30 +226,40 @@ class LaminarEngine:
         lam = workload.lambda_per_tick(self.cfg, free_atoms)
         return state_from_numpy(d, self.device), lam
 
-    def draws(self, lam: float, num_zones: int, seed: int) -> TorchDraws:
-        """The default random-value provider: a generator on the device."""
-        return TorchDraws(self.cfg, lam, num_zones, seed=seed, device=self.device)
+    def config_for(self, scenario=None) -> LaminarConfig:
+        """``cfg`` running ``scenario`` (``None``: ``cfg.scenario``), as the
+        reference's ``run`` / ``run_batch`` build their step for it."""
+        if scenario is None or scenario == self.cfg.scenario:
+            return self.cfg
+        return dataclasses.replace(self.cfg, scenario=scenario)
+
+    def draws(self, lam: float, num_zones: int, seed: int, scenario=None) -> TorchDraws:
+        """The default random-value provider: a generator on the device,
+        drawing for ``scenario`` (``None``: ``cfg.scenario``)."""
+        return TorchDraws(self.config_for(scenario), lam, num_zones, seed=seed,
+                          device=self.device)
 
     def _plane(self, s: SimState):
         """The node-plane strategy of the tick (``None``: the flat path)."""
         return None
 
     def simulate(
-        self, s: SimState, draws, num_ticks: int
+        self, s: SimState, draws, num_ticks: int, scenario=None
     ) -> Tuple[SimState, torch.Tensor]:
         """Run ``num_ticks`` ticks from ``s``; ``draws.tick(t)`` gives each
         tick's random values. Returns the final state and the (T, 11) int32
         timeseries, both still on the device (nothing waits for it).
 
-        The scenario is ``cfg.scenario``; draws that record another one
-        (``TorchDraws.scenario``) are refused."""
-        made_for = getattr(draws, "scenario", self.cfg.scenario)
-        if made_for != self.cfg.scenario:
+        The scenario is ``scenario`` (``None``: ``cfg.scenario``); draws that
+        record another one (``TorchDraws.scenario``) are refused."""
+        cfg = self.config_for(scenario)
+        made_for = getattr(draws, "scenario", cfg.scenario)
+        if made_for != cfg.scenario:
             raise ValueError(
                 f"draws made for scenario {made_for.name!r}, engine runs "
-                f"{self.cfg.scenario.name!r}"
+                f"{cfg.scenario.name!r}"
             )
-        step = make_step(self.cfg, plane=self._plane(s))
+        step = make_step(cfg, plane=self._plane(s))
         rows = []
         for t in range(num_ticks):
             s, ts = step(s, draws.tick(t))
@@ -261,15 +272,17 @@ class LaminarEngine:
         self,
         seed: int = 0,
         num_ticks: int | None = None,
+        scenario=None,
         draws=None,
     ) -> Dict[str, Any]:
-        """One run: ``init`` + ``simulate`` + ``summarize``. ``draws``
-        overrides the default generator-backed provider."""
+        """One run: ``init`` + ``simulate`` + ``summarize``, under
+        ``scenario`` (``None``: ``cfg.scenario``). ``draws`` overrides the
+        default generator-backed provider."""
         s, lam = self.init(seed)
         if draws is None:
-            draws = self.draws(lam, s.zstart.shape[0], seed)
+            draws = self.draws(lam, s.zstart.shape[0], seed, scenario)
         nt = num_ticks if num_ticks is not None else self.cfg.num_ticks
-        final, ts = self.simulate(s, draws, nt)
+        final, ts = self.simulate(s, draws, nt, scenario)
         out = summarize(self.cfg, final, ts.cpu().numpy())
         out["lambda_per_s"] = lam / self.cfg.dt_ms * 1e3
         return out
@@ -278,8 +291,12 @@ class LaminarEngine:
         self,
         seeds: Sequence[int],
         num_ticks: int | None = None,
+        scenario=None,
+        draws: Optional[Sequence[Any]] = None,
     ) -> List[Dict[str, Any]]:
-        """One ``summarize()`` dict per seed.
+        """One ``summarize()`` dict per seed, under ``scenario`` (``None``:
+        ``cfg.scenario``). ``draws``: one provider per seed (default: each
+        seed's generator-backed provider).
 
         As in the JAX package, the cluster geometry comes from ``seeds[0]``
         and every seed brings its own randomness. The seeds run one after the
@@ -288,12 +305,15 @@ class LaminarEngine:
         seeds = [int(x) for x in seeds]
         if not seeds:
             raise ValueError("run_batch needs at least one seed")
+        if draws is not None and len(draws) != len(seeds):
+            raise ValueError(f"run_batch: {len(draws)} draws for {len(seeds)} seeds")
         s0, lam = self.init(seeds[0])
         nt = num_ticks if num_ticks is not None else self.cfg.num_ticks
         outs: List[Dict[str, Any]] = []
-        for sd in seeds:
-            draws = self.draws(lam, s0.zstart.shape[0], sd)
-            final, ts = self.simulate(s0, draws, nt)
+        for i, sd in enumerate(seeds):
+            d = draws[i] if draws is not None else self.draws(
+                lam, s0.zstart.shape[0], sd, scenario)
+            final, ts = self.simulate(s0, d, nt, scenario)
             out = summarize(self.cfg, final, ts.cpu().numpy())
             out["lambda_per_s"] = lam / self.cfg.dt_ms * 1e3
             out["seed"] = sd

@@ -458,11 +458,38 @@ def graph_ms(fn, reps=20, rounds=5) -> float:
     return float(np.median(out))
 
 
-def graph_nodes(fn) -> dict:
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` (cuda.h)."""
+
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _kernel_name(cu, node) -> str:
+    """The (mangled) function name of a kernel node: ``cuFuncGetName`` of
+    its function, or ``cuKernelGetName`` where the runtime launched a
+    library kernel."""
+    params = _KernelNodeParams()
+    if cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)) != 0:
+        raise RuntimeError("cuGraphKernelNodeGetParams failed")
+    name = ctypes.c_char_p()
+    if params.func and cu.cuFuncGetName(ctypes.byref(name),
+                                        ctypes.c_void_p(params.func)) == 0:
+        return name.value.decode()
+    if params.kern and cu.cuKernelGetName(ctypes.byref(name),
+                                          ctypes.c_void_p(params.kern)) == 0:
+        return name.value.decode()
+    raise RuntimeError("a kernel node without a function name")
+
+
+def graph_nodes(fn, kernel_names: list | None = None) -> dict:
     """The device work one call of ``fn`` enqueues: the call captured in a
     CUDA graph (``torch.cuda.graph``), its nodes counted by type through
     ``libcuda`` (``cuGraphGetNodes``): ``kernel``, ``memset``, ``memcpy``
-    and ``other``. Warms ``fn`` up first, outside the capture."""
+    and ``other``. Warms ``fn`` up first, outside the capture. Appends each
+    kernel node's function name to ``kernel_names`` when given."""
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
@@ -482,6 +509,8 @@ def graph_nodes(fn) -> dict:
         t = ctypes.c_int(-1)
         cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
         kinds[names.get(t.value, "other")] += 1
+        if kernel_names is not None and t.value == 0:
+            kernel_names.append(_kernel_name(cu, ctypes.c_void_p(node)))
     g.reset()
     return kinds
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import get, get_smoke
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
@@ -34,7 +35,12 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig = DEFAULT_OPT):
     metrics)``: the loss and its gradient, then AdamW written into
     ``params`` and ``opt_state`` in place (the reference's jit donates
     those buffers). ``metrics`` holds ``loss``, ``grad_norm``, ``lr`` and
-    ``moe_dropped_slots`` (tensors on the device)."""
+    ``moe_dropped_slots`` (tensors on the device).
+
+    Every step runs under ``implicit_replication``: with DTensor
+    parameters (a mesh), a plain tensor the model makes (positions, masks,
+    RoPE tables) counts as replicated; with plain parameters it does
+    nothing."""
 
     def _cast_once(p):
         if not cfg.cast_params_once:
@@ -46,14 +52,15 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig = DEFAULT_OPT):
         )
 
     def train_step(params, opt_state, batch):
-        with torch.enable_grad():
+        with torch.enable_grad(), implicit_replication():
             p = tree_map(lambda x: x.detach().requires_grad_(True), params)
             loss, aux = lm.loss_fn(cfg, _cast_once(p), batch)
             leaves = opt.sorted_leaves(p)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        by_leaf = {id(x): torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)}
-        grads = tree_map(lambda x: by_leaf[id(x)], p)
-        new_params, new_state, stats = opt.adamw_update_(ocfg, params, grads, opt_state)
+            by_leaf = {id(x): torch.zeros_like(x) if g is None else g
+                       for x, g in zip(leaves, grads)}
+            grads = tree_map(lambda x: by_leaf[id(x)], p)
+            new_params, new_state, stats = opt.adamw_update_(ocfg, params, grads, opt_state)
         metrics = {"loss": loss.detach(), **stats}
         if "moe_dropped_slots" in aux:
             metrics["moe_dropped_slots"] = aux["moe_dropped_slots"]
@@ -64,18 +71,20 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig = DEFAULT_OPT):
 
 def make_prefill_step(cfg: ArchConfig):
     def prefill_step(params, tokens, caches, extras):
-        return lm.prefill(
-            cfg, params, tokens, caches, extras.get("pos3"), extras.get("enc_embeds"),
-        )
+        with implicit_replication():
+            return lm.prefill(
+                cfg, params, tokens, caches, extras.get("pos3"), extras.get("enc_embeds"),
+            )
 
     return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig):
     def serve_step(params, token, index, caches, extras):
-        return lm.decode_step(
-            cfg, params, token, index, caches, extras.get("pos3"), extras.get("enc_embeds"),
-        )
+        with implicit_replication():
+            return lm.decode_step(
+                cfg, params, token, index, caches, extras.get("pos3"), extras.get("enc_embeds"),
+            )
 
     return serve_step
 

@@ -2,16 +2,27 @@
 
 A port of ``repro.launch.train``: selects any of the 10 assigned
 architectures (full or smoke-reduced), builds the data pipeline and the
-fault-tolerant trainer, and runs on one device: the CUDA card unless
-``--device cpu`` (without a card it raises). ``--smoke`` takes the reduced
-config. Prints ``arch=... steps=... first_loss=... final_loss=...``.
+fault-tolerant trainer, and runs: on the CUDA card unless ``--device cpu``
+(without a card it raises). ``--smoke`` takes the reduced config.
+
+``--mesh DxM`` trains on a ("data", "model") ``DeviceMesh`` of D x M ranks
+over the default process group: the one already open in this process, else
+the one ``torchrun`` describes (``torchrun --nproc-per-node N -m
+repro_torch.launch.train --mesh DxM ...``: NCCL, one card a rank; gloo
+with ``--device cpu``), else a one-rank group of its own (``--mesh 1x1``).
+Without ``--mesh`` it trains on one device. Prints ``arch=... steps=...
+first_loss=... final_loss=...`` (rank 0).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import tempfile
+
+import torch
+import torch.distributed as dist
 
 
 def main(argv=None):
@@ -26,16 +37,14 @@ def main(argv=None):
                                                        "repro_torch_train_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet: a device mesh needs parallel/sharding.py and "
-                         "launch/mesh.py (a later slice); the driver runs on one device")
+                    help='e.g. 2x4 ("data" x "model" ranks; default: one device)')
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("--mesh is not ported yet (parallel/sharding.py, launch/mesh.py)")
 
     from repro_torch.configs import get, get_smoke
     from repro_torch.core.engine import _resolve_device
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import data as data_mod
     from repro_torch.train import optimizer as opt
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -52,13 +61,42 @@ def main(argv=None):
         ),
     )
     pipeline = data_mod.make_pipeline(cfg.vocab, args.batch, args.seq, seed=0)
-    trainer = Trainer(cfg, tcfg, dev, pipeline)
-    out = trainer.run()
-    print(
-        f"arch={cfg.name} steps={out['steps']} "
-        f"first_loss={out['losses'][0]:.4f} final_loss={out['final_loss']:.4f}"
-    )
+    with _process_group(dev) if args.mesh else contextlib.nullcontext():
+        where = dev
+        if args.mesh:
+            shape = tuple(int(x) for x in args.mesh.split("x"))
+            where = make_mesh(shape, ("data", "model"), dev.type)
+        out = Trainer(cfg, tcfg, where, pipeline).run()
+        rank0 = not args.mesh or dist.get_rank() == 0
+    if rank0:
+        print(
+            f"arch={cfg.name} steps={out['steps']} "
+            f"first_loss={out['losses'][0]:.4f} final_loss={out['final_loss']:.4f}"
+        )
     return out
+
+
+@contextlib.contextmanager
+def _process_group(dev):
+    """The default process group: the one open in this process, else the
+    one ``torchrun`` describes (its environment), else a one-rank group in a
+    temporary directory. A group opened here is destroyed on exit."""
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        if "WORLD_SIZE" in os.environ:
+            if dev.type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models import common as cm
+from repro_torch.models import regions
 from repro_torch.models.common import ArchConfig, Params
 
 BLOCK_Q = 512
@@ -66,12 +67,11 @@ def init_attn_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     return p
 
 
-def _project_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor, xk: Optional[torch.Tensor] = None):
-    """Returns q (B,S,H,D), k/v (B,Sk,Hk,D). ``xk`` is the cross-attn source."""
-    B, S, _ = x.shape
+def _project(p: Params, cfg: ArchConfig, x: torch.Tensor, xk: Optional[torch.Tensor] = None):
+    """The q / k / v projections with their biases, heads still flat:
+    q (B, S, H*D), k / v (B, Sk, Hk*D). ``xk`` is the cross-attn source."""
     cd = cfg.compute_dtype
     src = x if xk is None else xk
-    Sk = src.shape[1]
     q = x @ p["wq"].to(cd)
     k = src @ p["wk"].to(cd)
     v = src @ p["wv"].to(cd)
@@ -79,9 +79,15 @@ def _project_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor, xk: Optional[torch
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
-    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = k.reshape(B, Sk, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(B, Sk, cfg.n_kv_heads, cfg.d_head)
+    return q, k, v
+
+
+def _split_heads(p: Params, cfg: ArchConfig, q, k, v):
+    """(B, S, h*D) -> (B, S, h, D), qk-normed; ``h`` is what the tensor
+    holds (all heads, or a rank's share in a local region)."""
+    q = q.reshape(*q.shape[:2], -1, cfg.d_head)
+    k = k.reshape(*k.shape[:2], -1, cfg.d_head)
+    v = v.reshape(*v.shape[:2], -1, cfg.d_head)
     if cfg.qk_norm:
         q = cm.rms_norm(p["q_norm"], q)
         k = cm.rms_norm(p["k_norm"], k)
@@ -236,11 +242,50 @@ def attend(
     xk: Optional[torch.Tensor] = None,  # cross-attention source (pre-projected x)
     rope: bool = True,
 ):
-    """Full attention op. Returns (out (B,S,d_model), updated cache)."""
-    B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, xk)
+    """Full attention op. Returns (out (B,S,d_model), updated cache).
 
-    if rope and xk is None:
+    Under a mesh (DTensor inputs) the projections are DTensor ops, and the
+    attention core between them is a local region (``models.regions``):
+    batch over the DP axes, heads over "model" where ``n_kv_heads`` divides
+    by its size (whole heads, the query heads of a KV head on its rank),
+    else replicated. A sequence-sharded cache is redistributed to the same
+    placements, written and attended locally, and handed back in the
+    placements it came in."""
+    q, k, v = _project(p, cfg, x, xk)
+    mesh = regions.mesh_of(q, k, v, cache.k if cache is not None else None)
+    if mesh is None:
+        out, new_cache = _attend_local(p, cfg, q, k, v, pos, kind, causal, cache, cache_at,
+                                       xk is not None, rope)
+        return out @ p["wo"].to(cfg.compute_dtype), new_cache
+
+    # batch dim 0, heads dim 2: of q / k / v (B, S, h*D) and of a cache (B, S, h, D)
+    B = q.shape[0]
+    where = regions.placements(mesh, B, 0, cfg.n_kv_heads, 2)
+    rep = regions.replicated(mesh)
+    q, k, v = (regions.local(t, mesh, where) for t in (q, k, v))
+    pos = regions.local(pos, mesh, regions.placements(mesh, B, pos.ndim - 2))
+    if cache is not None:
+        held = [getattr(t, "placements", rep) for t in cache]
+        cache = KVCache(regions.local(cache.k, mesh, where), regions.local(cache.v, mesh, where),
+                        regions.local(cache.pos, mesh, rep))
+    norms = {k: regions.param(p[k], mesh, where) for k in ("q_norm", "k_norm") if k in p}
+    out, new_cache = _attend_local(norms, cfg, q, k, v, pos, kind, causal, cache, cache_at,
+                                   xk is not None, rope)
+    out = regions.wrap(out, mesh, where)
+    if new_cache is not None:  # back in the placements the cache came in
+        new_cache = KVCache(*(regions.wrap(t, mesh, w).redistribute(mesh, back)
+                              for t, w, back in zip(new_cache, (where, where, rep), held)))
+    return out @ p["wo"].to(cfg.compute_dtype), new_cache
+
+
+def _attend_local(p, cfg, q, k, v, pos, kind, causal, cache, cache_at, cross, rope):
+    """The attention core on plain tensors: q / k / v with flat heads,
+    positions, the cache, and ``p``'s qk-norm scales; returns (out (B, S,
+    h*D), new cache)."""
+    q, k, v = _split_heads(p, cfg, q, k, v)
+    S = q.shape[1]
+
+    if rope and not cross:
         if cfg.mrope_sections is not None:
             q = cm.apply_mrope(q, pos, cfg.rope_theta, cfg.mrope_sections)
             k = cm.apply_mrope(k, pos, cfg.rope_theta, cfg.mrope_sections)
@@ -266,7 +311,7 @@ def attend(
             tail_k = k[:, -S_cache:].to(cache.k.dtype)
             tail_v = v[:, -S_cache:].to(cache.v.dtype)
             tail_pos = (at + S - S_cache) + torch.arange(S_cache, dtype=torch.int32,
-                                                         device=x.device)
+                                                         device=q.device)
             shift = (at + S - S_cache) % S_cache
             new_cache = KVCache(
                 torch.roll(tail_k, shift, dims=1),
@@ -285,15 +330,13 @@ def attend(
             k_all[:, write_at:write_at + S] = k.to(cache.k.dtype)
             v_all[:, write_at:write_at + S] = v.to(cache.v.dtype)
             pos_new[write_at:write_at + S] = at + torch.arange(S, dtype=torch.int32,
-                                                               device=x.device)
+                                                               device=q.device)
             out = dot_attention(cfg, q, k_all, v_all, q_pos1, pos_new, causal, window)
             new_cache = KVCache(k_all, v_all, pos_new)
     else:
         k_pos = pos[0] if pos.ndim == 2 else pos[0, 0]
-        if xk is not None:
-            k_pos = torch.arange(xk.shape[1], dtype=torch.int32, device=x.device)
+        if cross:
+            k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
         out = dot_attention(cfg, q, k, v, q_pos1, k_pos, causal, window)
         new_cache = None
-
-    out = out @ p["wo"].to(cfg.compute_dtype)
     return out, new_cache

@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, mlp, moe, rglru, ssd
 from repro_torch.models import common as cm
+from repro_torch.models import regions
 from repro_torch.models.common import ArchConfig, Params
 
 ATTENTION_KINDS = ("global", "local")
@@ -97,18 +98,19 @@ def _block(p, cfg, kind, x, xs, pos, cache, cache_at, enc_out, aux, causal):
     round trip between the add and the norm's float32 cast inside a group).
     Returns (x, xs, new_cache)."""
     _check_kind(kind)
+    x = regions.constrain(x)  # a group's (or the encoder's) input; xs is pinned below
     h = cm.rms_norm(p["ln1"], x if xs is None else xs, dtype=x.dtype)
     if kind in ATTENTION_KINDS:
         out, new_cache = attention.attend(
             p["mixer"], cfg, h, pos, kind, causal=causal, cache=cache, cache_at=cache_at,
         )
     elif kind == "recurrent":
-        out, new_cache = rglru.rglru_block(p["mixer"], cfg, h, cache)
+        out, new_cache = regions.batch_local(rglru.rglru_block, p["mixer"], cfg, h, cache)
     else:
-        out, new_cache = ssd.ssd_block(p["mixer"], cfg, h, cache)
+        out, new_cache = regions.batch_local(ssd.ssd_block, p["mixer"], cfg, h, cache)
     if cfg.post_norm:
         out = cm.rms_norm(p["ln1b"], out)
-    xs = x.float() + out.float()
+    xs = regions.constrain(x.float() + regions.constrain(out).float())
     x = xs.to(x.dtype)
 
     if cfg.cross_attention and enc_out is not None and kind in ATTENTION_KINDS:
@@ -116,7 +118,7 @@ def _block(p, cfg, kind, x, xs, pos, cache, cache_at, enc_out, aux, causal):
         xo, _ = attention.attend(
             p["xattn"], cfg, hx, pos, "global", causal=False, xk=enc_out, rope=False,
         )
-        xs = x.float() + xo.float()
+        xs = regions.constrain(x.float() + regions.constrain(xo).float())
         x = xs.to(x.dtype)
 
     if "ffn" in p:
@@ -129,7 +131,7 @@ def _block(p, cfg, kind, x, xs, pos, cache, cache_at, enc_out, aux, causal):
             f = mlp.mlp(p["ffn"], cfg, h2)
         if cfg.post_norm:
             f = cm.rms_norm(p["ln2b"], f)
-        xs = x.float() + f.float()
+        xs = regions.constrain(x.float() + regions.constrain(f).float())
         x = xs.to(x.dtype)
     return x, xs, new_cache
 

@@ -259,9 +259,8 @@ def apply_mrope(
     half = x.shape[-1] // 2
     assert sum(sections) == half, (sections, half)
     freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device), torch.tensor(sections, device=x.device)
-    )
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=x.device)  # (half,) section of each channel
     pos = torch.movedim(pos3[sec_id], 0, -1)  # (..., S, half)
     ang = pos.float() * freqs
     return _rotate(x, ang)

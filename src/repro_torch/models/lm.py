@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.engine import _resolve_device
 from repro_torch.models import blocks
 from repro_torch.models import common as cm
+from repro_torch.models import regions
 from repro_torch.models.common import ArchConfig, Params
 
 
@@ -80,14 +81,26 @@ def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
 
 
 def _embed(cfg: ArchConfig, p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["embed"][tokens.long()].to(cfg.compute_dtype)
+    """The token embeddings. Under a mesh the lookup is a local region
+    (each rank's tokens into the whole table, its gradient partial over the
+    DP axes): the same gather and scatter-add as on one device, where
+    DTensor's own ``index_put`` strategy for the backward fails."""
+    table = p["embed"]
+    mesh = regions.mesh_of(table, tokens)
+    if mesh is None:
+        x = table[tokens.long()]
+    else:
+        where = regions.placements(mesh, tokens.shape[0], 0)
+        rows = regions.param(table, mesh, where)[regions.local(tokens, mesh, where).long()]
+        x = regions.constrain(regions.wrap(rows, mesh, where))
+    x = x.to(cfg.compute_dtype)
     if cfg.tie_embeddings:  # gemma-style scaled embeddings, the scale in compute dtype
         x = x * cm.scalar(cfg.d_model**0.5, cfg.compute_dtype)
     return x
 
 
 def _head(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    x = cm.rms_norm(p["ln_f"], x)
+    x = cm.rms_norm(p["ln_f"], regions.constrain(x))
     if cfg.tie_embeddings:
         logits = x @ p["embed"].to(cfg.compute_dtype).T
     else:

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import common as cm
+from repro_torch.models import regions
 from repro_torch.models.common import ArchConfig, Params
 
 
@@ -38,7 +39,7 @@ def mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
         g = x @ p["w_gate"].to(cd)
         u = x @ p["w_up"].to(cd)
         act = cm.silu(g) if cfg.act == "swiglu" else cm.gelu(g)
-        return (act * u) @ p["w_down"].to(cd)
+        return regions.constrain(act * u, 0, -1) @ p["w_down"].to(cd)
     h = x @ p["w_up"].to(cd) + p["b_up"].to(cd)
     h = cm.gelu(h)
-    return h @ p["w_down"].to(cd) + p["b_down"].to(cd)
+    return regions.constrain(h, 0, -1) @ p["w_down"].to(cd) + p["b_down"].to(cd)

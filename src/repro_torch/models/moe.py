@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import floatops
 from repro_torch.models import common as cm
+from repro_torch.models import regions
 from repro_torch.models.common import ArchConfig, MoEConfig, Params
 
 
@@ -133,15 +134,27 @@ def route(p: Params, cfg: ArchConfig, xt: torch.Tensor):
 
 
 def moe_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor):
-    """x: (B, S, d) -> (B, S, d); returns (out, aux) with load-balance stats."""
+    """x: (B, S, d) -> (B, S, d); returns (out, aux) with load-balance stats.
+
+    Under a mesh (a DTensor ``x``) the routing, the dispatch into the
+    buffers and the combine are a local region on every rank's copy of all
+    B * S tokens (the capacity is the whole batch's, as the reference's);
+    the expert FFN between them stays DTensor ops on the sharded weights,
+    and the output goes back to batch over the DP axes."""
     assert cfg.moe is not None
     mc = cfg.moe
     cd = cfg.compute_dtype
     B, S, d = x.shape
     T = B * S
+    mesh = regions.mesh_of(x)
+    router = p["router"]
+    if mesh is not None:
+        rep = regions.replicated(mesh)
+        x = regions.local(x, mesh, rep)
+        router = regions.param(router, mesh, rep)
     xt = x.reshape(T, d)
     E = mc.num_experts
-    picks, C, probs, granted = route(p, cfg, xt)
+    picks, C, probs, granted = route({"router": router}, cfg, xt)
 
     # ---- dispatch: tokens into (E, C, d) buffers; a dropped token goes to
     # the spare row E * C, which is cut off
@@ -151,12 +164,17 @@ def moe_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor):
         idx = torch.where(pk.kept, pk.expert * C + torch.clamp(pk.pos, max=C - 1), E * C)
         buf.index_add_(0, idx, xc)
     buf = buf[: E * C].reshape(E, C, d)
+    if mesh is not None:
+        buf = regions.wrap(buf, mesh, rep)
 
     # ---- expert FFN (batched over experts) --------------------------------
     g = torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(cd))
     u = torch.einsum("ecd,edf->ecf", buf, p["w_up"].to(cd))
     h = cm.silu(g) * u
-    y = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(cd)).reshape(E * C, d)
+    y = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(cd))
+    if mesh is not None:  # gathered before the flatten, which DTensor cannot split
+        y = regions.local(y, mesh, rep)
+    y = y.reshape(E * C, d)
 
     # ---- combine: weighted gather back ------------------------------------
     out = torch.zeros((T, d), dtype=cd, device=x.device)
@@ -174,4 +192,7 @@ def moe_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor):
         "moe_dropped_slots": dropped,
         "moe_load": torch.sum(F.one_hot(torch.argmax(probs, -1), E).float(), dim=0),
     }
-    return out.reshape(B, S, d), aux
+    out = out.reshape(B, S, d)
+    if mesh is not None:
+        out = regions.wrap(out, mesh, rep).redistribute(mesh, regions.placements(mesh, B, 0))
+    return out, aux

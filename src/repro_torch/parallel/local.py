@@ -9,7 +9,8 @@ not collide): NCCL on CUDA (the default) with rank ``r`` on ``cuda:r``, gloo
 with one intra-op thread per rank when the caller asks for the CPU.
 Every rank runs ``ZoneShardedEngine.run`` with the same arguments and writes
 its ``summarize()`` dict; :func:`run_local` returns all of them, in rank
-order. They are equal when the ranks stayed replicas.
+order. They are equal when the ranks stayed replicas. :func:`spawn_ranks`
+is the same harness for any function (the mesh-aware trainer's tests).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from repro_torch.workloads.scenario import SCENARIOS
 TIMEOUT_S = 900.0  # a run still going after this is killed
 
 
-def _rank_main(rank, world, tmp, cfg, seed, num_ticks, draws, device):
+def _rank_main(rank, world, tmp, device, fn, args):
     if device == "cuda":
         torch.cuda.set_device(rank)
         dev, backend = f"cuda:{rank}", "nccl"
@@ -43,44 +44,31 @@ def _rank_main(rank, world, tmp, cfg, seed, num_ticks, draws, device):
     store = dist.FileStore(os.path.join(tmp, "store"), world)
     dist.init_process_group(backend, store=store, rank=rank, world_size=world)
     try:
-        from repro_torch.parallel.engine_mesh import ZoneShardedEngine
-
-        eng = ZoneShardedEngine(cfg, num_devices=world, device=dev)
-        if draws is not None:
-            draws = ArrayDraws(draws.arrays, dev)
-        out = eng.run(seed=seed, num_ticks=num_ticks, draws=draws)
+        out = fn(dev, *args)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def run_local(
-    cfg: LaminarConfig,
-    num_ranks: int,
-    seed: int = 0,
-    num_ticks: int | None = None,
-    draws: ArrayDraws | None = None,
-    device: str = "cuda",
-) -> List[Dict[str, Any]]:
-    """Run the sharded engine on ``num_ranks`` local processes.
-
-    ``device`` defaults to ``"cuda"`` (one card per rank) and raises without
-    CUDA, unless the caller asks for ``"cpu"`` (gloo, the plain versions).
-    ``draws``: recorded draws for every rank (default: each rank's
-    ``TorchDraws`` from ``seed``). Raises if a rank fails or the run
-    outlasts ``TIMEOUT_S``."""
+def spawn_ranks(fn, num_ranks: int, args=(), device: str = "cuda") -> List[Any]:
+    """``fn(device, *args)`` on ``num_ranks`` local processes, each a rank of
+    one process group (destroyed when ``fn`` returns); returns every rank's
+    result (picklable), in rank order. ``fn`` must be importable by name.
+    ``device`` defaults to ``"cuda"`` (rank ``r`` on ``cuda:r``, NCCL) and
+    raises without CUDA, unless the caller asks for ``"cpu"`` (gloo).
+    Raises if a rank fails or the ranks outlast ``TIMEOUT_S``."""
     if device not in ("cpu", "cuda"):
         raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "run_local: CUDA is not available; pass device='cpu' to run the ranks "
+            "spawn_ranks: CUDA is not available; pass device='cpu' to run the ranks "
             "on the CPU under gloo"
         )
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.start_processes(
             _rank_main,
-            args=(num_ranks, tmp, cfg, seed, num_ticks, draws, device),
+            args=(num_ranks, tmp, device, fn, tuple(args)),
             nprocs=num_ranks,
             join=False,
             start_method="spawn",
@@ -91,12 +79,42 @@ def run_local(
                 for p in ctx.processes:
                     p.kill()
                     p.join(10.0)
-                raise TimeoutError(f"run_local: ranks still running after {TIMEOUT_S} s")
+                raise TimeoutError(f"spawn_ranks: ranks still running after {TIMEOUT_S} s")
         outs = []
         for r in range(num_ranks):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 outs.append(pickle.load(f))
     return outs
+
+
+def _engine_rank(dev, cfg, world, seed, num_ticks, draws, scenario):
+    from repro_torch.parallel.engine_mesh import ZoneShardedEngine
+
+    eng = ZoneShardedEngine(cfg, num_devices=world, device=dev)
+    if draws is not None:
+        draws = ArrayDraws(draws.arrays, dev)
+    return eng.run(seed=seed, num_ticks=num_ticks, scenario=scenario, draws=draws)
+
+
+def run_local(
+    cfg: LaminarConfig,
+    num_ranks: int,
+    seed: int = 0,
+    num_ticks: int | None = None,
+    draws: ArrayDraws | None = None,
+    device: str = "cuda",
+    scenario=None,
+) -> List[Dict[str, Any]]:
+    """Run the sharded engine on ``num_ranks`` local processes.
+
+    ``device`` defaults to ``"cuda"`` (one card per rank) and raises without
+    CUDA, unless the caller asks for ``"cpu"`` (gloo, the plain versions).
+    ``draws``: recorded draws for every rank (default: each rank's
+    ``TorchDraws`` from ``seed``). ``scenario``: the scenario run (default
+    ``cfg.scenario``). Raises if a rank fails or the run outlasts
+    ``TIMEOUT_S``."""
+    return spawn_ranks(_engine_rank, num_ranks,
+                       (cfg, num_ranks, seed, num_ticks, draws, scenario), device)
 
 
 def main(argv=None) -> int:

@@ -107,9 +107,11 @@ def lr_table(cfg: OptConfig, device: torch.device) -> torch.Tensor:
 
 
 def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
-    """Warmup then cosine: the entry of :func:`lr_table` at ``step`` (one
-    gather on the step's device, no host sync)."""
-    return lr_table(cfg, step.device)[torch.clamp(step, 0, cfg.total_steps).long()]
+    """Warmup then cosine: the entries of :func:`lr_table` at ``step`` (one
+    gather on the step's device, no host sync; ``index_select``, as a 0-d
+    index into a DTensor step would be read on the host)."""
+    idx = torch.clamp(step, 0, cfg.total_steps).long()
+    return torch.index_select(lr_table(cfg, step.device), 0, idx.reshape(-1)).reshape(idx.shape)
 
 
 def compress_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -368,19 +368,16 @@ def test_survival_scan_matches_plain(dev, airlock, case):
 
 
 def test_survival_scan_is_one_device_kernel(dev):
-    """A call is one launch of one cluster (torch.profiler sees one kernel)."""
-    from torch.profiler import ProfilerActivity, profile
+    """A call captured in a CUDA graph is one kernel node, the survival
+    scan's (its function name through ``cuFuncGetName``), and nothing else."""
+    from repro_torch.kernel_bench import graph_nodes
 
     args = [a.to(dev) for a in _survival_args(3, 65536, 5000)]
     kw = dict(airlock=True, residual=0.3, watermark=0.9, safe=0.8, t_susp=80, t_surv=240)
-    survival_scan.survival_scan(*args, **kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        survival_scan.survival_scan(*args, **kw)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [n for n in names if "survival" in n]
-    assert len(kernels) == 1, names
+    names = []
+    nodes = graph_nodes(lambda: survival_scan.survival_scan(*args, **kw), names)
+    assert nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0}, nodes
+    assert len(names) == 1 and "survival_scan" in names[0], names
 
 
 def test_wrapper_raises_on_wrong_dtype(dev):

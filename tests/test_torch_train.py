@@ -445,8 +445,10 @@ def test_train_driver_smoke_on_cpu(tmp_path):
     line = buf.getvalue().strip().splitlines()[-1]
     assert line.startswith("arch=mamba2-130m steps=4 first_loss=") and "final_loss=" in line
     assert out["steps"] == 4
-    with pytest.raises(SystemExit):
+    # --mesh is ported: a 2 x 1 mesh needs two ranks, and this process opens one
+    with pytest.raises(ValueError, match="needs 2 devices, the process group has 1"):
         ttrain.main(["--arch", "qwen3-1.7b", "--mesh", "2x1", "--device", "cpu"])
+    assert not torch.distributed.is_initialized()  # the driver closed its group
 
 
 def test_train_driver_defaults_to_cuda():
