@@ -141,13 +141,30 @@ and no result line:
      FLOPs, bytes and collective bytes by kind) and the H100 roofline at 9
      (a)'s shape on a (1, 1) mesh beside 9 (a)'s measured ms a step; every
      launch counter reads 0 after it;
-  11. print the kernel table as JSON, the card's name and power limit, and
+  11. the lockstep engine (``LaminarEngine.init_batch`` / ``run_batch``:
+     the flat tick under ``torch.func.vmap``, each hot-path kernel one
+     launch of its batched entry for all seeds): (a) Exp5 at 5000 nodes /
+     65 536 slots, Airlock on, seeds 0 to 3, 200 ticks: the lockstep run on
+     the card equals the four sequential runs on the card (every integer
+     metric and timeseries, seed by seed, from the same ``init_batch`` slice
+     and generators), each batched entry launched once a tick (the
+     unbatched ones never), 0 host syncs in the ticks; (b) the lockstep run
+     on the card equals the lockstep run on the CPU at phase 4's 64-node
+     geometry on one CPU generator's draws; (c) each batched entry on the
+     inputs of the lockstep tick 200 (four seeds' states and draws) against
+     its plain version seed by seed, with phase 2's exactness, its device
+     ms beside the bound (the seeds' bytes), under its plan in guard bands
+     as phase 2b, and the clusters the card holds at once; (d) seed-ticks/s
+     of lockstep B = 1, 4, 8 and of sequential B = 4, and one profiled
+     batched tick at B = 8 (aten ops, device kernels, device busy, host ms);
+  12. print the kernel table as JSON, the card's name and power limit, and
      last the result line.
 
 Every launch counter is set to 0 just before each run of phases 3, 5, 6, 7,
-8, 9 and 10 and read just after; the table's ``launches`` sums the runs of
-phases 3, 5 and 6 (0 for the three fixture rows, whose ``smoke_launches``
-counts phase 2b's own).
+8, 9, 10 and 11 and read just after; the table's ``launches`` sums the runs
+of phases 3, 5 and 6 and, for the batched entries, phase 11 (a)'s lockstep
+run (0 for the three fixture rows, whose ``smoke_launches`` counts phase
+2b's own).
 """
 
 from __future__ import annotations
@@ -177,7 +194,8 @@ TICKS = 800
 PARITY_TICKS = 400
 SCENARIO_TICKS = 200  # phase 4's scenario presets
 EXP7_TICKS = 100  # bench_exp7_scale.py NUM_TICKS
-STORM_TICKS = 2400
+# phase 6's horizon, cut from 2400 ticks (Exp6's) when phase 11 came
+STORM_TICKS = 1200
 # phase 7: the baselines at Exp1's geometry (benchmarks/bench_exp1_mixed_load.py
 # runs them at capacity 1 << 15 for 60 000 ticks; bench_exp1b_scale_contrast.py
 # runs slurm at 1 << 17), cut to BASELINE_TICKS, and CPU against CUDA
@@ -204,7 +222,14 @@ SOURCES["utility_topk_address"] = "src/repro_torch/csrc/utility_topk.cu"  # same
 SOURCES["zone_aggregate_members"] = "src/repro_torch/csrc/zone_aggregate.cu"  # same kernel
 # the entries whose outputs must equal the plain version's bit for bit, the
 # floats included (the others' float outputs: rtol 1e-5)
-EXACT = ("survival_scan", "utility_topk_address")
+EXACT = ("survival_scan", "utility_topk_address", "survival_scan_batched",
+         "utility_topk_address_batched")
+# phase 11: the lockstep engine at Exp5 (benchmarks/common.py run_seeds runs
+# four seeds a batch)
+BATCH_SEEDS = [0, 1, 2, 3]
+BATCH_TICKS = 200
+BATCH_SIZES = (1, 4, 8)  # (d): lockstep seed-ticks/s
+BATCH_WARMUP, BATCH_TIMED = 50, 100  # (d): ticks before and in the timed window
 
 
 class SmokeFailure(Exception):
@@ -408,11 +433,21 @@ def blocked_case(member, mask, W, seed):
     return args, {}, R * (4 * W + 4 + 1 + 4), R * (40 + 10 * W)
 
 
+def survival_work(args):
+    """(bytes, operations) of survival_scan, fixed by its shapes: the eight
+    columns, base and the tick read once, pressure and the four masks
+    written once; about forty operations a slot and ten a node."""
+    P, N = args[0].shape[0], args[8].shape[0]
+    return P * (7 * 4 + 1) + N * 4 + 4 + N * 4 + 4 * P, P * 40 + N * 10
+
+
 def work(name, case, want):
     """(bytes, operations) a kernel entry must move and do on a case: from
     the case where its shapes fix them, else from the data."""
     if case[2] is not None:
         return case[2:4]
+    if name == "survival_scan":
+        return survival_work(case[0])
     if name == "bitmap_fit_rounds":
         return rounds_work(case[0], case[1], want)
     if name == "bitmap_fit_rounds_blocked":
@@ -727,12 +762,43 @@ def load_fixture_plans():
     return mod.PLANS
 
 
+def guard_bands(dev, label, per):
+    """Each entry of ``per`` (name -> (case, the plain version's outputs))
+    launched through its launch function and plan into outputs (and
+    scratch) that sit in sentinel-filled buffers with guard bands: every
+    output fully written (LC301 on the card), no band touched (LC302), equal
+    to the plain version. A batched plan's outputs each have a band of
+    their own."""
+    from repro_torch.kernels import LAUNCHERS, PLANS
+
+    for name, (case, want) in per.items():
+        args, kw = to_dev(case[0], dev), case[1]
+        plan = PLANS[name](*args, **kw)
+        views = [guarded(o.shape, o.dtype, dev) for o in plan.outputs]
+        extra = {}
+        if plan.scratch_words:  # survival_scan and the rounds
+            scratch, sbuf = guarded((plan.scratch_words,), torch.int32, dev)
+            extra["scratch"] = scratch
+        LAUNCHERS[name](plan, [v for v, _ in views], *args, **kw, **extra)
+        torch.cuda.synchronize()
+        for (v, buf), o in zip(views, plan.outputs):
+            left, touched = sentinel_hits(buf, o.dtype)
+            check(left == 0, f"[{label}] {name} {o.name}: {left} elements never written "
+                             "(LC301 on the card)")
+            check(touched == 0, f"[{label}] {name} {o.name}: {touched} guard-band elements "
+                                "written (LC302 on the card)")
+        if plan.scratch_words:
+            check(sentinel_hits(sbuf, torch.int32)[1] == 0,
+                  f"[{label}] {name} wrote outside its scratch (LC302 on the card)")
+        compare(name, [v.cpu() for v, _ in views], want)
+
+
 def phase2b(dev, checked):
     """Attributes against plans, guard bands around every entry's outputs,
     and the block_copy kernel under the good plan and the three bad ones.
     Returns the table rows of the three fixture kernels."""
     from repro_torch.analysis.kernel_contract import PER_BLOCK, audit_launch_plan
-    from repro_torch.kernels import LAUNCHERS, PLANS, _build
+    from repro_torch.kernels import PLANS, _build
     from repro_torch.kernels.bitmap_fit import ops as bitmap_ops
     from repro_torch.kernels.bitmap_fit import plan as bitmap_plan
     from repro_torch.kernels.block_copy import block_copy, block_copy_ref
@@ -842,26 +908,7 @@ def phase2b(dev, checked):
 
     # -- guard bands around every entry's outputs -----------------------------
     for label, per in checked.items():
-        for name, (case, want) in per.items():
-            args, kw = to_dev(case[0], dev), case[1]
-            plan = PLANS[name](*args, **kw)
-            views = [guarded(o.shape, o.dtype, dev) for o in plan.outputs]
-            extra = {}
-            if plan.scratch_words:  # survival_scan and the rounds
-                scratch, sbuf = guarded((plan.scratch_words,), torch.int32, dev)
-                extra["scratch"] = scratch
-            LAUNCHERS[name](plan, [v for v, _ in views], *args, **kw, **extra)
-            torch.cuda.synchronize()
-            for (v, buf), o in zip(views, plan.outputs):
-                left, touched = sentinel_hits(buf, o.dtype)
-                check(left == 0, f"[{label}] {name} {o.name}: {left} elements never written "
-                                 "(LC301 on the card)")
-                check(touched == 0, f"[{label}] {name} {o.name}: {touched} guard-band elements "
-                                    "written (LC302 on the card)")
-            if plan.scratch_words:
-                check(sentinel_hits(sbuf, torch.int32)[1] == 0,
-                      f"[{label}] {name} wrote outside its scratch (LC302 on the card)")
-            compare(name, [v.cpu() for v, _ in views], want)
+        guard_bands(dev, label, per)
         print(f"phase 2b [{label}]: every entry's outputs fully written, guard bands "
               f"untouched, equal to the plain versions")
 
@@ -948,11 +995,10 @@ def conservation(out):
     return out["started"] == accounted and out["arrived"] >= out["started"]
 
 
-def drive(eng, s, draws, ticks):
-    """One main-path run: counters set to 0 just before, read just after.
-    Returns (summary, launches, host syncs inside the ticks, ticks/s,
-    all_gather calls)."""
-    from repro_torch.core.engine import summarize
+def counted(run):
+    """``run()`` as one main-path run: every launch counter set to 0 just
+    before, read just after. Returns (its result, launches, host syncs
+    inside it, seconds to its end on the device, all_gather calls)."""
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels.block_copy import block_copy
     from repro_torch.profile_tick import counting_gathers
@@ -965,7 +1011,7 @@ def drive(eng, s, draws, ticks):
         torch.cuda.set_sync_debug_mode("warn")
         t0 = time.perf_counter()
         try:
-            final, ts = eng.simulate(s, draws, ticks)
+            result = run()
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -975,9 +1021,19 @@ def drive(eng, s, draws, ticks):
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     for w in syncs[:3]:
         print(f"  sync: {w.message} ({w.filename}:{w.lineno})")
+    return result, launches, len(syncs), wall, len(gathers)
+
+
+def drive(eng, s, draws, ticks):
+    """One main-path run: counters set to 0 just before, read just after.
+    Returns (summary, launches, host syncs inside the ticks, ticks/s,
+    all_gather calls)."""
+    from repro_torch.core.engine import summarize
+
+    (final, ts), launches, syncs, wall, gathers = counted(lambda: eng.simulate(s, draws, ticks))
     check(ts.shape == (ticks, 11), f"timeseries shape {tuple(ts.shape)}")
     out = summarize(eng.cfg, final, ts.cpu().numpy())
-    return out, launches, len(syncs), ticks / wall, len(gathers)
+    return out, launches, syncs, ticks / wall, gathers
 
 
 def want_launches(cfg, ticks, sharded):
@@ -986,11 +1042,14 @@ def want_launches(cfg, ticks, sharded):
     bitmap_fit_blocked on none. Both ticks address with one
     utility_topk_address and refresh with one zone_aggregate_members; the
     tile entries utility_topk and zone_aggregate run on none."""
+    from repro_torch.kernels import BATCHED
+
     return {"bitmap_fit": 0, "bitmap_fit_blocked": 0,
             "bitmap_fit_rounds": 0 if sharded else ticks,
             "bitmap_fit_rounds_blocked": ticks if sharded else 0, "utility_topk": 0,
             "utility_topk_address": ticks, "zone_aggregate": 0, "zone_aggregate_members": ticks,
-            "survival_scan": ticks if cfg.memory.enabled else 0}
+            "survival_scan": ticks if cfg.memory.enabled else 0,
+            **dict.fromkeys(BATCHED.values(), 0)}
 
 
 # the sharded tick's all_gathers: s_true, run_true, the rounds, zS, zH
@@ -2024,6 +2083,238 @@ def phase10(dev, base):
     print("phase 10: 0 hand-written kernel launches")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the lockstep engine (run_batch), one batched launch a tick
+# ---------------------------------------------------------------------------
+
+
+def int_differences(a, b):
+    """The integer metrics and timeseries on which two summaries differ."""
+    diff = [k for k, v in a.items() if isinstance(v, int) and v != b[k]]
+    diff += [f for f in a["timeseries"]
+             if not np.array_equal(a["timeseries"][f], b["timeseries"][f])]
+    if not np.array_equal(a["lat_hist"], b["lat_hist"]):
+        diff.append("lat_hist")
+    return diff
+
+
+def lockstep(eng, seeds, generator_device=None):
+    """``init_batch`` of ``seeds`` and their draws (each seed its own
+    generator, on ``generator_device`` if given): (state, draws, lam)."""
+    from repro_torch.core.draws import BatchDraws, TorchDraws
+
+    sb, lam = eng.init_batch(seeds)
+    Z = sb.zstart.shape[1]
+    draws = BatchDraws([TorchDraws(eng.cfg, lam, Z, seed=sd, device=eng.device,
+                                   generator_device=generator_device) for sd in seeds])
+    return sb, draws, lam
+
+
+def phase11a(dev, totals):
+    """Lockstep against sequential on the card, the launches and syncs;
+    returns (the lockstep launches, lockstep and sequential seed-ticks/s)."""
+    from repro_torch.core.engine import LaminarEngine, seed_state
+    from repro_torch.kernels import BATCHED
+    from repro_torch.profile_tick import exp5_config
+
+    cfg = exp5_config(True, full=True, ticks=BATCH_TICKS)
+    eng = LaminarEngine(cfg, device=dev)
+    B, T = len(BATCH_SEEDS), BATCH_TICKS
+    sb, draws, lam = lockstep(eng, BATCH_SEEDS)
+    (final, ts), launches, syncs, wall, _ = counted(lambda: eng.simulate_batch(sb, draws, T))
+    check(ts.shape == (B, T, 11), f"[lockstep] timeseries shape {tuple(ts.shape)}")
+    want = {name: 0 for name in launches}
+    want.update(dict.fromkeys(BATCHED.values(), T))
+    check(launches == want, f"[lockstep] launch counts {launches} != {want}")
+    check(syncs == 0, f"[lockstep] {syncs} host syncs inside the ticks")
+    add(totals, launches)
+    ts = ts.cpu().numpy()
+    outs = [eng._summary(seed_state(final, i), ts[i], lam, sd) for i, sd in enumerate(BATCH_SEEDS)]
+    for out in outs:
+        check_run(f"lockstep seed {out['seed']}", out, launches, want, syncs)
+        check(out["suspended_cnt"] > 0, f"[lockstep seed {out['seed']}] Airlock did not act")
+    # each seed alone, from the same init_batch slice and generator
+    sb0, _ = eng.init_batch(BATCH_SEEDS)
+    seq_wall = 0.0
+    for i, sd in enumerate(BATCH_SEEDS):
+        draws = eng.draws(lam, sb0.zstart.shape[1], sd)
+        (f, t_i), l_i, sy_i, w_i, _ = counted(
+            lambda: eng.simulate(seed_state(sb0, i), draws, T))
+        seq_wall += w_i
+        check(sy_i == 0 and l_i["survival_scan"] == T
+              and all(l_i[name] == 0 for name in BATCHED.values()),
+              f"[sequential seed {sd}] launches {l_i}, {sy_i} syncs")
+        seq = eng._summary(f, t_i.cpu().numpy(), lam, sd)
+        diff = int_differences(seq, outs[i])
+        check(not diff, f"[seed {sd}] lockstep and sequential differ in {diff}")
+    lock_tps, seq_tps = B * T / wall, B * T / seq_wall
+    print(f"phase 11 (a): Exp5 at {cfg.num_nodes} nodes / {cfg.probe_capacity} slots, Airlock "
+          f"on, seeds {BATCH_SEEDS}, {T} ticks: lockstep == sequential on the card on every "
+          f"integer metric, lat_hist and timeseries, seed by seed (started "
+          f"{[o['started'] for o in outs]}, suspended {[o['suspended_cnt'] for o in outs]}); "
+          f"lockstep launches {dict((k, v) for k, v in launches.items() if v)} (each batched "
+          f"entry once a tick, no unbatched entry), {syncs} host syncs in the ticks; "
+          f"from init: {lock_tps:.1f} seed-ticks/s lockstep, {seq_tps:.1f} sequential")
+    return launches
+
+
+def phase11b(dev):
+    """The lockstep run on the card against the CPU's at phase 4's geometry,
+    on one CPU generator's draws."""
+    from repro_torch.core.engine import LaminarEngine, seed_state
+    from repro_torch.profile_tick import exp5_config
+
+    cfg = exp5_config(True, full=False, ticks=BATCH_TICKS)
+    outs = []
+    for device in ("cpu", dev):
+        eng = LaminarEngine(cfg, device=device)
+        sb, draws, lam = lockstep(eng, BATCH_SEEDS, generator_device="cpu")
+        final, ts = eng.simulate_batch(sb, draws, BATCH_TICKS)
+        ts = ts.cpu().numpy()
+        outs.append([eng._summary(seed_state(final, i), ts[i], lam, sd)
+                     for i, sd in enumerate(BATCH_SEEDS)])
+    for cpu, gpu in zip(*outs):
+        diff = int_differences(cpu, gpu)
+        check(not diff, f"[lockstep seed {cpu['seed']}] CPU and CUDA differ in {diff}")
+        check(cpu["started"] > 0, "degenerate lockstep parity run")
+    print(f"phase 11 (b): lockstep at {cfg.num_nodes} nodes, seeds {BATCH_SEEDS}, "
+          f"{BATCH_TICKS} ticks, one CPU generator's draws a seed: CPU == CUDA on every "
+          f"integer metric, lat_hist and timeseries, seed by seed (started "
+          f"{[o['started'] for o in outs[0]]})")
+
+
+def phase11c(dev, rows, launches):
+    """Each batched entry on the lockstep tick 200's inputs against its
+    plain version seed by seed, timed, in guard bands; its table row."""
+    from repro_torch.kernels import BATCHED, WRAPPERS
+    from repro_torch.kernels.bitmap_fit import bitmap_fit_rounds_batched_ref
+    from repro_torch.kernels.bitmap_fit import ops as bitmap_ops
+    from repro_torch.kernels.survival_scan import ops as surv_ops
+    from repro_torch.kernels.survival_scan import survival_scan_batched_ref
+    from repro_torch.kernels.utility_topk import utility_topk_address_batched_ref
+    from repro_torch.kernels.zone_aggregate import zone_aggregate_members_batched_ref
+    from repro_torch.profile_tick import (
+        WARMUP_TICKS,
+        batch_tick_calls,
+        exp5_config,
+        per_seed_calls,
+    )
+
+    refs = {"bitmap_fit_rounds_batched": bitmap_fit_rounds_batched_ref,
+            "utility_topk_address_batched": utility_topk_address_batched_ref,
+            "zone_aggregate_members_batched": zone_aggregate_members_batched_ref,
+            "survival_scan_batched": survival_scan_batched_ref}
+    cfg = exp5_config(True, full=True)
+    calls = batch_tick_calls(cfg, BATCH_SEEDS, WARMUP_TICKS, 1, tuple(refs), device=dev)
+    per = {}
+    for entry, name in BATCHED.items():
+        ((args, kw, _),) = calls[name]
+        case = (tuple(a.cpu() for a in args), kw, None, None)
+        err, want = check_kernel(name, WRAPPERS[name], refs[name], case, dev)
+        per[name] = (case, want)
+        seeds = per_seed_calls([(case[0], kw, want)])
+        work_s = [work(entry, (a, k, None, None), w) for a, k, w in seeds]
+        nbytes, nops = sum(w[0] for w in work_s), sum(w[1] for w in work_s)
+        dargs = to_dev(case[0], dev)
+        ms = device_ms(lambda: WRAPPERS[name](*dargs, **kw))
+        plain_ms = device_ms(lambda: refs[name](*dargs, **kw))
+        one_ms = device_ms(lambda: [WRAPPERS[entry](*(a[i] for a in dargs), **kw)
+                                    for i in range(len(BATCH_SEEDS))])
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / FP32_OPS_PER_S * 1e3
+        rows[name] = dict(
+            name=name, route="cuda", source=SOURCES[entry], replaces=REPLACES[entry],
+            launches=launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else
+            "operations", library_ms=None,
+        )
+        print(f"phase 11 (c): {name} (B = {len(BATCH_SEEDS)}, lockstep tick {WARMUP_TICKS}): "
+              f"equal to the plain version seed by seed (max abs err {err:.3g}); device time: "
+              f"one batched launch {ms:.6f} ms, {len(BATCH_SEEDS)} unbatched launches "
+              f"{one_ms:.6f} ms, plain {plain_ms:.6f} ms, bound {rows[name]['bound_ms']:.7f} ms "
+              f"({rows[name]['bound_by']})")
+    guard_bands(dev, "lockstep tick", per)
+    # each seed's scratch as the sources lay it out
+    from repro_torch.kernels import PLANS, _build
+    from repro_torch.kernels.bitmap_fit import plan as bitmap_plan
+    from repro_torch.kernels.survival_scan import plan as surv_plan
+
+    B, P, N = len(BATCH_SEEDS), cfg.probe_capacity, cfg.num_nodes
+    stride = _build.load("survival_scan", {"survival_scan_scratch_stride": [ctypes.c_int] * 2}
+                         ).survival_scan_scratch_stride(P, N)
+    keys = _build.load("bitmap_fit", {"bitmap_fit_rounds_scratch_words": [ctypes.c_int] * 2}
+                       ).bitmap_fit_rounds_scratch_words(N, cfg.arb_rounds)
+    for name, words in (("survival_scan_batched", B * stride),
+                        ("bitmap_fit_rounds_batched", B * keys)):
+        case = per[name][0]
+        got = PLANS[name](*case[0], **case[1]).scratch_words
+        check(got == words, f"{name}: plan scratch {got} words, the source lays out {words}")
+
+    resident = {
+        "survival_scan": surv_ops.cluster_occupancy(
+            surv_plan.plan(cfg.probe_capacity, cfg.num_nodes, True))["clusters"],
+        "bitmap_fit_rounds": bitmap_ops.rounds_cluster_occupancy(bitmap_plan.rounds_plan(
+            cfg.probe_capacity, cfg.num_nodes, cfg.atoms_per_node // 32, cfg.arb_rounds,
+            cfg.atoms_per_node))["clusters"]}
+    print(f"phase 11 (c): every batched entry's outputs fully written under its plan, guard "
+          f"bands untouched, scratch strides as the sources'; 16-CTA clusters the card holds "
+          f"at once (a batch past them runs in waves): {resident}")
+
+
+def phase11d(dev):
+    """Seed-ticks/s of lockstep B = 1, 4, 8 and sequential B = 4 at steady
+    state (after BATCH_WARMUP ticks), and one profiled batched tick at B = 8."""
+    from repro_torch.core.engine import LaminarEngine, make_step
+    from repro_torch.profile_tick import WARMUP_TICKS, batch_ticker, exp5_config, window
+
+    cfg = exp5_config(True, full=True)
+
+    def rate(advance, seeds):
+        advance(BATCH_WARMUP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advance(BATCH_TIMED)
+        torch.cuda.synchronize()
+        return seeds * BATCH_TIMED / (time.perf_counter() - t0)
+
+    tps = {B: rate(batch_ticker(cfg, list(range(B)), dev), B) for B in BATCH_SIZES}
+    eng = LaminarEngine(cfg, device=dev)
+    s, lam = eng.init(0)
+    draws = eng.draws(lam, s.zstart.shape[0], 0)
+    step = make_step(cfg)
+    state = {"s": s, "t": 0}
+
+    def advance(n):  # one seed's run: sequential B seeds take B times as long
+        for _ in range(n):
+            state["s"], _ = step(state["s"], draws.tick(state["t"]))
+            state["t"] += 1
+
+    seq = rate(advance, 1)
+    print(f"phase 11 (d): Exp5, Airlock on, ticks {BATCH_WARMUP} to "
+          f"{BATCH_WARMUP + BATCH_TIMED - 1} (host clock to the device's end): lockstep "
+          f"seed-ticks/s " + ", ".join(f"B = {B} {tps[B]:.1f}" for B in BATCH_SIZES)
+          + f"; sequential (any B) {seq:.1f}")
+    B = max(BATCH_SIZES)
+    advance = batch_ticker(cfg, list(range(B)), dev)
+    advance(WARMUP_TICKS)
+    torch.cuda.synchronize()
+    w = window(advance, 1)
+    busy = ("not measured (no device events)" if w["busy_ms"] is None else
+            f"{w['busy_ms']:.3f} ms = {w['busy_ms'] / w['wall_ms']:.1%} of wall")
+    hand = ", ".join(f"{k} {c:.0f} x {us:.1f} us" for k, (c, us) in w["hand_written"].items() if c)
+    print(f"phase 11 (d): one profiled lockstep tick at B = {B} (tick {WARMUP_TICKS}): "
+          f"{w['wall_ms']:.3f} ms host wall, {w['aten_ops']:.0f} aten ops (nested ones "
+          f"included), {w['kernels']:.0f} device kernels, device busy {busy}; hand-written: "
+          f"{hand}")
+
+
+def phase11(dev, totals, rows):
+    launches = phase11a(dev, totals)
+    phase11b(dev)
+    phase11c(dev, rows, launches)
+    phase11d(dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2079,7 +2370,8 @@ def main() -> int:
             for k, run in ((3, lambda: phase3(dev, totals)), (4, lambda: phase4(dev, gloo)),
                            (5, lambda: phase5(dev, totals)), (6, lambda: phase6(dev, totals)),
                            (7, lambda: phase7(dev)), (8, lambda: phase8(dev)),
-                           (9, lambda: phase9(dev)), (10, lambda: phase10(dev, done[9]))):
+                           (9, lambda: phase9(dev)), (10, lambda: phase10(dev, done[9])),
+                           (11, lambda: phase11(dev, totals, rows))):
                 t1 = time.perf_counter()
                 done[k] = run()
                 print(f"phase {k}: {time.perf_counter() - t1:.1f} s wall")

@@ -17,9 +17,14 @@ cell), and checks, per launch and operand:
     static + dynamic <= 227 KiB (the opt-in maximum) for every CTA of a
     cluster, threads <= 1024; and its cluster limits: at most 8 CTAs (the
     portable size), 16 with the non-portable attribute, and a grid of whole
-    clusters;
+    clusters; a batched launch's seed axis within the grid's second
+    dimension (65 535; a cluster launch: 2^31 - 1 CTAs along x);
   * LC304 — the plan's outputs have the shapes and dtypes of the ``_ref``
     twin's outputs on the CPU.
+
+The four batched entries of the lockstep tick are checked at ``SEEDS``
+seeds: their operands are one seed's, so coverage and bounds are those of
+the unbatched plan, and their outputs carry the seed axis.
 
 Nothing is launched: plans are plain data, and the ``_ref`` twins run on
 ``meta`` tensors (shapes only). ``audit_launch_plan`` checks one plan, the
@@ -69,6 +74,9 @@ RAGGED_GEOM = dict(N=1500, W=2, A=64, P=1000, K=5, Z=5, M=33)
 EXP5_GEOM = dict(N=5000, W=2, A=64, P=65536, K=8, Z=20, M=301)
 EXP7_GEOM = dict(N=65536, W=2, A=64, P=131072, K=8, Z=253, M=307)
 GEOMETRIES = {"prod": PROD_GEOM, "ragged": RAGGED_GEOM, "exp5": EXP5_GEOM, "exp7": EXP7_GEOM}
+SEEDS = 3  # the batched entries' seed count here (benchmarks/common.py run_seeds runs 4)
+MAX_GRID_Y = 65535
+MAX_GRID_X = 2**31 - 1
 
 
 def interpret(plan: LaunchPlan, x: torch.Tensor) -> torch.Tensor:
@@ -149,6 +157,12 @@ def _cluster_faults(L: Launch) -> List[str]:
                    "non-portable cluster attribute")
     if L.grid % L.cluster:
         out.append(f"grid {L.grid} is not a whole number of clusters of {L.cluster}")
+    if L.seeds < 1:
+        out.append(f"{L.seeds} seeds: a launch runs at least one")
+    elif L.cluster > 1 and L.grid * L.seeds > MAX_GRID_X:
+        out.append(f"{L.seeds} seeds x grid {L.grid} > {MAX_GRID_X} CTAs along x")
+    elif L.cluster == 1 and L.seeds > MAX_GRID_Y:
+        out.append(f"{L.seeds} seeds > the grid's second dimension, {MAX_GRID_Y}")
     return out
 
 
@@ -234,12 +248,21 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
     from repro_torch.kernels.bitmap_fit import (
         bitmap_fit_blocked_ref,
         bitmap_fit_ref,
+        bitmap_fit_rounds_batched_ref,
         bitmap_fit_rounds_blocked_ref,
         bitmap_fit_rounds_ref,
     )
-    from repro_torch.kernels.survival_scan import survival_scan_ref
-    from repro_torch.kernels.utility_topk import utility_topk_address_ref, utility_topk_ref
-    from repro_torch.kernels.zone_aggregate import zone_aggregate_members_ref, zone_aggregate_ref
+    from repro_torch.kernels.survival_scan import survival_scan_batched_ref, survival_scan_ref
+    from repro_torch.kernels.utility_topk import (
+        utility_topk_address_batched_ref,
+        utility_topk_address_ref,
+        utility_topk_ref,
+    )
+    from repro_torch.kernels.zone_aggregate import (
+        zone_aggregate_members_batched_ref,
+        zone_aggregate_members_ref,
+        zone_aggregate_ref,
+    )
 
     N, W, A, P, K, Z, M = (geom[k] for k in ("N", "W", "A", "P", "K", "Z", "M"))
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
@@ -258,13 +281,20 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
     address_kw = dict(gamma=1.0, sigma=0.5, stay_margin=1.0, eval_cost=3.0, bounce_cost=6.0,
                       fastfail_floor=1.0, projection=True, tau=10.0, dt_ms=0.5,
                       degrade_after_ms=50.0, degrade_halflife_ms=50.0)
+    def seeds(args):  # the batched entries' arguments: SEEDS seeds of each
+        return tuple(a.expand((SEEDS,) + a.shape) if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    rounds = (z((P,), i32), z((P,), i32), z((P,), f32), z((P,), i32), z((P,), b8),
+              z((N, W), i32), z((N,), b8))
+    members = (z((N,), f32), z((N,), f32), z((Z, M), i32), z((Z, M), f32), z((), i32),
+               z((Z,), f32), z((Z,), f32))
     return [
         ("bitmap_fit", (z((N, W), i32), z((N,), i32), z((N,), b8)), {}, bitmap_fit_ref),
         ("bitmap_fit_blocked", (z((Z, M, W), i32), z((Z, M), i32), z((Z, M), b8)), {},
          bitmap_fit_blocked_ref),
-        ("bitmap_fit_rounds", (z((P,), i32), z((P,), i32), z((P,), f32), z((P,), i32),
-                               z((P,), b8), z((N, W), i32), z((N,), b8)),
-         dict(rounds=3, atoms=A, policy="best"), bitmap_fit_rounds_ref),
+        ("bitmap_fit_rounds", rounds, dict(rounds=3, atoms=A, policy="best"),
+         bitmap_fit_rounds_ref),
         # one rank's block of the zone rows: the whole table at one rank
         ("bitmap_fit_rounds_blocked", (z((P,), i32), z((P,), i32), z((P,), f32), z((P,), i32),
                                        z((P,), b8), z((N, W), i32), z((N,), b8), z((Z, M), i32),
@@ -275,11 +305,16 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
         ("utility_topk_address", address, address_kw, utility_topk_address_ref),
         ("zone_aggregate", (z((Z, M), f32), z((Z, M), f32), z((Z, M), f32)), {},
          zone_aggregate_ref),
-        ("zone_aggregate_members", (z((N,), f32), z((N,), f32), z((Z, M), i32), z((Z, M), f32),
-                                    z((), i32), z((Z,), f32), z((Z,), f32)), dict(every=20),
-         zone_aggregate_members_ref),
+        ("zone_aggregate_members", members, dict(every=20), zone_aggregate_members_ref),
         ("survival_scan", cols, surv_kw, survival_scan_ref),
         ("survival_scan", cols, dict(surv_kw, airlock=False), survival_scan_ref),
+        ("bitmap_fit_rounds_batched", seeds(rounds), dict(rounds=3, atoms=A, policy="best"),
+         bitmap_fit_rounds_batched_ref),
+        ("utility_topk_address_batched", seeds(address), address_kw,
+         utility_topk_address_batched_ref),
+        ("zone_aggregate_members_batched", seeds(members), dict(every=20),
+         zone_aggregate_members_batched_ref),
+        ("survival_scan_batched", seeds(cols), surv_kw, survival_scan_batched_ref),
     ]
 
 

@@ -3,9 +3,10 @@
 Records, with a ``TorchDispatchMode``, every aten op of one tick of
 ``engine.make_step`` and of the making of that tick's draws
 (``TorchDraws.tick``), because a CUDA graph of the tick would capture both.
-The nine hot-path entries are stubbed while the audit runs: each builds the
-launch plan its wrapper would build, is recorded as one ``kernel.<entry>``
-op, and returns zeros of its plan's outputs, the counterpart of
+The hot-path entries (``kernels.WRAPPERS``, the batched ones too) are
+stubbed while the audit runs: each builds the launch plan its wrapper would
+build, is recorded as one ``kernel.<entry>`` op, and returns zeros of its
+plan's outputs, the counterpart of
 ``jax.eval_shape`` over ``pallas_call``. The audit so sees the tick as it
 runs on the card, not the ``_ref`` internals; the tick has no data-dependent
 branch, so the op trace does not depend on the stubbed values. Checks:
@@ -197,7 +198,7 @@ class OpRecorder(TorchDispatchMode):
 
 @contextlib.contextmanager
 def stub_hotpath(recorder: Optional[OpRecorder] = None):
-    """Replace the nine hot-path wrappers by their plans' outputs (zeros).
+    """Replace the hot-path wrappers by their plans' outputs (zeros).
 
     ``core.hotpath`` looks each wrapper up on its ops module at call time,
     so patching the module attribute reaches every call site."""

@@ -18,26 +18,34 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core.arbiter import _free_atoms_at
-from repro_torch.core.config import LaminarConfig
+from repro_torch.core.config import LaminarConfig, MemoryConfig
 from repro_torch.core.draws import Draws
+from repro_torch.core.floatops import f32
 from repro_torch.core.state import EMPTY, RUNNING, SUSPENDED, SimState, count, tier_counts
 
 
-def memory_dynamics(cfg: LaminarConfig, s: SimState, d: Draws) -> SimState:
+def noise_scale(mc: MemoryConfig) -> float:
+    """The ambient noise's scale ``sqrt(1 - decay^2) * sigma`` as the JAX
+    package computes it, in float32: each step in double is exact or rounds
+    once to the float32 result (a float32 square root and product)."""
+    return f32(f32(math.sqrt(f32(1 - mc.ambient_decay**2))) * f32(mc.noise_sigma))
+
+
+def memory_dynamics(cfg: LaminarConfig, s: SimState, d: Draws,
+                    scale: float | None = None) -> SimState:
     """Exp5 dynamic perturbation: AR(1) ambient noise + Bernoulli bursts +
-    slow per-node drift (neighboring rigid workloads breathing)."""
+    slow per-node drift (neighboring rigid workloads breathing). ``scale``
+    is :func:`noise_scale` of ``cfg.memory``, which the tick computes once,
+    outside the tick; given None it is computed here."""
     mc = cfg.memory
     if not mc.enabled:
         return s
     N = cfg.num_nodes
     decay = mc.ambient_decay
-    # the noise scale is a float32 product, as the JAX package computes it
-    scale = float(np.sqrt(np.float32(1 - decay**2)) * np.float32(mc.noise_sigma))
-    noise = scale * d.mem_noise
+    noise = (noise_scale(mc) if scale is None else scale) * d.mem_noise
     burst = (d.burst_u < mc.burst_rate).to(torch.float32) * d.burst_v * mc.burst_scale
     phase = torch.arange(N, dtype=torch.float32, device=s.amb.device) * 2.399
     tsec = s.t.to(torch.float32) * cfg.dt_ms / 1e3

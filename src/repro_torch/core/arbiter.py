@@ -42,7 +42,7 @@ def _free_atoms_at(
     N = free.shape[0]
     upd = torch.where(mask[:, None], alloc, 0)
     tgt = torch.where(mask & (node >= 0), node, N).long()
-    acc = torch.zeros((N + 1, free.shape[1]), dtype=free.dtype, device=free.device)
+    acc = upd.new_zeros((N + 1, free.shape[1]), dtype=free.dtype)
     acc.index_add_(0, tgt, upd)
     return free | acc[:-1]
 

@@ -64,7 +64,7 @@ def disrupted_capacity(
     the same bits as the reference's uint32 adds) on any device.
     """
     N, W = free.shape
-    acc = torch.zeros((N + 1, W), dtype=free.dtype, device=free.device)
+    acc = alloc.new_zeros((N + 1, W), dtype=free.dtype)
     acc.index_add_(
         0, torch.where(alloc_node >= 0, alloc_node, N).long(),
         torch.where(alloc_node[:, None] >= 0, alloc, 0),

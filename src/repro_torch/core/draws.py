@@ -12,14 +12,16 @@ The scenario shapes the draws, never the state: the Poisson count is drawn
 at the schedule's rate for tick ``t``, disruption adds two values per tick,
 and its eviction headroom widens TEG's dispatch rows (:func:`max_dispatch`).
 
-:class:`TorchDraws` samples the same distributions from one
+``TorchDraws`` samples the same distributions from one
 ``torch.Generator``. :class:`ArrayDraws` hands out values recorded
 beforehand, such as those of a replay of the JAX package's key schedule.
+:class:`BatchDraws` stacks the draws of one provider a seed for the
+lockstep engine.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -214,3 +216,41 @@ class ArrayDraws:
         return Draws(
             **{k: torch.from_numpy(np.array(v[t])) for k, v in self.arrays.items()}
         ).to(self.device)
+
+
+class BatchDraws:
+    """One ``Draws`` a tick for B seeds in lockstep: ``tick(t)`` stacks the
+    B providers' draws field by field along a leading seed axis (a field
+    that is ``None`` stays ``None``). Each seed keeps its own provider and
+    generator, so a seed of a lockstep run gets exactly the draws of its run
+    alone. ``scenario`` is the providers' (those that record one); providers
+    made for different scenarios are refused."""
+
+    def __init__(self, providers: Sequence):
+        self.providers = list(providers)
+        if not self.providers:
+            raise ValueError("BatchDraws needs at least one provider")
+        made_for = {p.scenario for p in self.providers if hasattr(p, "scenario")}
+        if len(made_for) > 1:
+            raise ValueError(f"draws made for different scenarios: "
+                             f"{sorted(sc.name for sc in made_for)}")
+        if made_for:
+            (self.scenario,) = made_for
+
+    def tick(self, t: int) -> Draws:
+        fields = zip(*(p.tick(t) for p in self.providers))
+        out = []
+        for name, xs in zip(Draws._fields, fields):
+            if any(x is None for x in xs):
+                if not all(x is None for x in xs):
+                    raise ValueError(f"draws field {name} given by some seeds' providers only")
+                out.append(None)
+            else:
+                out.append(torch.stack(xs))
+        return Draws(*out)
+
+    @staticmethod
+    def in_dims(d: Draws) -> Draws:
+        """``vmap``'s ``in_dims`` for a stacked ``Draws``: 0, or None for an
+        absent field."""
+        return Draws(*(None if x is None else 0 for x in d))

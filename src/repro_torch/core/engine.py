@@ -16,6 +16,14 @@ The tick asks nothing of the host: no ``.item()``, no ``torch.nonzero``, no
 boolean-mask indexing, so on CUDA the host only enqueues work. The scenario's
 arrival schedule enters through the draws (the Poisson count of tick ``t``);
 its disruption process is a stage of the tick.
+
+``run_batch`` runs its seeds in lockstep, as the JAX package runs
+``jax.vmap`` over its scan: the tick under ``torch.func.vmap`` over a
+leading seed axis of the state and the draws (:meth:`LaminarEngine.
+simulate_batch`), each hot-path kernel one launch for all seeds
+(``kernels.batching``). So the tick writes in place only into tensors it
+made from the state (``new_zeros``, ``new_full``, ``torch.cat``), which
+carry the seed axis under ``vmap``.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import torch
 
 from repro_torch.core import airlock, arbiter, da, disrupt, hotpath, teg, workload, zhaf
 from repro_torch.core.config import NUM_TIERS, TIER_NAMES, LaminarConfig
-from repro_torch.core.draws import Draws, TorchDraws, max_dispatch
+from repro_torch.core.draws import BatchDraws, Draws, TorchDraws, max_dispatch
 from repro_torch.core.state import (
     EMPTY,
     LOST_WAIT,
@@ -137,18 +145,20 @@ def make_step(cfg: LaminarConfig, plane=None):
     scenario = cfg.scenario
     disruption_on = scenario.disruption.enabled
     n_dispatch = max_dispatch(cfg)
+    # the ambient noise's scale: a host constant, computed once, out of the tick
+    noise = airlock.noise_scale(cfg.memory) if cfg.memory.enabled else None
 
     def step(s: SimState, d: Draws) -> Tuple[SimState, torch.Tensor]:
         # ---- runtime survival (Exp5) ---------------------------------------
         if cfg.memory.enabled:
-            s = airlock.memory_dynamics(cfg, s, d)
+            s = airlock.memory_dynamics(cfg, s, d, noise)
             # one fused pass over the probe table: pressure + victim +
             # transition masks (survival_scan kernel or its plain version)
             pressure, victim, resume, react, expire = hotpath.survival_scan(cfg, s)
             s = airlock.runtime_control(cfg, s, victim)
             s, react_mask = airlock.airlock_transitions(cfg, s, resume, react, expire)
         else:
-            pressure = torch.zeros(cfg.num_nodes, dtype=torch.float32, device=s.st.device)
+            pressure = s.amb.new_zeros(cfg.num_nodes)
             react_mask = torch.zeros_like(s.migrating)
 
         # ---- service progress ------------------------------------------------
@@ -177,7 +187,7 @@ def make_step(cfg: LaminarConfig, plane=None):
         if cfg.memory.enabled and cfg.airlock:
             throttled = pressure > cfg.memory.high_watermark
         else:
-            throttled = torch.zeros(cfg.num_nodes, dtype=torch.bool, device=s.st.device)
+            throttled = s.node_up.new_zeros(cfg.num_nodes)
         # multiple admission rounds per tick: after each reservation the node
         # removes the winner's atoms and proceeds to the next feasible
         # candidate; one launch runs them all, on every node or on the
@@ -226,6 +236,22 @@ class LaminarEngine:
         lam = workload.lambda_per_tick(self.cfg, free_atoms)
         return state_from_numpy(d, self.device), lam
 
+    def init_batch(self, seeds: Sequence[int]) -> Tuple[SimState, float]:
+        """The initial states of ``seeds`` stacked along a leading seed axis,
+        and the per-tick arrival intensity.
+
+        As in the JAX package, the cluster geometry (zones, rigid
+        pre-occupancy) and ``lam`` come from ``seeds[0]`` and are shared:
+        every seed brings its own randomness through its draws (the JAX
+        state's ``key`` and ``sched_key``; this package's state has no key,
+        its draws come from each seed's provider). Every row is a real copy,
+        since the tick writes."""
+        seeds = [int(x) for x in seeds]
+        if not seeds:
+            raise ValueError("init_batch needs at least one seed")
+        s, lam = self.init(seeds[0])
+        return _stack(s, len(seeds)), lam
+
     def config_for(self, scenario=None) -> LaminarConfig:
         """``cfg`` running ``scenario`` (``None``: ``cfg.scenario``), as the
         reference's ``run`` / ``run_batch`` build their step for it."""
@@ -243,6 +269,18 @@ class LaminarEngine:
         """The node-plane strategy of the tick (``None``: the flat path)."""
         return None
 
+    def _checked_config(self, draws, scenario) -> LaminarConfig:
+        """The config running ``scenario``; draws that record another
+        scenario (``TorchDraws.scenario``) are refused."""
+        cfg = self.config_for(scenario)
+        made_for = getattr(draws, "scenario", cfg.scenario)
+        if made_for != cfg.scenario:
+            raise ValueError(
+                f"draws made for scenario {made_for.name!r}, engine runs "
+                f"{cfg.scenario.name!r}"
+            )
+        return cfg
+
     def simulate(
         self, s: SimState, draws, num_ticks: int, scenario=None
     ) -> Tuple[SimState, torch.Tensor]:
@@ -252,13 +290,7 @@ class LaminarEngine:
 
         The scenario is ``scenario`` (``None``: ``cfg.scenario``); draws that
         record another one (``TorchDraws.scenario``) are refused."""
-        cfg = self.config_for(scenario)
-        made_for = getattr(draws, "scenario", cfg.scenario)
-        if made_for != cfg.scenario:
-            raise ValueError(
-                f"draws made for scenario {made_for.name!r}, engine runs "
-                f"{cfg.scenario.name!r}"
-            )
+        cfg = self._checked_config(draws, scenario)
         step = make_step(cfg, plane=self._plane(s))
         rows = []
         for t in range(num_ticks):
@@ -267,6 +299,29 @@ class LaminarEngine:
         if not rows:
             return s, torch.zeros((0, len(TS_FIELDS)), dtype=torch.int32, device=s.st.device)
         return s, torch.stack(rows)
+
+    def simulate_batch(
+        self, sb: SimState, draws, num_ticks: int, scenario=None
+    ) -> Tuple[SimState, torch.Tensor]:
+        """Run ``num_ticks`` ticks of B seeds in lockstep from ``sb`` (a
+        state with a leading seed axis, :meth:`init_batch`); ``draws.tick(t)``
+        gives each tick's stacked draws (:class:`BatchDraws`). One tick is
+        the flat tick under ``torch.func.vmap``: each hot-path kernel is ONE
+        launch for all B seeds. Returns the final batched state and the (B,
+        T, 11) int32 timeseries, still on the device.
+
+        The scenario is ``scenario`` (``None``: ``cfg.scenario``); draws made
+        for another are refused, as :meth:`simulate` refuses them."""
+        cfg = self._checked_config(draws, scenario)
+        step = make_step(cfg)
+        rows = []
+        for t in range(num_ticks):
+            d = draws.tick(t)
+            sb, ts = torch.func.vmap(step, in_dims=(0, BatchDraws.in_dims(d)))(sb, d)
+            rows.append(ts)
+        if not rows:
+            return sb, sb.st.new_zeros((sb.st.shape[0], 0, len(TS_FIELDS)))
+        return sb, torch.stack(rows, dim=1)
 
     def run(
         self,
@@ -299,26 +354,47 @@ class LaminarEngine:
         seed's generator-backed provider).
 
         As in the JAX package, the cluster geometry comes from ``seeds[0]``
-        and every seed brings its own randomness. The seeds run one after the
-        other here; a lockstep batch axis is later work.
+        (:meth:`init_batch`) and every seed brings its own randomness; the
+        seeds advance in lockstep, one batched tick for all
+        (:meth:`simulate_batch`), as the JAX package's one ``vmap``'d scan.
         """
+        seeds, draws, nt = self._batch_args(seeds, num_ticks, draws)
+        sb, lam = self.init_batch(seeds)
+        if draws is None:
+            draws = [self.draws(lam, sb.zstart.shape[1], sd, scenario) for sd in seeds]
+        final, ts = self.simulate_batch(sb, BatchDraws(draws), nt, scenario)
+        ts = ts.cpu().numpy()
+        return [self._summary(seed_state(final, i), ts[i], lam, sd)
+                for i, sd in enumerate(seeds)]
+
+    def _batch_args(self, seeds, num_ticks, draws):
+        """``run_batch``'s checks: the seeds as ints (at least one), one
+        provider a seed if given, the tick count."""
         seeds = [int(x) for x in seeds]
         if not seeds:
             raise ValueError("run_batch needs at least one seed")
         if draws is not None and len(draws) != len(seeds):
             raise ValueError(f"run_batch: {len(draws)} draws for {len(seeds)} seeds")
-        s0, lam = self.init(seeds[0])
-        nt = num_ticks if num_ticks is not None else self.cfg.num_ticks
-        outs: List[Dict[str, Any]] = []
-        for i, sd in enumerate(seeds):
-            d = draws[i] if draws is not None else self.draws(
-                lam, s0.zstart.shape[0], sd, scenario)
-            final, ts = self.simulate(s0, d, nt, scenario)
-            out = summarize(self.cfg, final, ts.cpu().numpy())
-            out["lambda_per_s"] = lam / self.cfg.dt_ms * 1e3
-            out["seed"] = sd
-            outs.append(out)
-        return outs
+        return seeds, draws, num_ticks if num_ticks is not None else self.cfg.num_ticks
+
+    def _summary(self, final: SimState, ts: np.ndarray, lam: float, seed: int) -> Dict[str, Any]:
+        out = summarize(self.cfg, final, ts)
+        out["lambda_per_s"] = lam / self.cfg.dt_ms * 1e3
+        out["seed"] = seed
+        return out
+
+
+def _stack(s: SimState, B: int) -> SimState:
+    """``s`` with a leading axis of ``B`` copies of every tensor."""
+    def rep(x):
+        return x.unsqueeze(0).repeat((B,) + (1,) * x.dim())
+
+    return SimState(*(rep(x) for x in s[:-1]), Metrics(*(rep(x) for x in s.metrics)))
+
+
+def seed_state(sb: SimState, i: int) -> SimState:
+    """Seed ``i``'s state out of a batched state (views)."""
+    return SimState(*(x[i] for x in sb[:-1]), Metrics(*(x[i] for x in sb.metrics)))
 
 
 def summarize(cfg: LaminarConfig, final: SimState, ts: np.ndarray) -> Dict[str, Any]:

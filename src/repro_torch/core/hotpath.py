@@ -14,6 +14,12 @@ wrapper dispatches by device: a CUDA tensor launches the hand-written
 Hopper kernel (or the wrapper raises), a CPU tensor takes the plain
 PyTorch version. There is no configuration switch and no fallback from
 one to the other.
+
+The four entries the flat tick calls go through their custom ops
+(``repro_torch::<entry>``, ``kernels.batching``): outside ``vmap`` the op
+is the wrapper; under the lockstep engine's ``torch.func.vmap`` over a seed
+axis it is ONE call of the entry's batched twin (one launch for all seeds
+on CUDA, the plain version seed by seed on the CPU).
 """
 
 from __future__ import annotations
@@ -74,7 +80,7 @@ def bitmap_fit_rounds(cfg: LaminarConfig, s, throttled: torch.Tensor):
     admit (P,))``: each round's winner slot (-1: none), whether it was
     admitted and the words it took; each probe's round won (-1: none) and
     admission."""
-    return _bitmap_ops.bitmap_fit_rounds(
+    return _bitmap_ops.bitmap_fit_rounds_op(
         s.st, s.node, s.ev, s.mass, s.contig, s.free, throttled,
         rounds=cfg.arb_rounds, atoms=cfg.atoms_per_node, policy=cfg.alloc_policy,
     )
@@ -123,7 +129,7 @@ def utility_topk_address(cfg: LaminarConfig, s, d, view):
     ``st == ADDRESSING``, reading the draws ``d`` and the true node view
     ``view``. Returns the new ``(st, node, zone, timer, patience)`` (P,) and
     the int32 counts ``(op_eval, op_bounce, fastfail)``."""
-    return _topk_ops.utility_topk_address(
+    return _topk_ops.utility_topk_address_op(
         s.st, s.node, s.zone, s.timer, s.patience, s.migrating, s.mass, s.contig,
         d.cand_u, d.addr_eps, s.zstart, s.zcount, s.zone_id,
         s.rep_S, s.rep_H, s.rep_run, s.rep_t, s.dS, s.dH,
@@ -141,7 +147,8 @@ def zone_aggregate_members(rep_S, rep_H, member, mask, t=None, zS=None, zH=None,
     """Per-zone (mean slack, total heat) of the node vectors over the
     ``(Z, M)`` zone members; given the tick ``t``, the old ``zS``, ``zH``
     are kept where ``t % every != 0`` (decided on the device)."""
-    return _agg_ops.zone_aggregate_members(rep_S, rep_H, member, mask, t, zS, zH, every=every)
+    return _agg_ops.zone_aggregate_members_op(rep_S, rep_H, member, mask, t, zS, zH,
+                                              every=every)
 
 
 def survival_scan(cfg: LaminarConfig, s):
@@ -152,7 +159,7 @@ def survival_scan(cfg: LaminarConfig, s):
     are empty when ``cfg.airlock`` is off.
     """
     mc = cfg.memory
-    return _surv_ops.survival_scan(
+    return _surv_ops.survival_scan_op(
         s.st,
         s.alloc_node,
         s.mem,

@@ -125,7 +125,7 @@ def count(mask: torch.Tensor) -> torch.Tensor:
 def tier_counts(tier: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Count masked probes per tier -> (NUM_TIERS,) i32 scatter-add."""
     tgt = torch.where(mask, tier, NUM_TIERS).long()
-    out = torch.zeros(NUM_TIERS + 1, dtype=torch.int32, device=tier.device)
+    out = tgt.new_zeros(NUM_TIERS + 1, dtype=torch.int32)
     return out.index_add_(0, tgt, mask.to(torch.int32))[:NUM_TIERS]
 
 

@@ -30,9 +30,9 @@ def compact(mask: torch.Tensor, size: int) -> torch.Tensor:
     n = mask.shape[0]
     pos = torch.cumsum(mask, 0, dtype=torch.int32) - 1
     keep = mask & (pos < size)
-    out = torch.full((size + 1,), -1, dtype=torch.int32, device=mask.device)
+    out = pos.new_full((size + 1,), -1)  # from ``pos``: it carries a seed axis under vmap
     src = torch.arange(n, dtype=torch.int32, device=mask.device)
-    out.scatter_(0, torch.where(keep, pos, size).long(), src)
+    out.index_put_((torch.where(keep, pos, size).long(),), src)
     return out[:size]
 
 
@@ -40,10 +40,9 @@ def scatter_rows(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     """``arr.at[idx].set(val, mode="drop")``: rows whose index is
     ``len(arr)`` are dropped (they land in a spare row that is cut off)."""
     n = arr.shape[0]
-    buf = torch.empty((n + 1,) + tuple(arr.shape[1:]), dtype=arr.dtype, device=arr.device)
-    buf[:n] = arr
+    buf = torch.cat([arr, arr.new_empty((1,) + tuple(arr.shape[1:]))])
     if isinstance(val, torch.Tensor):
-        buf.index_copy_(0, idx.long(), val.to(arr.dtype))
+        buf.index_put_((idx.long(),), val.to(arr.dtype))
     else:  # a Python scalar: no host-to-device copy
         buf.index_fill_(0, idx.long(), val)
     return buf[:n]

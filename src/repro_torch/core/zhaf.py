@@ -33,7 +33,7 @@ def node_heat(cfg: LaminarConfig, s: SimState) -> torch.Tensor:
     """Heat = count of pending DAs in each node's arbitration queue."""
     queued = s.st == QUEUED
     tgt = torch.where(queued, s.node, cfg.num_nodes).long()  # OOB -> dropped
-    h = torch.zeros(cfg.num_nodes + 1, dtype=torch.int32, device=s.st.device)
+    h = s.st.new_zeros(cfg.num_nodes + 1)
     return h.index_add_(0, tgt, queued.to(torch.int32))[:-1]
 
 

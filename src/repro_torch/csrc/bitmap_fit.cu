@@ -81,6 +81,13 @@
 // are (R, Zb, M) in the blocked layout, and no per-probe output is written
 // (a rank does not own every probe). Bound: bytes, as above, with local of
 // each queued probe's node and member and mask of each slot with a winner.
+//
+// bitmap_fit_rounds_batched_launch (the lockstep engine's seed axis) runs
+// the flat rounds of B seeds in one launch of bitmap_fit_rounds_kernel: B
+// clusters, cluster b on seed b's columns, words, flags, outputs and keys
+// (offsets added to the same body's addressing; no barrier spans two
+// seeds). Clusters past what the card holds at once run in later waves.
+// Bound: B times the bytes above.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -525,12 +532,35 @@ __device__ __forceinline__ void rounds_body(const RoundsIn& in, const RoundsOut&
     node_rounds<NW, Blocked>(in, out, pr, nd, keys);
 }
 
+// seed b's columns, words, flags and outputs (b = 0: the unbatched call);
+// returns the offset of its keys
+__device__ __forceinline__ size_t rounds_seed_offsets(RoundsIn& in, RoundsOut& out,
+                                                      const RoundsParams& pr, int b) {
+  const size_t cp = (size_t)b * pr.p, cn = (size_t)b * pr.nodes, rn = (size_t)b * pr.rounds * pr.n;
+  in.st += cp;
+  in.node += cp;
+  in.ev += cp;
+  in.mass += cp;
+  in.contig += cp;
+  in.words += cn * pr.w;
+  in.throttled += cn;
+  out.winner += rn;
+  out.feas += rn;
+  out.alloc += rn * pr.w;
+  out.round += cp;
+  out.admit += cp;
+  return rn;
+}
+
+// one cluster a seed: cluster b (blockIdx.x / cluster size) on seed b
 template <int NW>
 __global__ void __launch_bounds__(kRoundThreads, 1)
 bitmap_fit_rounds_kernel(RoundsIn in, RoundsOut out, RoundsParams pr,
                          unsigned long long* __restrict__ keys) {
   __shared__ unsigned long long queue[kRoundWarps][kChunk * 32];
-  rounds_body<NW, false>(in, out, pr, keys, queue);
+  const int seed = (int)(blockIdx.x / cg::this_cluster().num_blocks());
+  const size_t at = rounds_seed_offsets(in, out, pr, seed);
+  rounds_body<NW, false>(in, out, pr, keys + at, queue);
 }
 
 template <int NW>
@@ -581,17 +611,19 @@ int steps_of(int w) {
   return max(1, 32 - __builtin_clz(bits));  // bit_length(32 w - 1)
 }
 
-// The checks and the one cluster launch of both rounds entries: n election
-// rows (nodes or slots); refuses any geometry other than what this source
-// computes and a scratch smaller than 2 n R words
+// The checks and the cluster launch of the rounds entries: n election rows
+// (nodes or slots), one cluster a seed (the blocked entry: one seed);
+// refuses any geometry other than what this source computes and a scratch
+// smaller than 2 n R words a seed
 int launch_rounds(int blocked, const RoundsIn& in, const RoundsOut& out, int p, int n, int nodes,
                   int w, int atoms, int rounds, int best, int grid, int block, int cluster,
-                  int nonportable, int per_p, int per_n, int scratch_words, void* scratch,
-                  void* stream) {
+                  int nonportable, int per_p, int per_n, int seeds, int scratch_words,
+                  void* scratch, void* stream) {
   if (n <= 0 || nodes <= 0 || p < 0 || rounds < 0 || rounds > kMaxRounds)
     return (int)cudaErrorInvalidValue;
   if (w < 1 || w > kMaxWords || atoms < 1 || atoms > 32 * w) return (int)cudaErrorInvalidValue;
-  if (scratch_words < 2 * n * rounds) return (int)cudaErrorInvalidValue;
+  if (seeds < 1 || (blocked && seeds != 1)) return (int)cudaErrorInvalidValue;
+  if (scratch_words < 2LL * n * rounds * seeds) return (int)cudaErrorInvalidValue;
   if (block != kRoundThreads || cluster < 1 || cluster > kMaxCluster || grid != cluster ||
       (cluster > 8 && !nonportable))
     return (int)cudaErrorInvalidConfiguration;
@@ -602,7 +634,8 @@ int launch_rounds(int blocked, const RoundsIn& in, const RoundsOut& out, int p, 
   if (e != cudaSuccess) return (int)e;
   RoundsParams pr{p, n, nodes, w, atoms, rounds, best != 0, steps_of(w), per_p, per_n};
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = rounds_config(grid, block, cluster, (cudaStream_t)stream, attr);
+  const cudaLaunchConfig_t cfg =
+      rounds_config(grid * seeds, block, cluster, (cudaStream_t)stream, attr);
   e = cudaLaunchKernelEx(&cfg, kRoundsKernels[blocked][nw - 1], in, out, pr,
                          (unsigned long long*)scratch);
   if (e != cudaSuccess) return (int)e;
@@ -654,7 +687,27 @@ extern "C" int bitmap_fit_rounds_launch(
   RoundsOut out{(int32_t*)winner, (uint8_t*)feas, (uint32_t*)alloc, (int32_t*)round,
                 (uint8_t*)admit};
   return launch_rounds(0, in, out, p, n, n, w, atoms, rounds, best, grid, block, cluster,
-                       nonportable, per_p, per_n, scratch_words, scratch, stream);
+                       nonportable, per_p, per_n, 1, scratch_words, scratch, stream);
+}
+
+// bitmap_fit_rounds_launch over `seeds` seeds in one launch: every column
+// (seeds, p), words (seeds, n, w), throttled (seeds, n), the outputs with the
+// same leading axis, and bitmap_fit_rounds_scratch_words(n, rounds) words of
+// scratch a seed. grid, block, cluster and the CTA's shares are one seed's,
+// as the unbatched launcher takes them; the launch has grid * seeds CTAs.
+extern "C" int bitmap_fit_rounds_batched_launch(
+    const void* st, const void* node, const void* ev, const void* mass, const void* contig,
+    const void* words, const void* throttled, void* winner, void* feas, void* alloc,
+    void* round, void* admit, void* scratch, int p, int n, int w, int atoms, int rounds,
+    int best, int grid, int block, int cluster, int nonportable, int per_p, int per_n,
+    int seeds, int scratch_words, void* stream) {
+  RoundsIn in{(const int32_t*)st, (const int32_t*)node, (const float*)ev,
+              (const int32_t*)mass, (const uint8_t*)contig, (const uint32_t*)words,
+              (const uint8_t*)throttled, nullptr, nullptr, nullptr};
+  RoundsOut out{(int32_t*)winner, (uint8_t*)feas, (uint32_t*)alloc, (int32_t*)round,
+                (uint8_t*)admit};
+  return launch_rounds(0, in, out, p, n, n, w, atoms, rounds, best, grid, block, cluster,
+                       nonportable, per_p, per_n, seeds, scratch_words, scratch, stream);
 }
 
 // The rounds on one rank's zone block of `slots` = Zb * M slots. Columns
@@ -678,7 +731,7 @@ extern "C" int bitmap_fit_rounds_blocked_launch(
               (const int32_t*)local};
   RoundsOut out{(int32_t*)winner, (uint8_t*)feas, (uint32_t*)alloc, nullptr, nullptr};
   return launch_rounds(1, in, out, p, slots, nodes, w, atoms, rounds, best, grid, block, cluster,
-                       nonportable, per_p, per_n, scratch_words, scratch, stream);
+                       nonportable, per_p, per_n, 1, scratch_words, scratch, stream);
 }
 
 // Compiled attributes of kernel k (0: bitmap_fit_kernel; 1 to 4:

@@ -74,6 +74,14 @@
 // table (64 KiB) and every CTA's counts (32 KiB); 158 KiB at Exp7's 65 536
 // nodes. The launch plan (kernels/survival_scan/plan.py) refuses shapes past
 // the 227 KiB a block may use and P past 2^17.
+//
+// Batched entry (survival_scan_batched_launch, the lockstep engine's seed
+// axis): B clusters in one launch, cluster b on seed b's columns, base, t,
+// outputs and its own stride of scratch; the body is the one above with the
+// seed's offsets added to its addressing, so no barrier or shared memory
+// spans two seeds. The card holds a few 16-CTA clusters at once
+// (cudaOccupancyMaxActiveClusters, printed by chip_smoke.py); the others
+// wait for a free GPC and run in later waves. Bound: B times the bytes above.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -183,13 +191,39 @@ __device__ __forceinline__ bool key_finite(unsigned long long k) {
   return isfinite(__uint_as_float((e & 0x80000000u) ? (e & 0x7fffffffu) : ~e));
 }
 
+// seed b's columns, base and tick, and its outputs (b = 0: the unbatched call)
+__device__ __forceinline__ void seed_offsets(Inputs& in, Outputs& out, int b, int p, int n) {
+  const size_t cp = (size_t)b * p, cn = (size_t)b * n;
+  in.st += cp;
+  in.node += cp;
+  in.mem += cp;
+  in.ev += cp;
+  in.tier += cp;
+  in.mig += cp;
+  in.stick += cp;
+  in.sdl += cp;
+  in.base += cn;
+  in.t += b;
+  out.pressure += cn;
+  out.victim += cp;
+  out.resume += cp;
+  out.react += cp;
+  out.expire += cp;
+}
+
+// one cluster a seed: cluster b (blockIdx.x / cluster size) on seed b, its
+// scratch `stride` int32 words after seed b - 1's
 __global__ void __launch_bounds__(kThreads, 1)
-survival_cluster_kernel(Inputs in, Outputs out, Params pr, int4* __restrict__ ent,
-                        int* __restrict__ info) {
+survival_cluster_kernel(Inputs in, Outputs out, Params pr, int* __restrict__ scratch,
+                        long long stride) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem[];
   const int ncta = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
+  const int seed = (int)(blockIdx.x / (unsigned)ncta);
+  seed_offsets(in, out, seed, pr.p, pr.n);
+  int4* __restrict__ ent = (int4*)(scratch + seed * stride);
+  int* __restrict__ info = scratch + seed * stride + 4 * (size_t)pr.p;
   const Layout L = layout(pr.n, ncta);
   unsigned long long* key = (unsigned long long*)(smem + L.key);
   float* press = (float*)(smem + L.press);
@@ -484,6 +518,52 @@ extern "C" int survival_scan_scratch_words(int p, int n) {
   return 4 * p + n;
 }
 
+// Words between two seeds' scratch in a batched launch: a seed's words
+// rounded up to whole 16-byte entries, so that every seed's entries are
+// aligned.
+extern "C" int survival_scan_scratch_stride(int p, int n) {
+  return 4 * p + (n + 3) / 4 * 4;
+}
+
+namespace {
+
+// The checks and the launch of both entries: `seeds` clusters, scratch
+// `stride` words a seed
+int launch_scan(const Inputs& in, const Outputs& out, void* scratch, int p, int n, int airlock,
+                float residual, float watermark, float safe, int t_susp, int t_surv, int grid,
+                int block, int cluster, int nonportable, int smem, int steps, int seeds,
+                long long stride, void* stream) {
+  if (n <= 0 || p < 0 || p > (1 << kSlotBits) || seeds < 1) return (int)cudaErrorInvalidValue;
+  if (block != kThreads || cluster < 1 || cluster > kMaxCluster || grid != cluster ||
+      (cluster > 8 && !nonportable))
+    return (int)cudaErrorInvalidConfiguration;
+  const long long per = (long long)cluster * kThreads;
+  if (steps != (int)((p + per - 1) / per) || steps > kMaxSteps) return (int)cudaErrorInvalidValue;
+  if (smem != (int)layout(n, cluster).bytes) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_attributes(smem, nonportable);
+  if (e != cudaSuccess) return (int)e;
+  const int nb = layout(n, cluster).nb;
+  Params pr{p, n, airlock, t_susp, t_surv, steps, ((1ull << 32) + nb - 1) / nb, residual,
+            watermark, safe};
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      config(grid * seeds, block, cluster, smem, (cudaStream_t)stream, attr);
+  e = cudaLaunchKernelEx(&cfg, survival_cluster_kernel, in, out, pr, (int*)scratch, stride);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+Inputs inputs(const void* st, const void* node, const void* mem, const void* ev,
+              const void* tier, const void* mig, const void* stick, const void* sdl,
+              const void* base, const void* t) {
+  return Inputs{(const int32_t*)st, (const int32_t*)node, (const float*)mem,
+                (const float*)ev, (const int32_t*)tier, (const uint8_t*)mig,
+                (const int32_t*)stick, (const int32_t*)sdl, (const float*)base,
+                (const int32_t*)t};
+}
+
+}  // namespace
+
 // Columns (p,): st, node (alloc_node), tier, stick (susp_tick), sdl
 // (surv_deadline) int32; mem, ev float32; mig bool. base (n,) float32; t a
 // 0-d int32 on the device. Outputs: pressure (n,) float32; victim, resume,
@@ -502,31 +582,35 @@ extern "C" int survival_scan_launch(
     int airlock, float residual, float watermark, float safe, int t_susp,
     int t_surv, int grid, int block, int cluster, int nonportable, int smem,
     int steps, int scratch_words, void* stream) {
-  if (n <= 0 || p < 0 || p > (1 << kSlotBits)) return (int)cudaErrorInvalidValue;
-  if (scratch_words < survival_scan_scratch_words(p, n)) return (int)cudaErrorInvalidValue;
-  if (block != kThreads || cluster < 1 || cluster > kMaxCluster || grid != cluster ||
-      (cluster > 8 && !nonportable))
-    return (int)cudaErrorInvalidConfiguration;
-  const long long per = (long long)cluster * kThreads;
-  if (steps != (int)((p + per - 1) / per) || steps > kMaxSteps) return (int)cudaErrorInvalidValue;
-  if (smem != (int)layout(n, cluster).bytes) return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_attributes(smem, nonportable);
-  if (e != cudaSuccess) return (int)e;
-  Inputs in{(const int32_t*)st, (const int32_t*)node, (const float*)mem,
-            (const float*)ev, (const int32_t*)tier, (const uint8_t*)mig,
-            (const int32_t*)stick, (const int32_t*)sdl, (const float*)base,
-            (const int32_t*)t};
-  Outputs out{(float*)pressure, (uint8_t*)victim, (uint8_t*)resume, (uint8_t*)react,
-              (uint8_t*)expire};
-  const int nb = layout(n, cluster).nb;
-  Params pr{p, n, airlock, t_susp, t_surv, steps, ((1ull << 32) + nb - 1) / nb, residual,
-            watermark, safe};
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config(grid, block, cluster, smem, (cudaStream_t)stream, attr);
-  e = cudaLaunchKernelEx(&cfg, survival_cluster_kernel, in, out, pr, (int4*)scratch,
-                         (int*)scratch + 4 * (size_t)p);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  if (n > 0 && p >= 0 && scratch_words < survival_scan_scratch_words(p, n))
+    return (int)cudaErrorInvalidValue;
+  const Outputs out{(float*)pressure, (uint8_t*)victim, (uint8_t*)resume, (uint8_t*)react,
+                    (uint8_t*)expire};
+  return launch_scan(inputs(st, node, mem, ev, tier, mig, stick, sdl, base, t), out, scratch, p,
+                     n, airlock, residual, watermark, safe, t_susp, t_surv, grid, block, cluster,
+                     nonportable, smem, steps, 1, 0, stream);
+}
+
+// survival_scan_launch over `seeds` seeds in one launch: every column
+// (seeds, p), base (seeds, n), t (seeds,), the outputs with the same leading
+// axis, and survival_scan_scratch_stride(p, n) words of scratch a seed.
+// grid, block, cluster, smem and steps are one seed's, as the unbatched
+// launcher takes them; the launch has grid * seeds CTAs.
+extern "C" int survival_scan_batched_launch(
+    const void* st, const void* node, const void* mem, const void* ev,
+    const void* tier, const void* mig, const void* stick, const void* sdl,
+    const void* base, const void* t, void* pressure, void* victim,
+    void* resume, void* react, void* expire, void* scratch, int p, int n,
+    int airlock, float residual, float watermark, float safe, int t_susp,
+    int t_surv, int grid, int block, int cluster, int nonportable, int smem,
+    int steps, int seeds, int scratch_words, void* stream) {
+  const long long stride = n > 0 && p >= 0 ? survival_scan_scratch_stride(p, n) : 0;
+  if (seeds < 1 || scratch_words < (long long)seeds * stride) return (int)cudaErrorInvalidValue;
+  const Outputs out{(float*)pressure, (uint8_t*)victim, (uint8_t*)resume, (uint8_t*)react,
+                    (uint8_t*)expire};
+  return launch_scan(inputs(st, node, mem, ev, tier, mig, stick, sdl, base, t), out, scratch, p,
+                     n, airlock, residual, watermark, safe, t_susp, t_surv, grid, block, cluster,
+                     nonportable, smem, steps, seeds, stride, stream);
 }
 
 #ifdef SURVIVAL_SCAN_PHASES

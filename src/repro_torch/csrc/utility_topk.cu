@@ -27,8 +27,10 @@
 //     eval_cost (and bounce_cost); below fastfail_floor the probe
 //     dissipates (SUSPENDED if migrating, else EMPTY).
 // Any other slot is copied through. The counts (active, bounced and not
-// failed, failed) are integer atomics, one a warp, exact in any order, into
-// three words the launcher zeroes first.
+// failed, failed) are integer sums, exact in any order: each warp adds its
+// counts into the seed's accumulator, and the seed's last CTA to finish
+// moves them into the counts output (below), so no memset precedes the
+// launch.
 //
 // Exactness: the plain version on the CPU (kernels/utility_topk/ref.py) is
 // the reference, and every float op is rounded on its own as it rounds it
@@ -54,6 +56,18 @@
 // the two divisions of the degrade, whose factor is then exactly 1; the
 // time left is the launch and one lane's chain of dependent loads and
 // log2f calls per addressing slot.
+//
+// Seed axis (the lockstep engine's batch): grid (ceil(P / 256), B), seed
+// blockIdx.y on its own columns, draws, zones, nodes and tick; an unbatched
+// call is B = 1. Counts: the accumulators live in g_acc_pool, zero when the
+// module loads, 4 words a seed (the three counts and a ticket of finished
+// CTAs) at the word offset the caller passes. Each warp adds into them; the
+// seed's last CTA to take a ticket (after a __threadfence) moves the counts
+// into the seed's output row and sets all four words back to zero, so a
+// launch that ends leaves its region as it found it. Two launches that run
+// at once must use two regions: the caller (kernels/utility_topk/ops.py,
+// accumulator) gives each stream, and each captured CUDA graph, a region of
+// its own. Bound: B times the bytes above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,10 +163,10 @@ struct AddressArgs {
       halflife;
 };
 
-__global__ void __launch_bounds__(kThreads)
-utility_topk_address_kernel(const AddressArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
+// slot i's addressing step; returns its warp's counts (active, bounced and
+// not failed, failed), the same in every lane, all 0 when the warp has no
+// addressing slot (it only copies)
+__device__ __forceinline__ uint3 address_slot(const AddressArgs& a, int i) {
   const bool in = i < a.p;
   const int32_t st = in ? a.st[i] : kEmpty;
   const bool active = st == kAddressing;
@@ -164,7 +178,7 @@ utility_topk_address_kernel(const AddressArgs a) {
       a.timer_o[i] = a.timer[i];
       a.patience_o[i] = a.patience[i];
     }
-    return;  // the whole warp
+    return make_uint3(0u, 0u, 0u);  // the whole warp
   }
   const int32_t node = in ? a.node[i] : 0;
   const int32_t zone = in ? a.zone[i] : 0;
@@ -280,13 +294,60 @@ utility_topk_address_kernel(const AddressArgs a) {
     a.timer_o[i] = timer;
     a.patience_o[i] = patience;
   }
-  const unsigned n_eval = __popc(__ballot_sync(kFull, active));
-  const unsigned n_bounce = __popc(__ballot_sync(kFull, bounce && !ff));
-  const unsigned n_ff = __popc(__ballot_sync(kFull, ff));
-  if (lane == 0) {
-    atomicAdd(&a.counts[0], (int)n_eval);
-    if (n_bounce) atomicAdd(&a.counts[1], (int)n_bounce);
-    if (n_ff) atomicAdd(&a.counts[2], (int)n_ff);
+  return make_uint3(__popc(__ballot_sync(kFull, active)),
+                    __popc(__ballot_sync(kFull, bounce && !ff)), __popc(__ballot_sync(kFull, ff)));
+}
+
+constexpr int kAccPoolWords = 1 << 18;  // the pool of count accumulators
+__device__ int g_acc_pool[kAccPoolWords];
+
+// grid (ceil(p / kThreads), seeds): seed blockIdx.y's addressing step, z
+// zones a seed; its count accumulators at g_acc_pool + acc + 4 * seed
+__global__ void __launch_bounds__(kThreads)
+utility_topk_address_kernel(AddressArgs a, int z, int acc) {
+  const int b = blockIdx.y;
+  const size_t cp = (size_t)b * a.p, cn = (size_t)b * a.n, cz = (size_t)b * z;
+  a.st += cp;
+  a.node += cp;
+  a.zone += cp;
+  a.timer += cp;
+  a.patience += cp;
+  a.migrating += cp;
+  a.mass += cp;
+  a.contig += cp;
+  a.cand_u += cp * (a.k - 1);
+  a.addr_eps += cp * a.k;
+  a.zstart += cz;
+  a.zcount += cz;
+  a.zone_id += cn;
+  a.rep_s += cn;
+  a.rep_h += cn;
+  a.rep_run += cn;
+  a.rep_t += cn;
+  a.ds += cn;
+  a.dh += cn;
+  a.s_true += cn;
+  a.h_true += cn;
+  a.run_true += cn;
+  a.t += b;
+  a.st_o += cp;
+  a.node_o += cp;
+  a.zone_o += cp;
+  a.timer_o += cp;
+  a.patience_o += cp;
+  int* const sums = g_acc_pool + acc + 4 * b;  // three counts, then the ticket
+  const uint3 c = address_slot(a, blockIdx.x * blockDim.x + threadIdx.x);
+  if ((threadIdx.x & 31) == 0 && c.x) {  // a warp with an addressing slot
+    atomicAdd(&sums[0], (int)c.x);
+    if (c.y) atomicAdd(&sums[1], (int)c.y);
+    if (c.z) atomicAdd(&sums[2], (int)c.z);
+  }
+  __threadfence();  // this thread's adds are seen before its CTA's ticket
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd((unsigned*)&sums[3], 1u) == gridDim.x - 1) {
+    __threadfence();  // the seed's last CTA: every other CTA's adds are in
+    for (int j = 0; j < 3; ++j) a.counts[3 * (size_t)b + j] = atomicExch(&sums[j], 0);
+    atomicExch(&sums[3], 0);
   }
 }
 
@@ -309,17 +370,12 @@ extern "C" int utility_topk_launch(const void* s, const void* h,
   return (int)cudaGetLastError();
 }
 
-// The addressing step. ptrs: the 23 inputs in the order of AddressArgs (st
-// ... t), then the outputs st, node, zone, timer, patience (p,) and counts
-// (3,) int32, which is zeroed here on `stream` before the launch. ints: p,
-// k, n, projection (0/1); floats: gamma, sigma, stay_margin, eval_cost,
-// bounce_cost, fastfail_floor, tau, dt_ms, degrade_after_ms,
-// degrade_halflife_ms. Grid and block come from the caller's launch plan; a
-// block other than kThreads, or a grid short of p slots, is refused. Returns
-// cudaGetLastError().
-extern "C" int utility_topk_address_launch(void* const* ptrs, const int* ints,
-                                           const float* floats, int grid,
-                                           int block, void* stream) {
+namespace {
+
+// The launchers' arguments: ptrs the 23 inputs in the order of AddressArgs
+// (st ... t), then the outputs st, node, zone, timer, patience and counts;
+// ints p, k, n, projection; floats the ten scalars
+AddressArgs address_args(void* const* ptrs, const int* ints, const float* floats) {
   AddressArgs a;
   const void* const* src = (const void* const*)ptrs;
   a.st = (const int32_t*)src[0];
@@ -365,20 +421,57 @@ extern "C" int utility_topk_address_launch(void* const* ptrs, const int* ints,
   a.dt = floats[7];
   a.after = floats[8];
   a.halflife = floats[9];
-  cudaError_t e =
-      cudaMemsetAsync(a.counts, 0, 3 * sizeof(int32_t), (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  if (a.p <= 0) return 0;
-  if (a.k < 1 || a.n < 1) return (int)cudaErrorInvalidValue;
+  return a;
+}
+
+}  // namespace
+
+// The addressing step over `seeds` seeds. ptrs: the 23 inputs in the order
+// of AddressArgs (st ... t), then the outputs st, node, zone, timer,
+// patience and counts (3,) int32 a seed, every one with a leading seed axis
+// (the zones' (seeds, z), the tick (seeds,)). ints: p, k, n, projection
+// (0/1), z, and the word offset of the seeds' count accumulators in
+// g_acc_pool (4 words a seed); floats: gamma, sigma, stay_margin,
+// eval_cost, bounce_cost, fastfail_floor, tau, dt_ms, degrade_after_ms,
+// degrade_halflife_ms. grid and block are one seed's, from the caller's
+// launch plan; the launch's grid is (grid, seeds). A block other than
+// kThreads, a grid short of p slots, or accumulators past the pool are
+// refused. Returns cudaGetLastError().
+extern "C" int utility_topk_address_batched_launch(void* const* ptrs, const int* ints,
+                                                   const float* floats, int grid, int block,
+                                                   int seeds, void* stream) {
+  AddressArgs a = address_args(ptrs, ints, floats);
+  const int z = ints[4], acc = ints[5];
+  if (a.p <= 0 || seeds < 1 || seeds > 65535 || z < 0 || a.k < 1 || a.n < 1 || acc < 0 ||
+      (long long)acc + 4LL * seeds > kAccPoolWords)
+    return (int)cudaErrorInvalidValue;
   if (block != kThreads || grid < 1 || (long long)grid * block < a.p)
     return (int)cudaErrorInvalidConfiguration;
-  utility_topk_address_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  utility_topk_address_kernel<<<dim3(grid, seeds), block, 0, (cudaStream_t)stream>>>(a, z, acc);
   return (int)cudaGetLastError();
 }
 
+// utility_topk_address_batched_launch of one seed: the inputs and outputs
+// without the seed axis (counts (3,)).
+extern "C" int utility_topk_address_launch(void* const* ptrs, const int* ints,
+                                           const float* floats, int grid, int block,
+                                           void* stream) {
+  return utility_topk_address_batched_launch(ptrs, ints, floats, grid, block, 1, stream);
+}
+
+// The id of the CUDA graph capture under way on `stream`, 0 when none.
+extern "C" int utility_topk_capture_id(void* stream, unsigned long long* id) {
+  cudaStreamCaptureStatus status;
+  unsigned long long i = 0;
+  const cudaError_t e = cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, &i);
+  *id = status == cudaStreamCaptureStatusActive ? i : 0;
+  return (int)e;
+}
+
 // Compiled attributes of kernel k (0: utility_topk_kernel, 1:
-// utility_topk_address_kernel): out[0] static shared bytes, out[1]
-// registers a thread, out[2] maxThreadsPerBlock.
+// utility_topk_address_kernel):
+// out[0] static shared bytes, out[1] registers a thread, out[2]
+// maxThreadsPerBlock.
 extern "C" int utility_topk_attrs(int k, int* out) {
   cudaFuncAttributes a;
   cudaError_t e;

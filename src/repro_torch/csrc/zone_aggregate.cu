@@ -25,6 +25,11 @@
 // block barrier, and the sums do not change from run to run. The order
 // differs from PyTorch's CPU sum, which is why the plain version is held to
 // rtol 1e-5, not bit equality.
+//
+// Batched entry (zone_aggregate_batched_launch, the lockstep engine's seed
+// axis): grid (ceil(Z / 32), B), block row blockIdx.y on seed blockIdx.y's
+// node vectors (n a seed), members, mask, tick and tables; the body is the
+// one above with the seed's offsets added. Bound: B times the bytes above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,10 +46,23 @@ zone_aggregate_kernel(const float* __restrict__ s, const float* __restrict__ h,
                       const int32_t* __restrict__ t, int every,
                       const float* __restrict__ zs_old,
                       const float* __restrict__ zh_old, float* __restrict__ zs,
-                      float* __restrict__ zh, int z, int m) {
+                      float* __restrict__ zh, int z, int m, int n) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= z) return;  // a warp past the last zone row (the whole warp)
+  // seed blockIdx.y's vectors (y = 0: the unbatched call)
+  const size_t cz = (size_t)blockIdx.y * z, czm = cz * m, cn = (size_t)blockIdx.y * n;
+  s += cn;
+  h += cn;
+  if (member != nullptr) member += czm;
+  mask += czm;
+  if (t != nullptr) {
+    t += blockIdx.y;
+    zs_old += cz;
+    zh_old += cz;
+  }
+  zs += cz;
+  zh += cz;
   // x mod every == 0 under C's and Python's sign rules alike
   if (t != nullptr && *t % every != 0) {  // not a refresh tick: keep the table
     if (lane == 0) {
@@ -82,21 +100,43 @@ zone_aggregate_kernel(const float* __restrict__ s, const float* __restrict__ h,
 // plan (kernels/zone_aggregate/plan.py): whole warps, at most kMaxThreads,
 // a warp for every zone row, else refused. Launches on `stream` and returns
 // cudaGetLastError().
+extern "C" int zone_aggregate_batched_launch(const void* s, const void* h,
+                                             const void* member, const void* mask,
+                                             const void* t, int every,
+                                             const void* zs_old, const void* zh_old,
+                                             void* zs, void* zh, int z, int m, int n,
+                                             int grid, int block, int seeds, void* stream);
+
 extern "C" int zone_aggregate_launch(const void* s, const void* h,
                                      const void* member, const void* mask,
                                      const void* t, int every,
                                      const void* zs_old, const void* zh_old,
                                      void* zs, void* zh, int z, int m, int grid,
                                      int block, void* stream) {
+  return zone_aggregate_batched_launch(s, h, member, mask, t, every, zs_old, zh_old, zs, zh, z,
+                                       m, 0, grid, block, 1, stream);
+}
+
+// zone_aggregate_launch over `seeds` seeds in one launch: s, h (seeds, n),
+// member and mask (seeds, z, m), t (seeds,) with zs_old, zh_old (seeds, z)
+// or null -> zs, zh (seeds, z). grid and block are one seed's; the launch's
+// grid is (grid, seeds).
+extern "C" int zone_aggregate_batched_launch(const void* s, const void* h,
+                                             const void* member, const void* mask,
+                                             const void* t, int every,
+                                             const void* zs_old, const void* zh_old,
+                                             void* zs, void* zh, int z, int m, int n,
+                                             int grid, int block, int seeds, void* stream) {
   if (z <= 0) return 0;
-  if (m < 0 || (t != nullptr && every < 1)) return (int)cudaErrorInvalidValue;
+  if (m < 0 || n < 0 || seeds < 1 || seeds > 65535 || (t != nullptr && every < 1))
+    return (int)cudaErrorInvalidValue;
   if (block < 32 || block > kMaxThreads || block % 32 != 0 || grid < 1 ||
       (long long)grid * (block / 32) < z)
     return (int)cudaErrorInvalidConfiguration;
-  zone_aggregate_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  zone_aggregate_kernel<<<dim3(grid, seeds), block, 0, (cudaStream_t)stream>>>(
       (const float*)s, (const float*)h, (const int32_t*)member,
       (const float*)mask, (const int32_t*)t, every, (const float*)zs_old,
-      (const float*)zh_old, (float*)zs, (float*)zh, z, m);
+      (const float*)zh_old, (float*)zs, (float*)zh, z, m, n);
   return (int)cudaGetLastError();
 }
 

@@ -6,6 +6,7 @@ of ``utility_topk_address`` and ``zone_aggregate_members``.
     python -m repro_torch.kernel_bench --rounds [--parent PATH] [--out FILE]
     python -m repro_torch.kernel_bench --rounds --sharded [--out FILE]
     python -m repro_torch.kernel_bench --address [--parent PATH] [--out FILE]
+    python -m repro_torch.kernel_bench --batch B [--parent DIR] [--out FILE]
 
 At the survival_scan shapes of ``chip_smoke.py`` phase 2 (Exp5: 5000 nodes,
 65 536 probe slots; Exp7's top cell: 65 536 nodes, 131 072 slots), Airlock
@@ -64,6 +65,16 @@ entry ``utility_topk`` of the port and of the parent (a source that lacks
 the addressing entry, such as an older one, is timed on the tile alone).
 Its inputs and corner cases (``address_inputs``, ``address_edge_cases``)
 live here too.
+
+With ``--batch B``, the four batched entries of the lockstep tick
+(``bitmap_fit_rounds_batched``, ``utility_topk_address_batched``,
+``zone_aggregate_members_batched``, ``survival_scan_batched``) on the
+inputs the lockstep tick of B seeds gives them at Exp5 (Airlock on, tick
+200, seeds 0 to B - 1): the graph-replay device ms of one batched launch,
+checked equal to the B seeds' unbatched calls, against B launches of the
+unbatched entry, of the port and, with ``--parent DIR`` (a directory
+holding the four sources of an earlier tree, e.g. its ``csrc``), of that
+build, in the order parent, port, port, parent.
 
 Prints one line per measurement, the card's name and power limit, and writes
 the numbers as JSON to ``--out`` (default ``build/kernel_bench.json``).
@@ -377,6 +388,54 @@ def address_kw(**overrides) -> dict:
     from repro_torch.core.hotpath import address_params
 
     return dict(address_params(LaminarConfig()), **overrides)
+
+
+def members_inputs(N: int, Z: int, seed: int = 0, t: int | None = 40,
+                   zones_seed: int | None = None) -> tuple:
+    """``zone_aggregate_members`` inputs (CPU tensors): zones of random
+    sizes tiling the N nodes (drawn from ``zones_seed``, default ``seed``),
+    densified as the state lays them out, the reported slack and heat of the
+    nodes, and with ``t`` the tick and the old table for the refresh select."""
+    from repro_torch.core.state import densify_zones
+
+    rng = np.random.default_rng(seed)
+    geo = np.random.default_rng(seed if zones_seed is None else zones_seed)
+    cuts = np.sort(geo.choice(np.arange(1, N), size=Z - 1, replace=False)) if Z > 1 else []
+    zstart = np.concatenate([[0], cuts]).astype(np.int32)
+    member, mask = densify_zones(zstart, np.diff(np.concatenate([zstart, [N]])).astype(np.int32))
+    args = tuple(torch.from_numpy(x) for x in (rng.uniform(0, 64, N).astype(np.float32),
+                                               rng.uniform(0, 16, N).astype(np.float32),
+                                               member, mask))
+    if t is None:
+        return args
+    return args + (torch.tensor(t, dtype=torch.int32),
+                   *(torch.from_numpy(rng.uniform(0, 64, Z).astype(np.float32)) for _ in "SH"))
+
+
+def batched_inputs(B: int, N: int = 37, P: int = 1029, K: int = 8, Z: int = 3, W: int = 2,
+                   seed: int = 0, airlock: bool = True) -> dict:
+    """The four batched entries' inputs (CPU tensors with a leading axis of
+    B seeds, seed ``b`` drawn from ``seed + b``), at one shape: entry ->
+    (args, kw). The ticks differ by seed (40, 41, ...: a refresh tick of
+    ``every = 20`` and others)."""
+    def stack(cases):
+        cols = zip(*(args for args, _ in cases))
+        return (tuple(torch.stack(xs) if isinstance(xs[0], torch.Tensor) else xs[0]
+                      for xs in cols), cases[0][1])
+
+    surv_kw = dict(KW, airlock=airlock, watermark=0.9 if airlock else 1.0)
+    return {
+        "bitmap_fit_rounds_batched": stack([rounds_inputs(N, P, W, seed=seed + b, queued=0.2)
+                                            for b in range(B)]),
+        "utility_topk_address_batched": stack([
+            (address_inputs(N, P, K, Z, seed=seed + b, addressing=0.3, t=400 + b), address_kw())
+            for b in range(B)]),
+        "zone_aggregate_members_batched": stack([
+            (members_inputs(N, Z, seed=seed + b, t=40 + b, zones_seed=seed), dict(every=20))
+            for b in range(B)]),
+        "survival_scan_batched": stack([(inputs(N, P, seed + b, "cpu"), surv_kw)
+                                        for b in range(B)]),
+    }
 
 
 def address_edge_cases(seed: int = 0) -> dict:
@@ -852,6 +911,64 @@ def address_bench(dev, parent_path: Path | None = None) -> list:
     return rows
 
 
+BATCH_ENTRIES = {  # the flat tick's entries: their sources
+    "bitmap_fit_rounds": "bitmap_fit", "utility_topk_address": "utility_topk",
+    "zone_aggregate_members": "zone_aggregate", "survival_scan": "survival_scan"}
+
+
+def batch_bench(dev, B: int, parent_dir: Path | None = None) -> list:
+    """The rows of ``--batch B`` (see the module docstring)."""
+    import importlib
+
+    from repro_torch.kernels import BATCHED, LAUNCHERS, PLANS, WRAPPERS
+
+    cfg = profile_tick.exp5_config(True)
+    calls = profile_tick.batch_tick_calls(cfg, list(range(B)), profile_tick.WARMUP_TICKS, 1,
+                                          [BATCHED[e] for e in BATCH_ENTRIES], device=dev)
+    rows = []
+    for entry, source in BATCH_ENTRIES.items():
+        name = BATCHED[entry]
+        ((args, kw, outs),) = calls[name]
+        per = profile_tick.per_seed_calls(calls[name])
+        libs = {"port": None}
+        if parent_dir is not None:
+            libs["parent"] = lib = build_lib(parent_dir / f"{source}.cu", f"parent_{source}")
+            sig = importlib.import_module(f"repro_torch.kernels.{source}.ops")._SIG
+            for fn in sig:
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = sig[fn]
+                    getattr(lib, fn).restype = ctypes.c_int
+
+        def unbatched(lib):
+            def run():
+                got = []
+                for a, k, _ in per:
+                    plan = PLANS[entry](*a, **k)
+                    o = plan.new_outputs(dev)
+                    LAUNCHERS[entry](plan, o, *a, **k, lib=lib)
+                    got.append(o)
+                return got
+            return run
+
+        for label, lib in libs.items():  # each build's B launches equal the batched launch
+            for i, got in enumerate(unbatched(lib)()):
+                check = all(torch.equal(g, o[i]) for g, o in zip(got, outs))
+                if not check:
+                    print(f"batch B={B} [{entry}]: seed {i}: the {label} build's unbatched "
+                          "launch differs from the batched one")
+                    return []
+        order = ["parent", "port", "port", "parent"] if parent_dir is not None else ["port"]
+        times = [(label, graph_ms(unbatched(libs[label]))) for label in order]
+        batched_ms = graph_ms(lambda: WRAPPERS[name](*args, **kw))
+        rows.append(dict(entry=name, seeds=B, tick=profile_tick.WARMUP_TICKS,
+                         batched_ms=batched_ms, unbatched_ms=times))
+        print(f"batch B={B} [{entry}]: one batched launch {batched_ms:.6f} ms (device, graph "
+              f"replay); {B} unbatched launches, in order: "
+              + ", ".join(f"{label} {t:.6f}" for label, t in times)
+              + " ms; outputs equal seed by seed", flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
@@ -864,6 +981,9 @@ def main(argv=None) -> int:
                     help="utility_topk_address and zone_aggregate_members instead")
     ap.add_argument("--phases", action="store_true",
                     help="cycles by phase of the cluster kernel (an instrumented build)")
+    ap.add_argument("--batch", type=int, default=0, metavar="B",
+                    help="the four batched entries at B seeds (--parent: a directory of "
+                         "the earlier sources)")
     ap.add_argument("--out", type=Path, default=Path("build/kernel_bench.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -889,6 +1009,9 @@ def main(argv=None) -> int:
                 return write(args.out, card, rounds_blocked_bench(dev))
             finally:
                 dist.destroy_process_group()
+    if args.batch:
+        rows = batch_bench(dev, args.batch, args.parent)
+        return write(args.out, card, rows) if rows else 1
     if args.rounds:
         return write(args.out, card, rounds_bench(dev, args.parent))
     if args.address:

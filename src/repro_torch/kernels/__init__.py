@@ -20,6 +20,15 @@ launches in ``<wrapper>.launches``.
   * ``block_copy``    — a float32 block copy under any plan: the port of the
     static analyzer's known-bad fixture kernels, on no main path
 
+The four entries of the flat tick (``bitmap_fit_rounds``,
+``utility_topk_address``, ``zone_aggregate_members``, ``survival_scan``)
+each have a ``<entry>_batched`` twin over a leading seed axis, one launch
+for all seeds, and a custom op ``repro_torch::<entry>`` that
+``torch.func.vmap`` maps onto the twin (``kernels.batching``): the
+lockstep engine's tick. The twin launches the entry's own kernel with a
+seed axis in its grid, under the entry's own plan builder and launcher
+(an unbatched call is one seed); it only counts its launches apart.
+
 ``WRAPPERS``, ``PLANS`` and ``LAUNCHERS`` map each hot-path entry to its
 wrapper, its plan for the wrapper's arguments, and the launch function the
 wrapper calls (``launch(plan, outs, *args, **kw)``).
@@ -44,6 +53,10 @@ WRAPPERS = {
     "zone_aggregate": zone_aggregate.zone_aggregate,
     "zone_aggregate_members": zone_aggregate.zone_aggregate_members,
     "survival_scan": survival_scan.survival_scan,
+    "bitmap_fit_rounds_batched": bitmap_fit.bitmap_fit_rounds_batched,
+    "utility_topk_address_batched": utility_topk.utility_topk_address_batched,
+    "zone_aggregate_members_batched": zone_aggregate.zone_aggregate_members_batched,
+    "survival_scan_batched": survival_scan.survival_scan_batched,
 }
 PLANS = {
     "bitmap_fit": _bitmap_plan.for_call,
@@ -55,6 +68,10 @@ PLANS = {
     "zone_aggregate": _agg_plan.for_call,
     "zone_aggregate_members": _agg_plan.for_members_call,
     "survival_scan": _surv_plan.for_call,
+    "bitmap_fit_rounds_batched": _bitmap_plan.for_rounds_call,
+    "utility_topk_address_batched": _topk_plan.for_address_call,
+    "zone_aggregate_members_batched": _agg_plan.for_members_call,
+    "survival_scan_batched": _surv_plan.for_call,
 }
 LAUNCHERS = {
     "bitmap_fit": bitmap_fit.launch,
@@ -66,7 +83,13 @@ LAUNCHERS = {
     "zone_aggregate": zone_aggregate.launch,
     "zone_aggregate_members": zone_aggregate.launch_members,
     "survival_scan": survival_scan.launch,
+    "bitmap_fit_rounds_batched": bitmap_fit.launch_rounds,
+    "utility_topk_address_batched": utility_topk.launch_address,
+    "zone_aggregate_members_batched": zone_aggregate.launch_members,
+    "survival_scan_batched": survival_scan.launch,
 }
+# each flat-tick entry's batched twin (its custom op's batching rule)
+BATCHED = {name[: -len("_batched")]: name for name in WRAPPERS if name.endswith("_batched")}
 
-__all__ = ["LAUNCHERS", "PLANS", "WRAPPERS", "bitmap_fit", "survival_scan", "utility_topk",
+__all__ = ["BATCHED", "LAUNCHERS", "PLANS", "WRAPPERS", "bitmap_fit", "survival_scan", "utility_topk",
            "zone_aggregate"]

@@ -1,0 +1,81 @@
+"""The seed axis of the tick's four kernels, under ``torch.func.vmap``.
+
+The lockstep engine (``core.engine``: ``simulate_batch``) runs the tick
+under ``torch.func.vmap`` over a leading seed axis, as the JAX package's
+``run_batch`` runs ``jax.vmap`` over its scan. ``vmap`` has no rule for a
+launch through ``ctypes``, so each of the four entries the flat tick calls
+is a ``torch.library.custom_op`` (``repro_torch::<entry>``):
+
+  * its kernel, on the CPU and on CUDA, is the entry's wrapper, which takes
+    the plain version for a CPU tensor and launches the hand-written kernel
+    for a CUDA one;
+  * its fake (meta) kernel gives the outputs' shapes;
+  * its batching rule (``register_vmap``) calls the entry's batched wrapper
+    ONCE for all seeds: on CUDA one launch of the batched kernel, whose grid
+    has a seed axis (as ``vmap`` over a ``pallas_call`` adds a grid axis),
+    on the CPU the plain version seed by seed (:func:`per_seed`).
+
+Outside ``vmap`` the op is the wrapper, so the unbatched tick and its launch
+counts are as before. Nothing here runs when the module is imported but the
+registrations.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Callable, Sequence
+
+import torch
+
+__all__ = ["per_seed", "register_batching", "seeds_first"]
+
+
+def seeds_first(batch: int, in_dims: Sequence, args: Sequence) -> list:
+    """``args`` with the seed axis first and contiguous, as a batched entry
+    takes them: a mapped tensor has its axis moved to 0; a tensor ``vmap``
+    does not map (every seed's the same) is broadcast to ``batch`` rows, a
+    copy; ``None`` and non-tensors are kept. ``in_dims`` may be shorter
+    than ``args`` (trailing ``None`` arguments)."""
+    dims = tuple(in_dims) + (None,) * (len(args) - len(in_dims))
+    out = []
+    for a, d in zip(args, dims):
+        if not isinstance(a, torch.Tensor):
+            out.append(a)
+        elif d is None:
+            out.append(a.expand((batch,) + tuple(a.shape)).contiguous())
+        else:
+            out.append(a.movedim(d, 0).contiguous())
+    return out
+
+
+def per_seed(fn: Callable) -> Callable:
+    """The plain version of a batched entry: the unbatched plain version
+    ``fn`` applied seed by seed (the leading axis of every tensor argument),
+    its outputs stacked along a new leading axis."""
+
+    def batched(*args, **kw):
+        B = next(a.shape[0] for a in args if isinstance(a, torch.Tensor))
+        outs = [fn(*(a[i] if isinstance(a, torch.Tensor) else a for a in args), **kw)
+                for i in range(B)]
+        if isinstance(outs[0], torch.Tensor):
+            return torch.stack(outs)
+        return tuple(torch.stack(o) for o in zip(*outs))
+
+    batched.__name__ = f"{fn.__name__}_per_seed"
+    batched.__doc__ = f"``{fn.__name__}`` seed by seed, stacked."
+    return batched
+
+
+def register_batching(op, batched: Callable) -> None:
+    """Give the custom op ``op`` its batching rule: every tensor argument
+    with the seed axis first (:func:`seeds_first`), then ONE call of
+    ``batched`` (the entry's batched wrapper, looked up on its module at
+    each call, as a recording patch replaces it), its outputs mapped at 0."""
+    module, name = sys.modules[batched.__module__], batched.__name__
+
+    def rule(info, in_dims, *args, **kw):
+        outs = getattr(module, name)(*seeds_first(info.batch_size, in_dims, args), **kw)
+        n = 1 if isinstance(outs, torch.Tensor) else len(outs)
+        return outs, (0,) * n if n > 1 else 0
+
+    torch.library.register_vmap(op, rule)

@@ -7,7 +7,11 @@ launch ``bitmap_fit_kernel``; ``bitmap_fit_rounds`` launches
 ``bitmap_fit_rounds_kernel``, every arbitration round of a tick in one
 cluster launch, and ``bitmap_fit_rounds_blocked`` launches
 ``bitmap_fit_rounds_blocked_kernel``, the same rounds on one rank's zone
-block (the zone-sharded tick's). Each counts its own launches, so a run can
+block (the zone-sharded tick's). ``bitmap_fit_rounds_batched`` runs the
+flat rounds of B seeds in one launch (one cluster a seed), and
+``bitmap_fit_rounds_op`` is the custom op the tick calls: the flat wrapper,
+with the batched one as its batching rule under ``torch.func.vmap``
+(``kernels.batching``). Each wrapper counts its own launches, so a run can
 tell which entry it went through. Grid and block come from the entry's
 launch plan (``plan.py``).
 """
@@ -15,20 +19,25 @@ launch plan (``plan.py``).
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
+from torch import Tensor
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.batching import register_batching
 from repro_torch.kernels.bitmap_fit import plan as _plan
 from repro_torch.kernels.bitmap_fit.ref import (
     bitmap_fit_blocked_ref,
     bitmap_fit_ref,
+    bitmap_fit_rounds_batched_ref,
     bitmap_fit_rounds_blocked_ref,
     bitmap_fit_rounds_ref,
 )
 from repro_torch.kernels.launch_plan import LaunchPlan
 
-__all__ = ["bitmap_fit", "bitmap_fit_blocked", "bitmap_fit_rounds", "bitmap_fit_rounds_blocked"]
+__all__ = ["bitmap_fit", "bitmap_fit_blocked", "bitmap_fit_rounds", "bitmap_fit_rounds_batched",
+           "bitmap_fit_rounds_blocked"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +45,7 @@ _SIG = {
     "bitmap_fit_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bitmap_fit_rounds_launch": [_P] * 13 + [_I] * 13 + [_P],
     "bitmap_fit_rounds_blocked_launch": [_P] * 14 + [_I] * 14 + [_P],
+    "bitmap_fit_rounds_batched_launch": [_P] * 13 + [_I] * 14 + [_P],
 }
 
 
@@ -99,15 +109,15 @@ def bitmap_fit_blocked(
 def _rounds_operands(plan: LaunchPlan, outs, scratch, st, node, ev, mass, contig, words,
                      throttled):
     """Check a rounds call's columns (P,), replicated words (N, W) and
-    throttled flags (N,) and its outputs; returns the scratch, allocated
-    unless given."""
-    entry, P, (N, W) = plan.entry, st.shape[0], words.shape
+    throttled flags (N,), each with the plan's leading seed axis, and its
+    outputs; returns the scratch, allocated unless given."""
+    entry, lead, P, (N, W) = plan.entry, plan.lead, st.shape[-1], words.shape[-2:]
     for x, dtype, what in ((st, torch.int32, "st"), (node, torch.int32, "node"),
                            (ev, torch.float32, "ev"), (mass, torch.int32, "mass"),
                            (contig, torch.bool, "contig")):
-        _build.expect(x, dtype, (P,), f"{entry} {what}")
-    _build.expect(words, torch.int32, (N, W), f"{entry} words")
-    _build.expect(throttled, torch.bool, (N,), f"{entry} throttled")
+        _build.expect(x, dtype, (*lead, P), f"{entry} {what}")
+    _build.expect(words, torch.int32, (*lead, N, W), f"{entry} words")
+    _build.expect(throttled, torch.bool, (*lead, N), f"{entry} throttled")
     for x, o in zip(outs, plan.outputs):
         _build.expect(x, o.dtype, o.shape, f"{entry} {o.name}")
     if scratch is None:
@@ -120,21 +130,25 @@ def launch_rounds(
     plan: LaunchPlan, outs, st, node, ev, mass, contig, words, throttled, *, rounds: int,
     atoms: int, policy: str, scratch=None, lib=None,
 ) -> None:
-    """Launch a ``bitmap_fit_rounds`` plan (one cluster) into ``outs``
-    (winner, feas, alloc, round, admit), allocated by the caller;
-    ``scratch`` (the plan's ``scratch_words`` int32: the election keys) is
-    allocated here unless given; ``lib`` another build of the source (a
-    benchmark's), else the port's. Counts nothing."""
+    """Launch a ``bitmap_fit_rounds`` plan into ``outs`` (winner, feas,
+    alloc, round, admit), allocated by the caller: one cluster, or for a
+    batched plan B clusters, one a seed, with every tensor's leading seed
+    axis (columns (B, P), ``words`` (B, N, W), ``throttled`` (B, N)).
+    ``scratch`` (the plan's ``scratch_words`` int32: the election keys, one
+    seed's after another) is allocated here unless given; ``lib`` another
+    build of the source (a benchmark's), else the port's. Counts nothing."""
     cols = (st, node, ev, mass, contig, words, throttled)
     scratch = _rounds_operands(plan, outs, scratch, *cols)
     lib = lib or _build.load("bitmap_fit", _SIG)
-    (N, W) = words.shape
-    err = lib.bitmap_fit_rounds_launch(
-        *(_build.ptr(x) for x in (*cols, *outs, scratch)),
-        st.shape[0], N, W, int(atoms), int(rounds), int(policy == "best"), *_plan.pack(plan),
-        plan.scratch_words, _build.stream(st),
-    )
-    _build.check(err, "bitmap_fit_rounds")
+    N, W = words.shape[-2:]
+    args = (*(_build.ptr(x) for x in (*cols, *outs, scratch)), st.shape[-1], N, W, int(atoms),
+            int(rounds), int(policy == "best"), *_plan.pack(plan))
+    if plan.seeds:
+        err = lib.bitmap_fit_rounds_batched_launch(*args, plan.seeds, plan.scratch_words,
+                                                   _build.stream(st))
+    else:
+        err = lib.bitmap_fit_rounds_launch(*args, plan.scratch_words, _build.stream(st))
+    _build.check(err, plan.entry)
 
 
 def launch_rounds_blocked(
@@ -196,6 +210,25 @@ def bitmap_fit_rounds(
     return tuple(outs)
 
 
+def bitmap_fit_rounds_batched(
+    st, node, ev, mass, contig, words, throttled, *, rounds: int, atoms: int, policy: str
+):
+    """:func:`bitmap_fit_rounds` of B seeds at once: columns (B, P),
+    ``words`` (B, N, W), ``throttled`` (B, N); the outputs with a leading
+    seed axis. A CUDA tensor launches the batched kernel once (one cluster
+    a seed); CPU tensors take :func:`bitmap_fit_rounds_batched_ref`, the
+    plain version seed by seed."""
+    args = (st, node, ev, mass, contig, words, throttled)
+    kw = dict(rounds=rounds, atoms=atoms, policy=policy)
+    if not st.is_cuda:
+        return bitmap_fit_rounds_batched_ref(*args, **kw)
+    plan = _plan.for_rounds_call(*args, **kw)
+    outs = plan.new_outputs(st.device)
+    launch_rounds(plan, outs, *args, **kw)
+    bitmap_fit_rounds_batched.launches += 1
+    return tuple(outs)
+
+
 def bitmap_fit_rounds_blocked(
     st, node, ev, mass, contig, words, throttled, member, mask, local, *, rounds: int,
     atoms: int, policy: str,
@@ -224,3 +257,27 @@ bitmap_fit.launches = 0
 bitmap_fit_blocked.launches = 0
 bitmap_fit_rounds.launches = 0
 bitmap_fit_rounds_blocked.launches = 0
+bitmap_fit_rounds_batched.launches = 0
+
+
+@torch.library.custom_op("repro_torch::bitmap_fit_rounds", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def bitmap_fit_rounds_op(
+    st: Tensor, node: Tensor, ev: Tensor, mass: Tensor, contig: Tensor, words: Tensor,
+    throttled: Tensor, *, rounds: int, atoms: int, policy: str,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """:func:`bitmap_fit_rounds` as a custom op (the wrapper, looked up at
+    each call); under ``vmap``, one :func:`bitmap_fit_rounds_batched`."""
+    return bitmap_fit_rounds(st, node, ev, mass, contig, words, throttled, rounds=rounds,
+                             atoms=atoms, policy=policy)
+
+
+@bitmap_fit_rounds_op.register_fake
+def _(st, node, ev, mass, contig, words, throttled, *, rounds, **_):
+    (N, W), P = words.shape, st.shape[0]
+    return (st.new_empty((rounds, N)), st.new_empty((rounds, N), dtype=torch.bool),
+            st.new_empty((rounds, N, W)), st.new_empty((P,)),
+            st.new_empty((P,), dtype=torch.bool))
+
+
+register_batching(bitmap_fit_rounds_op, bitmap_fit_rounds_batched)

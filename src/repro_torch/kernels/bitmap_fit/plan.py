@@ -35,7 +35,15 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.launch_plan import Carve, Launch, LaunchPlan, Operand, Output, cdiv
+from repro_torch.kernels.launch_plan import (
+    Carve,
+    Launch,
+    LaunchPlan,
+    Operand,
+    Output,
+    batched,
+    cdiv,
+)
 
 # the order of bitmap_fit_attrs: the rounds kernels (flat, then zone-blocked)
 # for 1 to 4 64-bit words a node
@@ -99,9 +107,14 @@ def _refuse(entry: str, N: int, W: int, R: int, atoms: int, rows: str = "node") 
 
 
 @functools.lru_cache(maxsize=None)
-def rounds_plan(P: int, N: int, W: int, R: int, atoms: int) -> LaunchPlan:
+def rounds_plan(P: int, N: int, W: int, R: int, atoms: int, seeds: int = 0) -> LaunchPlan:
     """The one launch of ``bitmap_fit_rounds`` at (P, N, W, R, atoms). The
-    allocation policy changes what the kernel computes, not its geometry."""
+    allocation policy changes what the kernel computes, not its geometry.
+    ``seeds``: 0 for one seed's call, else ``bitmap_fit_rounds_batched``'s
+    over that many seeds: cluster ``b`` on seed ``b``'s columns, words,
+    outputs and keys (no cluster barrier spans two seeds)."""
+    if seeds:
+        return batched(rounds_plan(P, N, W, R, atoms), seeds, rounds_scratch_words(N, R))
     _refuse("bitmap_fit_rounds", N, W, R, atoms)
     pc, nb = cdiv(P, CLUSTER), cdiv(N, CLUSTER)
     ops = tuple(Operand(c, P, pc) for c in ("st", "node", "ev"))
@@ -125,8 +138,10 @@ def rounds_plan(P: int, N: int, W: int, R: int, atoms: int) -> LaunchPlan:
 
 def for_rounds_call(st, node, ev, mass, contig, words, throttled, *, rounds: int, atoms: int,
                     **_) -> LaunchPlan:
-    """The plan of ``bitmap_fit_rounds``."""
-    return rounds_plan(st.shape[0], words.shape[0], words.shape[1], int(rounds), int(atoms))
+    """The plan of ``bitmap_fit_rounds``, or of its batched entry when every
+    argument has a leading seed axis."""
+    return rounds_plan(st.shape[-1], *words.shape[-2:], int(rounds), int(atoms),
+                       *st.shape[:-1])
 
 
 @functools.lru_cache(maxsize=None)

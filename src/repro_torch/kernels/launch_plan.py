@@ -18,6 +18,12 @@ Operand rows are the units a launch indexes by block: block ``b`` touches rows
 ``[first + b * rows_per_block, first + (b + 1) * rows_per_block)``. Accesses
 whose row comes from data (scatters by node index) are not listed; the guard
 bands of ``chip_smoke.py`` see those.
+
+A batched plan (:func:`batched`, the lockstep engine's seed axis) runs the
+same launches over ``seeds`` seeds at once: ``Launch.seeds`` is a second grid
+dimension, every operand's rows are one seed's (seed ``s`` addresses its own
+copy of each operand), every output has a leading seed axis, and the scratch
+holds one stride of carve-outs a seed.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["Carve", "Launch", "LaunchPlan", "Operand", "Output", "cdiv"]
+__all__ = ["Carve", "Launch", "LaunchPlan", "Operand", "Output", "batched", "cdiv"]
 
 
 def cdiv(a: int, b: int) -> int:
@@ -54,7 +60,11 @@ class Launch:
     """One kernel launch: ``kernel<<<grid, block, dynamic_smem>>>``, in
     clusters of ``cluster`` CTAs (``cudaLaunchAttributeClusterDimension``;
     1: no cluster). A cluster past the portable 8 CTAs needs
-    ``cluster_nonportable`` (``cudaFuncAttributeNonPortableClusterSizeAllowed``)."""
+    ``cluster_nonportable`` (``cudaFuncAttributeNonPortableClusterSizeAllowed``).
+    ``seeds``: the seed axis of a batched launch, a second grid dimension
+    (``blockIdx.y``; for a cluster launch, the cluster's index along x:
+    ``grid * seeds`` CTAs in all), each seed on its own copy of the
+    operands."""
 
     kernel: str  # the ``__global__`` function's name in the source
     grid: int
@@ -65,6 +75,7 @@ class Launch:
     static_smem: int = 0  # declared; chip_smoke.py holds it against the compiled kernel
     cluster: int = 1
     cluster_nonportable: bool = False
+    seeds: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +110,33 @@ class LaunchPlan:
     outputs: Tuple[Output, ...]
     scratch_words: int = 0
     scratch: Tuple[Carve, ...] = ()
+    seeds: int = 0  # the leading seed axis of a batched plan's tensors; 0: none
+
+    @property
+    def lead(self) -> Tuple[int, ...]:
+        """The leading axes of every tensor of a call: ``(seeds,)`` for a
+        batched plan, else none."""
+        return (self.seeds,) if self.seeds else ()
 
     def new_outputs(self, device) -> list:
         """Uninitialised output tensors, as the plan declares them."""
         return [torch.empty(o.shape, dtype=o.dtype, device=device) for o in self.outputs]
+
+
+def batched(plan: LaunchPlan, seeds: int, scratch_stride: int = 0) -> LaunchPlan:
+    """``plan`` over ``seeds`` seeds in one launch each: the entry
+    ``<entry>_batched``, every launch with ``seeds`` set, every output with a
+    leading seed axis, and one copy of the scratch carve-outs a seed,
+    ``scratch_stride`` words apart."""
+    if seeds < 1:
+        raise ValueError(f"{plan.entry}_batched: {seeds} seeds; a batch holds at least one")
+    return LaunchPlan(
+        entry=f"{plan.entry}_batched",
+        source=plan.source,
+        launches=tuple(dataclasses.replace(L, seeds=seeds) for L in plan.launches),
+        outputs=tuple(Output(o.name, (seeds,) + o.shape, o.dtype) for o in plan.outputs),
+        scratch_words=seeds * scratch_stride,
+        scratch=tuple(Carve(f"{c.name}[{b}]", b * scratch_stride + c.offset, c.words)
+                      for b in range(seeds) for c in plan.scratch),
+        seeds=seeds,
+    )

@@ -1,67 +1,76 @@
-"""survival_scan wrapper: the CUDA kernel for a CUDA tensor, else the plain version."""
+"""survival_scan wrappers: the CUDA kernel for a CUDA tensor, else the plain version.
+
+``survival_scan`` runs one seed's table (one cluster), ``survival_scan_batched``
+B seeds' tables in one launch (B clusters); each counts its own launches.
+``survival_scan_op`` is the custom op the tick calls (``core.hotpath``): the
+wrapper, with ``survival_scan_batched`` as its batching rule under
+``torch.func.vmap`` (``kernels.batching``).
+"""
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
+from torch import Tensor
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.batching import register_batching
 from repro_torch.kernels.launch_plan import LaunchPlan
 from repro_torch.kernels.survival_scan import plan as _plan
-from repro_torch.kernels.survival_scan.ref import survival_scan_ref
+from repro_torch.kernels.survival_scan.ref import survival_scan_batched_ref, survival_scan_ref
 
-__all__ = ["survival_scan"]
+__all__ = ["survival_scan", "survival_scan_batched"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIG = {
     "survival_scan_launch": [_P] * 16 + [_I, _I, _I, _F, _F, _F] + [_I] * 9 + [_P],
+    "survival_scan_batched_launch": [_P] * 16 + [_I, _I, _I, _F, _F, _F] + [_I] * 10 + [_P],
 }
+_COLUMNS = (("st", torch.int32), ("alloc_node", torch.int32), ("mem", torch.float32),
+            ("ev", torch.float32), ("tier", torch.int32), ("migrating", torch.bool),
+            ("susp_tick", torch.int32), ("surv_deadline", torch.int32))
 
 
 def launch(
     plan: LaunchPlan, outs, st, alloc_node, mem, ev, tier, migrating, susp_tick,
     surv_deadline, base, t, *, airlock: bool, residual: float, watermark: float,
-    safe: float, t_susp: int, t_surv: int, scratch=None,
+    safe: float, t_susp: int, t_surv: int, scratch=None, lib=None,
 ) -> None:
-    """Launch ``plan`` (one cluster) into ``outs`` (pressure, victim,
-    resume, react, expire), allocated by the caller; ``scratch`` (the plan's
-    ``scratch_words`` int32: the fold's entries and a word a node) is
-    allocated here unless given. Counts nothing."""
-    P, N = st.shape[0], base.shape[0]
-    for x, dtype, what in (
-        (st, torch.int32, "st"),
-        (alloc_node, torch.int32, "alloc_node"),
-        (mem, torch.float32, "mem"),
-        (ev, torch.float32, "ev"),
-        (tier, torch.int32, "tier"),
-        (migrating, torch.bool, "migrating"),
-        (susp_tick, torch.int32, "susp_tick"),
-        (surv_deadline, torch.int32, "surv_deadline"),
-    ):
-        _build.expect(x, dtype, (P,), f"survival_scan {what}")
-    _build.expect(base, torch.float32, (N,), "survival_scan base")
-    _build.expect(t, torch.int32, (), "survival_scan t")
+    """Launch ``plan`` into ``outs`` (pressure, victim, resume, react,
+    expire), allocated by the caller: one cluster, or for a batched plan B
+    clusters, one a seed, with every tensor's leading seed axis (columns (B,
+    P), ``base`` (B, N), ``t`` (B,)). ``scratch`` (the plan's
+    ``scratch_words`` int32: the fold's entries and a word a node, a stride
+    a seed) is allocated here unless given; ``lib`` another build of the
+    source (a benchmark's), else the port's. Counts nothing."""
+    lead, P, N = plan.lead, st.shape[-1], base.shape[-1]
+    cols = (st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline)
+    for x, (what, dtype) in zip(cols, _COLUMNS):
+        _build.expect(x, dtype, (*lead, P), f"{plan.entry} {what}")
+    _build.expect(base, torch.float32, (*lead, N), f"{plan.entry} base")
+    _build.expect(t, torch.int32, lead, f"{plan.entry} t")
     for x, o in zip(outs, plan.outputs):
-        _build.expect(x, o.dtype, o.shape, f"survival_scan {o.name}")
+        _build.expect(x, o.dtype, o.shape, f"{plan.entry} {o.name}")
     if scratch is None:
         scratch = torch.empty(plan.scratch_words, dtype=torch.int32, device=st.device)
-    _build.expect(scratch, torch.int32, (plan.scratch_words,), "survival_scan scratch")
+    _build.expect(scratch, torch.int32, (plan.scratch_words,), f"{plan.entry} scratch")
     if plan is _plan.plan(P, N, bool(airlock)):
         geometry = _plan.launch_args(P, N, bool(airlock))
-    else:  # a plan built elsewhere: launch exactly that one
+    else:  # a batched plan, or one built elsewhere: launch exactly that one
         geometry = _plan.pack(plan)
-    lib = _build.load("survival_scan", _SIG)
-    ptr = _build.ptr
-    err = lib.survival_scan_launch(
-        *(ptr(x) for x in (st, alloc_node, mem, ev, tier, migrating, susp_tick,
-                           surv_deadline, base, t, *outs, scratch)),
-        P, N, int(airlock), float(residual), float(watermark), float(safe),
-        int(t_susp), int(t_surv), *geometry, plan.scratch_words, _build.stream(st),
-    )
-    _build.check(err, "survival_scan")
+    lib = lib or _build.load("survival_scan", _SIG)
+    args = (*(_build.ptr(x) for x in (*cols, base, t, *outs, scratch)), P, N, int(airlock),
+            float(residual), float(watermark), float(safe), int(t_susp), int(t_surv), *geometry)
+    if plan.seeds:
+        err = lib.survival_scan_batched_launch(*args, plan.seeds, plan.scratch_words,
+                                               _build.stream(st))
+    else:
+        err = lib.survival_scan_launch(*args, plan.scratch_words, _build.stream(st))
+    _build.check(err, plan.entry)
 
 
 def cluster_occupancy(plan: LaunchPlan) -> dict:
@@ -119,3 +128,54 @@ def survival_scan(
 
 
 survival_scan.launches = 0
+
+
+def survival_scan_batched(
+    st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t, *,
+    airlock: bool, residual: float, watermark: float, safe: float, t_susp: int, t_surv: int,
+):
+    """:func:`survival_scan` of B seeds at once: every column (B, P),
+    ``base`` (B, N), ``t`` (B,); the outputs with a leading seed axis. A
+    CUDA tensor launches the batched kernel once (one 16-CTA cluster a
+    seed); CPU tensors take :func:`survival_scan_batched_ref`, the plain
+    version seed by seed."""
+    kw = dict(
+        airlock=airlock, residual=residual, watermark=watermark, safe=safe,
+        t_susp=t_susp, t_surv=t_surv,
+    )
+    args = (st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t)
+    if not st.is_cuda:
+        return survival_scan_batched_ref(*args, **kw)
+    plan = _plan.for_call(*args, **kw)
+    outs = plan.new_outputs(st.device)
+    launch(plan, outs, *args, **kw)
+    survival_scan_batched.launches += 1
+    return tuple(outs)
+
+
+survival_scan_batched.launches = 0
+
+
+@torch.library.custom_op("repro_torch::survival_scan", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def survival_scan_op(
+    st: Tensor, alloc_node: Tensor, mem: Tensor, ev: Tensor, tier: Tensor, migrating: Tensor,
+    susp_tick: Tensor, surv_deadline: Tensor, base: Tensor, t: Tensor, *, airlock: bool,
+    residual: float, watermark: float, safe: float, t_susp: int, t_surv: int,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """:func:`survival_scan` as a custom op (the wrapper, looked up at each
+    call); under ``vmap``, one :func:`survival_scan_batched`."""
+    return survival_scan(
+        st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t,
+        airlock=airlock, residual=residual, watermark=watermark, safe=safe, t_susp=t_susp,
+        t_surv=t_surv,
+    )
+
+
+@survival_scan_op.register_fake
+def _(st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t, **_):
+    P = st.shape[0]
+    return (base.new_empty(base.shape), *(st.new_empty((P,), dtype=torch.bool) for _ in range(4)))
+
+
+register_batching(survival_scan_op, survival_scan_batched)

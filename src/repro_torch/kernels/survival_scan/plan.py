@@ -26,7 +26,15 @@ import functools
 
 import torch
 
-from repro_torch.kernels.launch_plan import Carve, Launch, LaunchPlan, Operand, Output, cdiv
+from repro_torch.kernels.launch_plan import (
+    Carve,
+    Launch,
+    LaunchPlan,
+    Operand,
+    Output,
+    batched,
+    cdiv,
+)
 
 KERNELS = ("survival_cluster_kernel",)  # the order of survival_scan_attrs
 THREADS = 1024  # kThreads of csrc/survival_scan.cu
@@ -62,14 +70,27 @@ def scratch_words(P: int, N: int) -> int:
     return 4 * P + N
 
 
+def scratch_stride(P: int, N: int) -> int:
+    """Words between two seeds' scratch in a batched launch:
+    ``survival_scan_scratch_stride`` of the source (a seed's words, rounded
+    up to whole 16-byte entries so that each seed's ``ent`` is aligned)."""
+    return 4 * P + cdiv(N, 4) * 4
+
+
 def scratch_layout(P: int, N: int):
     return (Carve("ent", 0, 4 * P), Carve("info", 4 * P, N))
 
 
 @functools.lru_cache(maxsize=None)
-def plan(P: int, N: int, airlock: bool) -> LaunchPlan:
+def plan(P: int, N: int, airlock: bool, seeds: int = 0) -> LaunchPlan:
     """The one launch at (P, N). Airlock changes what the kernel computes,
-    not its geometry."""
+    not its geometry. ``seeds``: 0 for one seed's call, else
+    ``survival_scan_batched``'s over that many seeds: cluster ``b`` on seed
+    ``b``'s columns, outputs and scratch (no cluster barrier spans two
+    seeds); clusters past what the card holds at once
+    (``cudaOccupancyMaxActiveClusters``) run in later waves."""
+    if seeds:
+        return batched(plan(P, N, airlock), seeds, scratch_stride(P, N))
     if N < 1:
         raise ValueError(f"survival_scan: N = {N}: the cluster needs at least one node")
     if P > MAX_SLOTS:
@@ -114,4 +135,6 @@ def launch_args(P: int, N: int, airlock: bool):
 
 def for_call(st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t,
              *, airlock: bool, **_) -> LaunchPlan:
-    return plan(st.shape[0], base.shape[0], bool(airlock))
+    """The plan of ``survival_scan``, or of its batched entry when the
+    columns have a leading seed axis."""
+    return plan(st.shape[-1], base.shape[-1], bool(airlock), *st.shape[:-1])

@@ -2,9 +2,12 @@
 
 ``utility_topk`` launches ``utility_topk_kernel`` over the ``(P, K)`` tiles;
 ``utility_topk_address`` launches ``utility_topk_address_kernel`` over the
-probe columns, a warp 32 slots. The address kernel reads the zone and node
-vectors at data-dependent rows (not listed) and adds its three counts with
-atomics into the ``counts`` output, which its launcher zeroes first.
+probe columns, a warp 32 slots, and ``utility_topk_address_batched`` the
+same kernel over B seeds (grid ``(ceil(P / THREADS), B)``). The address
+kernel reads the zone and node vectors at data-dependent rows (not listed)
+and sums its three counts in an accumulator of its own
+(``ACC_POOL_WORDS``), which the last CTA of a seed moves into the
+``counts`` output: no memset precedes the launch.
 """
 
 from __future__ import annotations
@@ -13,11 +16,12 @@ import functools
 
 import torch
 
-from repro_torch.kernels.launch_plan import Launch, LaunchPlan, Operand, Output, cdiv
+from repro_torch.kernels.launch_plan import Launch, LaunchPlan, Operand, Output, batched, cdiv
 
 # the order of utility_topk_attrs
 KERNELS = ("utility_topk_kernel", "utility_topk_address_kernel")
 THREADS = 256  # kThreads of csrc/utility_topk.cu
+ACC_POOL_WORDS = 1 << 18  # kAccPoolWords: the count accumulators, 4 words a seed
 # utility_topk_address's inputs, in the order of its arguments and of the
 # launcher's pointers (AddressArgs of csrc/utility_topk.cu): name, dtype and
 # shape by P slots, K candidates, Z zones and N nodes ("" a scalar)
@@ -56,9 +60,14 @@ def for_call(s_pred, h_pred, eps, feasible, gamma) -> LaunchPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def address_plan(P: int, K: int) -> LaunchPlan:
+def address_plan(P: int, K: int, seeds: int = 0) -> LaunchPlan:
     """The one launch of ``utility_topk_address`` over P slots of K
-    candidates; the counts are written whatever P."""
+    candidates; the counts are written whatever P. ``seeds``: 0 for one
+    seed's call, else ``utility_topk_address_batched``'s over that many
+    seeds, block row ``blockIdx.y`` on seed ``blockIdx.y``'s columns, zones
+    and nodes."""
+    if seeds:
+        return batched(address_plan(P, K), seeds)
     if K < 1:
         raise ValueError(f"utility_topk_address: K = {K} candidates; the launchpad is one")
     rb = THREADS
@@ -77,4 +86,6 @@ def address_plan(P: int, K: int) -> LaunchPlan:
 
 def for_address_call(st, node, zone, timer, patience, migrating, mass, contig, cand_u,
                      addr_eps, *_, **__) -> LaunchPlan:
-    return address_plan(st.shape[0], addr_eps.shape[1])
+    """The plan of ``utility_topk_address``, or of its batched entry when
+    the columns have a leading seed axis."""
+    return address_plan(st.shape[-1], addr_eps.shape[-1], *st.shape[:-1])

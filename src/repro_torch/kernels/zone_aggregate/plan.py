@@ -13,14 +13,20 @@ import functools
 
 import torch
 
-from repro_torch.kernels.launch_plan import Launch, LaunchPlan, Operand, Output, cdiv
+from repro_torch.kernels.launch_plan import Launch, LaunchPlan, Operand, Output, batched, cdiv
 
 KERNELS = ("zone_aggregate_kernel",)  # the order of zone_aggregate_attrs
 MAX_WARPS = 32  # kMaxThreads / 32 of csrc/zone_aggregate.cu
 
 
 @functools.lru_cache(maxsize=None)
-def plan(entry: str, Z: int, M: int) -> LaunchPlan:
+def plan(entry: str, Z: int, M: int, seeds: int = 0) -> LaunchPlan:
+    """``entry``'s one launch over Z zone rows of M slots. ``seeds``: 0 for
+    one seed's call, else the batched entry's over that many seeds: grid
+    (ceil(Z / warps), seeds), block row ``blockIdx.y`` on seed
+    ``blockIdx.y``'s node vectors, members and table."""
+    if seeds:
+        return batched(plan(entry, Z, M), seeds)
     warps = min(Z, MAX_WARPS)
     rows = ("s_gather", "h_gather", "mask") if entry == "zone_aggregate" else ("member", "mask")
     ops = tuple(Operand(n, Z, warps) for n in rows)
@@ -40,4 +46,6 @@ def for_call(s_gather, h_gather, mask) -> LaunchPlan:
 
 
 def for_members_call(rep_S, rep_H, member, mask, *_, **__) -> LaunchPlan:
-    return plan("zone_aggregate_members", member.shape[0], member.shape[1])
+    """The plan of ``zone_aggregate_members``, or of its batched entry when
+    the member index has a leading seed axis."""
+    return plan("zone_aggregate_members", *member.shape[-2:], *member.shape[:-2])

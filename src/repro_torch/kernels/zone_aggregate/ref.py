@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.batching import per_seed
+
 
 def zone_aggregate_ref(
     s_gather: torch.Tensor, h_gather: torch.Tensor, mask: torch.Tensor
@@ -41,3 +43,8 @@ def zone_aggregate_members_ref(
         return zs, zh
     due = (t % every) == 0
     return torch.where(due, zs, zS), torch.where(due, zh, zH)
+
+
+# the plain version of the batched refresh: every tensor with a leading seed
+# axis (the tick a (B,) vector)
+zone_aggregate_members_batched_ref = per_seed(zone_aggregate_members_ref)

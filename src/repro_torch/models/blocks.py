@@ -108,8 +108,8 @@ def _block(p, cfg, kind, x, xs, pos, cache, cache_at, enc_out, aux, causal):
         out, new_cache = regions.batch_local(rglru.rglru_block, p["mixer"], cfg, h, cache)
     else:
         out, new_cache = regions.batch_local(ssd.ssd_block, p["mixer"], cfg, h, cache)
-    if cfg.post_norm:
-        out = cm.rms_norm(p["ln1b"], out)
+    if cfg.post_norm:  # pinned first: a norm of the matmul's raw layout (see lm._head)
+        out = cm.rms_norm(p["ln1b"], regions.constrain(out))
     xs = regions.constrain(x.float() + regions.constrain(out).float())
     x = xs.to(x.dtype)
 
@@ -130,7 +130,7 @@ def _block(p, cfg, kind, x, xs, pos, cache, cache_at, enc_out, aux, causal):
         else:
             f = mlp.mlp(p["ffn"], cfg, h2)
         if cfg.post_norm:
-            f = cm.rms_norm(p["ln2b"], f)
+            f = cm.rms_norm(p["ln2b"], regions.constrain(f))
         xs = regions.constrain(x.float() + regions.constrain(f).float())
         x = xs.to(x.dtype)
     return x, xs, new_cache

@@ -100,12 +100,19 @@ def _embed(cfg: ArchConfig, p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _head(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The logits. Under a mesh they are pinned batch over the DP axes and
+    vocab over "model" right at the matmul, so that its backward gets the
+    gradient in the matmul's own layout: left to itself, DTensor lays the
+    softcap's and the loss's gradient out with the sequence over "model",
+    and the weight gradient's contraction over the flattened tokens then
+    meets a strided split it has no strategy for (gemma2-9b on the
+    (2, 16, 16) mesh)."""
     x = cm.rms_norm(p["ln_f"], regions.constrain(x))
     if cfg.tie_embeddings:
         logits = x @ p["embed"].to(cfg.compute_dtype).T
     else:
         logits = x @ p["head"].to(cfg.compute_dtype)
-    return cm.softcap(logits.float(), cfg.logit_softcap)
+    return cm.softcap(regions.constrain(logits, model_dim=-1).float(), cfg.logit_softcap)
 
 
 def _encode(cfg: ArchConfig, p: Params, enc_embeds: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,7 @@ host.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -246,6 +246,27 @@ class ZoneShardedEngine(LaminarEngine):
 
     def _plane(self, s: SimState) -> MeshPlane:
         return MeshPlane(self.cfg, s.zmember, s.zmask, self.group)
+
+    def run_batch(
+        self,
+        seeds: Sequence[int],
+        num_ticks: int | None = None,
+        scenario=None,
+        draws: Optional[Sequence[Any]] = None,
+    ) -> List[Dict[str, Any]]:
+        """One ``summarize()`` dict per seed, the seeds one after another
+        from ``seeds[0]``'s initial state (its geometry and ``lam``), as the
+        JAX package's sharded engine runs them: the tick's collectives do
+        not go under ``vmap``. ``draws``: one provider per seed."""
+        seeds, draws, nt = self._batch_args(seeds, num_ticks, draws)
+        s0, lam = self.init(seeds[0])
+        outs = []
+        for i, sd in enumerate(seeds):
+            d = draws[i] if draws is not None else self.draws(
+                lam, s0.zstart.shape[0], sd, scenario)
+            final, ts = self.simulate(s0, d, nt, scenario)
+            outs.append(self._summary(final, ts.cpu().numpy(), lam, sd))
+        return outs
 
     def traffic(self, seed: int = 0) -> Dict[str, float]:
         """Traffic model for this engine's actual zone geometry."""

@@ -1,6 +1,6 @@
 """Where the engine tick's time goes on the card, at the paper's Exp5 geometry.
 
-    python -m repro_torch.profile_tick [--airlock] [--sharded]
+    python -m repro_torch.profile_tick [--airlock] [--sharded | --batch B]
 
 Runs the engine on CUDA at the Exp5 geometry (``exp5_config(full=True)``),
 warms it up for 200 ticks, then reports, per tick of a 20-tick window: the host wall time to enqueue the tick
@@ -13,8 +13,12 @@ most host time and the kernels that take the most device time
 over 20 more ticks (:func:`rounds_traffic`: queued slots, winners, and the
 free runs of each node whose winner reaches the allocation). ``--sharded``
 runs the tick of the zone-sharded engine on a one-rank NCCL group instead
-of the flat tick, and also counts its ``all_gather`` calls a tick. It needs
-a CUDA card and exits non-zero without one.
+of the flat tick, and also counts its ``all_gather`` calls a tick.
+``--batch B`` runs B seeds (0 to B - 1) in lockstep instead, the flat tick
+under ``torch.func.vmap`` (``LaminarEngine.simulate_batch``): every number
+is then a batched tick's (B seed-ticks), the hand-written kernels are the
+batched entries', and the rounds traffic is a seed's. It needs a CUDA card
+and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import LaminarConfig, MemoryConfig
+from repro_torch.core.draws import BatchDraws
 from repro_torch.core.engine import LaminarEngine, make_step
 
 WARMUP_TICKS = 200  # past the start-up transient: the probe table has filled
@@ -138,6 +143,45 @@ def tick_calls(cfg: LaminarConfig, warmup: int, ticks: int, entries, device="cud
     return calls
 
 
+def batch_ticker(cfg: LaminarConfig, seeds, device="cuda"):
+    """``advance(n)``: the next ``n`` lockstep ticks of ``seeds`` (each its
+    own generator; geometry from ``seeds[0]``), the flat tick under
+    ``torch.func.vmap`` as ``LaminarEngine.simulate_batch`` runs it."""
+    eng = LaminarEngine(cfg, device=device)
+    sb, lam = eng.init_batch(seeds)
+    draws = BatchDraws([eng.draws(lam, sb.zstart.shape[1], sd) for sd in seeds])
+    step = make_step(cfg)
+    state = {"s": sb, "t": 0}
+
+    def advance(n: int):
+        for _ in range(n):
+            d = draws.tick(state["t"])
+            state["s"], _ = torch.func.vmap(step, in_dims=(0, BatchDraws.in_dims(d)))(
+                state["s"], d)
+            state["t"] += 1
+
+    return advance
+
+
+def batch_tick_calls(cfg: LaminarConfig, seeds, warmup: int, ticks: int, entries,
+                     device="cuda") -> dict:
+    """The calls of the named kernel entries (:func:`recording`: the
+    batched entries) in lockstep ticks ``warmup`` to ``warmup + ticks - 1``
+    of ``seeds``."""
+    advance = batch_ticker(cfg, seeds, device)
+    advance(warmup)
+    with recording(*entries) as calls:
+        advance(ticks)
+    return calls
+
+
+def per_seed_calls(calls) -> list:
+    """Recorded batched calls as the unbatched calls of each seed."""
+    return [(tuple(a[i] if isinstance(a, torch.Tensor) else a for a in args), kw,
+             tuple(o[i] for o in outs))
+            for args, kw, outs in calls for i in range(args[0].shape[0])]
+
+
 def tick_rounds(cfg: LaminarConfig, warmup: int, ticks: int, device="cuda", seed: int = 0):
     """The ``bitmap_fit_rounds`` calls of the flat engine's ticks ``warmup``
     to ``warmup + ticks - 1`` of a run from ``seed``."""
@@ -215,12 +259,17 @@ def print_traffic(label: str, tr: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--airlock", action="store_true", help="Airlock on (default: kernel OOM)")
-    ap.add_argument("--sharded", action="store_true",
-                    help="the zone-sharded engine's tick on a one-rank NCCL group")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--sharded", action="store_true",
+                      help="the zone-sharded engine's tick on a one-rank NCCL group")
+    mode.add_argument("--batch", type=int, default=0, metavar="B",
+                      help="B seeds in lockstep (the batched tick)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_tick: CUDA is not available", file=sys.stderr)
         return 2
+    if args.batch:
+        return profile_batch(args.airlock, args.batch)
     if not args.sharded:
         return profile(args.airlock, LaminarEngine)
 
@@ -264,51 +313,101 @@ def profile(airlock: bool, engine_cls) -> int:
     print(f"host: enqueue {t_enq / n * 1e3:.3f} ms/tick, finished {t_all / n * 1e3:.3f} ms/tick "
           f"({n / t_all:.1f} ticks/s); {len(gathers) / n:.1f} all_gather calls/tick")
 
+    def advance(k):
+        nonlocal s, t
+        for _ in range(k):
+            s, _ = step(s, draws.tick(t))
+            t += 1
+
+    print_window(window(advance, n))
+    entry = "bitmap_fit_rounds" if engine_cls is LaminarEngine else "bitmap_fit_rounds_blocked"
+    with recording(entry) as calls:
+        advance(n)
+    print_traffic(f"Exp5, {'airlock' if airlock else 'kernel-oom'}, ticks {t - n} to {t - 1}, "
+                  f"{entry}", rounds_traffic(calls[entry]))
+    return 0
+
+
+def profile_batch(airlock: bool, B: int) -> int:
+    """:func:`profile` of the lockstep tick of B seeds."""
+    cfg = exp5_config(airlock)
+    advance = batch_ticker(cfg, list(range(B)))
+    advance(WARMUP_TICKS)
+    torch.cuda.synchronize()
+    n = WINDOW_TICKS
+    t0 = time.perf_counter()
+    advance(n)
+    t_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    print(f"profile_tick: lockstep batch of {B} seeds, {'airlock' if airlock else 'kernel-oom'}, "
+          f"{cfg.num_nodes} nodes, {cfg.probe_capacity} slots, after {WARMUP_TICKS} ticks")
+    print(f"host: enqueue {t_enq / n * 1e3:.3f} ms/tick, finished {t_all / n * 1e3:.3f} ms/tick "
+          f"({n / t_all:.1f} ticks/s, {B * n / t_all:.1f} seed-ticks/s)")
+    print_window(window(advance, n))
+    entry = "bitmap_fit_rounds_batched"
+    with recording(entry) as calls:
+        advance(n)
+    tick = WARMUP_TICKS + 2 * n
+    print_traffic(f"Exp5, {'airlock' if airlock else 'kernel-oom'}, ticks {tick} to "
+                  f"{tick + n - 1}, {entry}, a seed", rounds_traffic(per_seed_calls(calls[entry])))
+    return 0
+
+
+def window(advance, n: int) -> dict:
+    """``advance(n)`` under ``torch.profiler``, a tick on average: wall ms,
+    device kernels and busy ms (``busy`` None where the profiler recorded no
+    device event: not measured), aten ops (nested ones included), the
+    device time of the largest kernels and of each hand-written kernel, and
+    the host ops of the most self time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
     with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            s, _ = step(s, draws.tick(t))
-            t += 1
+        advance(n)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
     dev_us = defaultdict(float)
     dev_n = 0
+    hand = {k: [0, 0.0] for k in HAND_WRITTEN}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev_us[e.name] += e.time_range.elapsed_us()
             dev_n += 1
-    busy = sum(dev_us.values()) / 1e6
-    if dev_n == 0:
+            for k in HAND_WRITTEN:
+                if k in e.name:
+                    hand[k][0] += 1
+                    hand[k][1] += e.time_range.elapsed_us()
+    ka = prof.key_averages()
+    return dict(
+        ticks=n, wall_ms=wall / n * 1e3, kernels=dev_n / n,
+        busy_ms=sum(dev_us.values()) / 1e3 / n if dev_n else None,
+        aten_ops=sum(e.count for e in ka if e.key.startswith("aten::")) / n,
+        top_device=[(name, us / n) for name, us in
+                    sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]],
+        hand_written={k: (c / n, us / n) for k, (c, us) in hand.items()},
+        top_host=[(e.key, e.self_cpu_time_total / n, e.count / n)
+                  for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:12]],
+    )
+
+
+def print_window(w: dict) -> None:
+    if w["busy_ms"] is None:
         print("profiler: no device events recorded (device time not measured)")
     else:
-        print(f"profiler window: {wall / n * 1e3:.3f} ms/tick wall, {dev_n / n:.0f} device kernels/tick, "
-              f"device busy {busy / n * 1e3:.3f} ms/tick = {busy / wall:.1%} of wall "
-              f"(idle {1 - busy / wall:.1%})")
-        for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
-            print(f"  device {us / n:9.1f} us/tick  {name[:90]}")
-        for kname in HAND_WRITTEN:
-            hits = [(e.time_range.elapsed_us()) for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA and kname in e.name]
-            print(f"  hand-written {kname}: {len(hits) / n:.1f} launches/tick, "
-                  f"{sum(hits) / n:.3f} us/tick device time")
-    ka = prof.key_averages()
-    cpu_ops = sorted(ka, key=lambda e: -e.self_cpu_time_total)
-    n_ops = sum(e.count for e in ka if e.key.startswith("aten::"))
-    print(f"host: {n_ops / n:.0f} aten ops/tick (nested ones included)")
-    for e in cpu_ops[:12]:
-        print(f"  host {e.self_cpu_time_total / n:9.1f} us/tick self, {e.count / n:6.1f} calls/tick  {e.key[:70]}")
-    entry = "bitmap_fit_rounds" if engine_cls is LaminarEngine else "bitmap_fit_rounds_blocked"
-    with recording(entry) as calls:
-        for _ in range(n):
-            s, _ = step(s, draws.tick(t))
-            t += 1
-    print_traffic(f"Exp5, {'airlock' if airlock else 'kernel-oom'}, ticks {t - n} to {t - 1}, "
-                  f"{entry}", rounds_traffic(calls[entry]))
-    return 0
+        busy = w["busy_ms"] / w["wall_ms"]
+        print(f"profiler window: {w['wall_ms']:.3f} ms/tick wall, {w['kernels']:.0f} device "
+              f"kernels/tick, device busy {w['busy_ms']:.3f} ms/tick = {busy:.1%} of wall "
+              f"(idle {1 - busy:.1%})")
+        for name, us in w["top_device"]:
+            print(f"  device {us:9.1f} us/tick  {name[:90]}")
+        for kname, (launches, us) in w["hand_written"].items():
+            print(f"  hand-written {kname}: {launches:.1f} launches/tick, "
+                  f"{us:.3f} us/tick device time")
+    print(f"host: {w['aten_ops']:.0f} aten ops/tick (nested ones included)")
+    for key, us, calls in w["top_host"]:
+        print(f"  host {us:9.1f} us/tick self, {calls:6.1f} calls/tick  {key[:70]}")
 
 
 @contextmanager

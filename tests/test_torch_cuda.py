@@ -278,6 +278,44 @@ def test_utility_topk_address_zeroes_its_counts_and_writes_no_input(dev):
     assert int(first[-1][0].item()) == args[0].shape[0]
 
 
+def test_utility_topk_address_is_one_kernel_node(dev):
+    """An unbatched addressing call captured in a CUDA graph is one kernel
+    node, the address kernel's, with no memset (its counts are written by
+    the kernel); replays of the graph keep giving the plain version's
+    counts."""
+    from repro_torch.kernel_bench import graph_nodes
+
+    args, kw = address_inputs(5000, 65536, seed=5), address_kw()
+    want = utility_topk.utility_topk_address(*args, **kw)
+    on_card = [a.to(dev) for a in args]
+    names = []
+    nodes = graph_nodes(lambda: utility_topk.utility_topk_address(*on_card, **kw), names)
+    assert nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0}, nodes
+    assert len(names) == 1 and "utility_topk_address_kernel" in names[0], names
+    for _ in range(3):
+        got = utility_topk.utility_topk_address(*on_card, **kw)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_utility_topk_address_counts_on_two_streams_at_once(dev):
+    """Launches on two streams, interleaved with no wait between them, sum
+    their counts in a region of their own each: every launch's counts equal
+    the plain version's (one shared region would mix them)."""
+    args, kw = address_inputs(5000, 65536, seed=5), address_kw()
+    want = utility_topk.utility_topk_address(*args, **kw)[-1]
+    on_card = [a.to(dev) for a in args]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    got = []
+    for _ in range(16):
+        for s in streams:
+            with torch.cuda.stream(s):
+                got.append(utility_topk.utility_topk_address(*on_card, **kw)[-1])
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), want) for g in got)
+
+
 @pytest.mark.parametrize("select", [None, 40, 41])
 @pytest.mark.parametrize("Z,M", [(1, 8), (3, 13), (20, 301), (33, 257), (253, 307)])
 def test_zone_aggregate_members_matches_plain(dev, Z, M, select):
@@ -808,3 +846,115 @@ def test_train_cli_runs_on_the_card(dev, capsys, tmp_path):
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("arch=mamba2-130m steps=4 first_loss=")
     assert np.isfinite(out["losses"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the batched entries of the lockstep tick (a seed axis, one launch)
+# ---------------------------------------------------------------------------
+
+BATCHED_ENTRIES = ("bitmap_fit_rounds_batched", "utility_topk_address_batched",
+                   "zone_aggregate_members_batched", "survival_scan_batched")
+# the entries whose float outputs the card rounds as the CPU does (the
+# others: the summation order of zone_aggregate, rtol 1e-5)
+BATCHED_EXACT = ("survival_scan_batched", "utility_topk_address_batched",
+                 "bitmap_fit_rounds_batched")
+
+
+def _batched_case(name, shape, airlock=True):
+    from repro_torch.kernel_bench import batched_inputs
+
+    return batched_inputs(3, **shape, seed=11, airlock=airlock)[name]
+
+
+@pytest.mark.parametrize("name", BATCHED_ENTRIES)
+@pytest.mark.parametrize("shape", [dict(N=37, P=1029, Z=3), dict(N=5000, P=65536, Z=20)],
+                         ids=["ragged", "exp5"])
+def test_batched_entry_matches_plain_seed_by_seed(dev, name, shape):
+    """B = 3 seeds with distinct inputs: one launch, equal to the plain
+    version applied seed by seed (survival_scan with Airlock off too)."""
+    from repro_torch.kernels import WRAPPERS
+
+    for airlock in ((True, False) if name == "survival_scan_batched" else (True,)):
+        args, kw = _batched_case(name, shape, airlock)
+        n0 = WRAPPERS[name].launches
+        want, got = _both(WRAPPERS[name], args, kw, dev)
+        assert WRAPPERS[name].launches == n0 + 1
+        for w, g in zip(want, got):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            if w.dtype.is_floating_point and name not in BATCHED_EXACT:
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+            else:
+                assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", BATCHED_ENTRIES)
+def test_batched_entry_is_one_kernel_node(dev, name):
+    """One batched call captured in a CUDA graph is one kernel node, with no
+    memset or memcpy (utility_topk_address_batched writes its counts in the
+    kernel)."""
+    from repro_torch.kernel_bench import graph_nodes
+    from repro_torch.kernels import WRAPPERS
+
+    args, kw = _batched_case(name, dict(N=5000, P=65536, Z=20))
+    args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    names = []
+    nodes = graph_nodes(lambda: WRAPPERS[name](*args, **kw), names)
+    assert nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0}, nodes
+    # and replays of the graph keep giving the same counts (the address
+    # kernel's accumulators are set back to zero by each launch)
+    if name == "utility_topk_address_batched":
+        first = WRAPPERS[name](*args, **kw)[-1].clone()
+        for _ in range(3):
+            assert torch.equal(WRAPPERS[name](*args, **kw)[-1], first)
+
+
+def test_batched_clusters_run_in_waves(dev):
+    """Past the clusters the card holds at once, the batched cluster
+    kernels run in later waves and stay equal to the plain version."""
+    from repro_torch.kernel_bench import batched_inputs
+    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels.bitmap_fit import ops as bops
+    from repro_torch.kernels.bitmap_fit import plan as bplan
+    from repro_torch.kernels.survival_scan import ops as sops
+    from repro_torch.kernels.survival_scan import plan as splan
+
+    resident = max(sops.cluster_occupancy(splan.plan(4096, 500, True))["clusters"],
+                   bops.rounds_cluster_occupancy(bplan.rounds_plan(4096, 500, 2, 3, 64))["clusters"])
+    cases = batched_inputs(resident + 3, N=500, P=4096, Z=4, seed=2)
+    for name in ("survival_scan_batched", "bitmap_fit_rounds_batched"):
+        args, kw = cases[name]
+        want, got = _both(WRAPPERS[name], args, kw, dev)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("airlock", [False, True])
+def test_lockstep_engine_on_the_card(dev, airlock):
+    """run_batch in lockstep on the card equals the sequential runs on the
+    card, seed by seed, and its CPU twin on one CPU generator's draws; each
+    batched kernel is one launch a tick."""
+    from repro_torch.core.draws import BatchDraws
+    from repro_torch.kernels import BATCHED, WRAPPERS
+
+    cfg = dataclasses.replace(SMALL_EXP5, airlock=airlock)
+    seeds, ticks = [0, 1, 2], 60
+    eng = LaminarEngine(cfg, device=dev)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    got = eng.run_batch(seeds, num_ticks=ticks)
+    assert {name: WRAPPERS[name].launches for name in BATCHED.values()} == dict.fromkeys(
+        BATCHED.values(), ticks)
+    assert all(WRAPPERS[name].launches == 0 for name in BATCHED)
+    s0, lam = eng.init(0)
+    for sd, out in zip(seeds, got):
+        final, ts = eng.simulate(s0, eng.draws(lam, s0.zstart.shape[0], sd), ticks)
+        ts = ts.cpu().numpy()
+        for i, f in enumerate(out["timeseries"]):
+            np.testing.assert_array_equal(out["timeseries"][f], ts[:, i], err_msg=f)
+    outs = []
+    for device in ("cpu", dev):
+        e = LaminarEngine(cfg, device=device)
+        sb, lam = e.init_batch(seeds)
+        draws = BatchDraws([TorchDraws(cfg, lam, sb.zstart.shape[1], seed=sd, device=device,
+                                       generator_device="cpu") for sd in seeds])
+        outs.append(e.simulate_batch(sb, draws, ticks)[1].cpu())
+    assert torch.equal(outs[0], outs[1])
