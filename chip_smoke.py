@@ -69,11 +69,12 @@ and no result line:
      against the plan interpreter, timed beside ``Tensor.clone``;
   3. run the flat engine on the card at the Exp5 geometry (5000 nodes,
      65 536 probe slots, memory dynamics on), Airlock off then on, 800
-     ticks each; check the launch counts (one ``bitmap_fit_rounds``, one
-     ``utility_topk_address`` and one ``zone_aggregate_members`` a tick; no
-     one-round ``bitmap_fit`` and no tile ``utility_topk`` or
-     ``zone_aggregate``), the task-conservation identity and the host
-     syncs;
+     ticks each, through ``simulate`` (the compiled run: the tick captured
+     once as a CUDA graph and replayed); check the launch counts (one
+     ``bitmap_fit_rounds``, one ``utility_topk_address`` and one
+     ``zone_aggregate_members`` a tick; no one-round ``bitmap_fit`` and no
+     tile ``utility_topk`` or ``zone_aggregate``), the task-conservation
+     identity and the host syncs;
   4. run 64-node configs on the CPU (plain versions) and on the card
      (kernels) with the same draws and compare every integer metric and the
      per-tick timeseries: Exp5 Airlock off and on, the six scenario presets
@@ -157,14 +158,36 @@ and no result line:
      as phase 2b, and the clusters the card holds at once; (d) seed-ticks/s
      of lockstep B = 1, 4, 8 and of sequential B = 4, and one profiled
      batched tick at B = 8 (aten ops, device kernels, device busy, host ms);
-  12. print the kernel table as JSON, the card's name and power limit, and
+  12. the compiled run (``core.scan``: ``simulate``, ``simulate_batch`` and
+     the baselines' ``simulate`` capture one tick once as a CUDA graph and
+     replay it): (a) the captured runs equal ``make_step`` driven by hand on
+     the card, bit for bit, on every integer metric, ``lat_hist``, the
+     series and every leaf of the final state: Exp5 at 5000 nodes / 65 536
+     slots, Airlock off and on, 800 ticks; the storm and diurnal presets
+     there, 400 ticks; lockstep seeds 0 to 3, Airlock on, 200 ticks; slurm,
+     ray and flux at Exp1's geometry, 600 ticks; one run on draws from a CPU
+     generator (copied into the graph's buffers before each replay);
+     (b) each captured tick's graph: its hand-written kernel nodes (named
+     by ``cuFuncGetName``) hold each entry as often as a tick launches it,
+     the batched entries in the lockstep graph, the baselines' none; no
+     memcpy node touches host memory; the runs make 0 host syncs; (c)
+     captured against eager, each on its own host clock ending in a
+     synchronize: Exp5 ticks/s (Airlock off and on; eager, captured,
+     captured, eager), Exp7's top cell flat (100 ticks), lockstep
+     seed-ticks/s at B = 1, 4, 8 (eager: 11 (d)'s), each baseline's
+     ticks/s; (d) the replayed tick's profile (``profile_tick``): host ms a
+     replay, device busy, device kernels a replay, flat and at B = 8;
+  13. print the kernel table as JSON, the card's name and power limit, and
      last the result line.
 
 Every launch counter is set to 0 just before each run of phases 3, 5, 6, 7,
-8, 9, 10 and 11 and read just after; the table's ``launches`` sums the runs
-of phases 3, 5 and 6 and, for the batched entries, phase 11 (a)'s lockstep
-run (0 for the three fixture rows, whose ``smoke_launches`` counts phase
-2b's own).
+8, 9, 10, 11 and 12 and read just after. A compiled run's launches are its
+captured graph's hand-written kernel nodes (``kernel_bench.graph_census``,
+named by ``cuFuncGetName``) times its replays: its wrappers run only at the
+warm-up and the capture. The zone-sharded tick stays eager, and its
+wrappers count. The table's ``launches`` sums the runs of phases 3, 5 and
+6 and, for the batched entries, phase 11 (a)'s lockstep run (0 for the
+three fixture rows, whose ``smoke_launches`` counts phase 2b's own).
 """
 
 from __future__ import annotations
@@ -230,6 +253,10 @@ BATCH_SEEDS = [0, 1, 2, 3]
 BATCH_TICKS = 200
 BATCH_SIZES = (1, 4, 8)  # (d): lockstep seed-ticks/s
 BATCH_WARMUP, BATCH_TIMED = 50, 100  # (d): ticks before and in the timed window
+# phase 12: the compiled run against make_step driven by hand
+PRESET_TICKS = 400  # (a) storm and diurnal at Exp5's geometry
+HOST_FED_TICKS = 200  # (a) draws from a CPU generator
+RATE_WARMUP, RATE_TICKS = 100, 300  # (c) ticks before and in the timed window
 
 
 class SmokeFailure(Exception):
@@ -995,10 +1022,29 @@ def conservation(out):
     return out["started"] == accounted and out["arrived"] >= out["started"]
 
 
-def counted(run):
+def graph_launches(runs, lockstep: bool) -> dict:
+    """The hand-written launches of compiled runs (``core.scan.watching``'s
+    ``(compiled, replays)`` pairs): each graph's hand-written kernel nodes,
+    by entry (``kernel_bench.tick_entries``; the batched entries in a
+    ``lockstep`` graph), times its replays."""
+    from repro_torch.kernel_bench import graph_census, tick_entries
+    from repro_torch.kernels import WRAPPERS
+
+    launches = dict.fromkeys(WRAPPERS, 0)
+    for compiled, replays in runs:
+        for entry, n in tick_entries(graph_census(compiled.graph)["names"], lockstep).items():
+            launches[entry] = launches.get(entry, 0) + n * replays
+    return launches
+
+
+def counted(run, lockstep=False):
     """``run()`` as one main-path run: every launch counter set to 0 just
     before, read just after. Returns (its result, launches, host syncs
-    inside it, seconds to its end on the device, all_gather calls)."""
+    inside it, seconds to its end on the device, all_gather calls). The
+    launches of a compiled run (``core.scan``) are its graph's kernel
+    nodes times its replays (:func:`graph_launches`), of an eager run (the
+    sharded engine's) the wrappers' counts."""
+    from repro_torch.core.scan import watching
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels.block_copy import block_copy
     from repro_torch.profile_tick import counting_gathers
@@ -1006,7 +1052,8 @@ def counted(run):
     torch.cuda.synchronize()
     for w in (*WRAPPERS.values(), block_copy):
         w.launches = 0
-    with warnings.catch_warnings(record=True) as caught, counting_gathers() as gathers:
+    with warnings.catch_warnings(record=True) as caught, counting_gathers() as gathers, \
+            watching() as runs:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         t0 = time.perf_counter()
@@ -1016,7 +1063,10 @@ def counted(run):
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    if runs:
+        launches = graph_launches(runs, lockstep)
+    else:
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
     check(block_copy.launches == 0, f"block_copy launched {block_copy.launches} times on a main path")
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     for w in syncs[:3]:
@@ -2121,7 +2171,8 @@ def phase11a(dev, totals):
     eng = LaminarEngine(cfg, device=dev)
     B, T = len(BATCH_SEEDS), BATCH_TICKS
     sb, draws, lam = lockstep(eng, BATCH_SEEDS)
-    (final, ts), launches, syncs, wall, _ = counted(lambda: eng.simulate_batch(sb, draws, T))
+    (final, ts), launches, syncs, wall, _ = counted(
+        lambda: eng.simulate_batch(sb, draws, T), lockstep=True)
     check(ts.shape == (B, T, 11), f"[lockstep] timeseries shape {tuple(ts.shape)}")
     want = {name: 0 for name in launches}
     want.update(dict.fromkeys(BATCHED.values(), T))
@@ -2306,13 +2357,299 @@ def phase11d(dev):
           f"{w['wall_ms']:.3f} ms host wall, {w['aten_ops']:.0f} aten ops (nested ones "
           f"included), {w['kernels']:.0f} device kernels, device busy {busy}; hand-written: "
           f"{hand}")
+    return tps
 
 
 def phase11(dev, totals, rows):
+    """Returns 11 (d)'s eager lockstep seed-ticks/s by B."""
     launches = phase11a(dev, totals)
     phase11b(dev)
     phase11c(dev, rows, launches)
-    phase11d(dev)
+    return phase11d(dev)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the compiled run (core.scan), against make_step driven by hand
+# ---------------------------------------------------------------------------
+
+
+def lockstep_step(cfg):
+    """The flat ``make_step`` under ``torch.func.vmap``, as
+    ``simulate_batch`` runs it."""
+    from repro_torch.core.draws import BatchDraws
+    from repro_torch.core.engine import make_step
+
+    flat = make_step(cfg)
+    return lambda s, d: torch.func.vmap(flat, in_dims=(0, BatchDraws.in_dims(d)))(s, d)
+
+
+def eager_run(step, s, draws, ticks, t0=0):
+    """``step`` driven by hand, one ``draws.tick(t)`` a tick for t = t0 to
+    t0 + ticks - 1: the yardstick of the compiled run. Returns (final
+    state, (T, ...) series)."""
+    rows = []
+    for t in range(t0, t0 + ticks):
+        s, y = step(s, draws.tick(t))
+        rows.append(y)
+    return s, torch.stack(rows)
+
+
+def leaves_named(s, prefix=""):
+    """A state's tensors by field path (nested NamedTuples flattened)."""
+    for name in s._fields:
+        x = getattr(s, name)
+        if hasattr(x, "_fields"):
+            yield from leaves_named(x, f"{prefix}{name}.")
+        else:
+            yield prefix + name, x
+
+
+def state_differences(a, b):
+    """The fields of two states that differ, bit for bit."""
+    return [name for (name, x), (_, y) in zip(leaves_named(a), leaves_named(b))
+            if x.dtype != y.dtype or x.shape != y.shape
+            or x.cpu().numpy().tobytes() != y.cpu().numpy().tobytes()]
+
+
+def phase12a(dev):
+    """Captured == eager on the card, each run's launches and syncs
+    checked; returns the census of each run's graph (``graph_census``), by
+    tag."""
+    from repro_torch.core import BaselineConfig
+    from repro_torch.core.baselines import common as C
+    from repro_torch.core.baselines import flux_like, ray_like, slurm_like
+    from repro_torch.core.baselines.draws import TorchBaselineDraws
+    from repro_torch.core.draws import BatchDraws, TorchDraws
+    from repro_torch.core.engine import LaminarEngine, make_step, seed_state, summarize
+    from repro_torch.core.scan import watching
+    from repro_torch.kernel_bench import graph_census
+    from repro_torch.kernels import BATCHED
+    from repro_torch.profile_tick import exp5_config
+    from repro_torch.workloads import SCENARIOS
+
+    graphs = {}
+    cases = [(f"Exp5, {'airlock' if a else 'kernel-oom'}", exp5_config(a, full=True, ticks=TICKS),
+              TICKS, None) for a in (False, True)]
+    cases += [(f"{name}, airlock", dataclasses.replace(
+        exp5_config(True, full=True, ticks=PRESET_TICKS), scenario=SCENARIOS[name]),
+        PRESET_TICKS, None) for name in ("storm", "diurnal")]
+    cases.append(("Exp5, airlock, CPU generator", exp5_config(True, full=True,
+                                                              ticks=HOST_FED_TICKS),
+                  HOST_FED_TICKS, "cpu"))
+    for tag, cfg, T, gdev in cases:
+        eng = LaminarEngine(cfg, device=dev)
+        s, lam = eng.init(0)
+        Z = s.zstart.shape[0]
+        draws = TorchDraws(cfg, lam, Z, seed=0, device=dev, generator_device=gdev)
+        with watching() as runs:
+            (final, ts), launches, syncs, wall, _ = counted(lambda: eng.simulate(s, draws, T))
+        t0 = time.perf_counter()
+        efinal, ets = eager_run(make_step(cfg), s, TorchDraws(cfg, lam, Z, seed=0, device=dev,
+                                                              generator_device=gdev), T)
+        torch.cuda.synchronize()
+        ewall = time.perf_counter() - t0
+        got = summarize(cfg, final, ts.cpu().numpy())
+        want = summarize(cfg, efinal, ets.cpu().numpy())
+        diff = int_differences(want, got) + state_differences(efinal, final)
+        check(not diff, f"[12 (a), {tag}] captured and eager differ in {diff}")
+        check(torch.equal(ts, ets), f"[12 (a), {tag}] series differ")
+        check(launches == want_launches(cfg, T, sharded=False),
+              f"[12 (a), {tag}] launches {launches}")
+        if gdev is None:
+            check(syncs == 0, f"[12 (a), {tag}] {syncs} host syncs in the captured run")
+        check_run(tag, got, launches, want_launches(cfg, T, sharded=False), 0)
+        graphs[tag] = graph_census(runs[0][0].graph)
+        print(f"phase 12 (a) [{tag}]: {T} ticks, started={got['started']} "
+              f"suspended={got['suspended_cnt']} node_failures={got['node_failures']}: captured "
+              f"== eager bit for bit (every integer metric, lat_hist, the series, every leaf of "
+              f"the final state); launches {dict((k, v) for k, v in launches.items() if v)}, "
+              f"{syncs} host syncs in the captured run; from init {T / wall:.1f} ticks/s "
+              f"captured (capture included), {T / ewall:.1f} eager")
+
+    # lockstep seeds 0-3
+    cfg = exp5_config(True, full=True, ticks=BATCH_TICKS)
+    eng = LaminarEngine(cfg, device=dev)
+    B, T = len(BATCH_SEEDS), BATCH_TICKS
+    sb, lam = eng.init_batch(BATCH_SEEDS)
+
+    def batch_draws():
+        return BatchDraws([TorchDraws(cfg, lam, sb.zstart.shape[1], seed=sd, device=dev)
+                           for sd in BATCH_SEEDS])
+
+    draws = batch_draws()
+    with watching() as runs:
+        (final, ts), launches, syncs, _, _ = counted(lambda: eng.simulate_batch(sb, draws, T),
+                                                     lockstep=True)
+    efinal, ets = eager_run(lockstep_step(cfg), sb, batch_draws(), T)
+    ets = ets.movedim(0, 1)
+    check(torch.equal(ts, ets), "[12 (a), lockstep] series differ")
+    for i, sd in enumerate(BATCH_SEEDS):
+        got = eng._summary(seed_state(final, i), ts[i].cpu().numpy(), lam, sd)
+        want = eng._summary(seed_state(efinal, i), ets[i].cpu().numpy(), lam, sd)
+        diff = int_differences(want, got) + state_differences(seed_state(efinal, i),
+                                                              seed_state(final, i))
+        check(not diff, f"[12 (a), lockstep seed {sd}] captured and eager differ in {diff}")
+    want = dict.fromkeys(launches, 0)
+    want.update(dict.fromkeys(BATCHED.values(), T))
+    check(launches == want and syncs == 0, f"[12 (a), lockstep] launches {launches}, "
+          f"{syncs} syncs")
+    graphs["lockstep, B = 4"] = graph_census(runs[0][0].graph)
+    print(f"phase 12 (a) [lockstep, seeds {BATCH_SEEDS}]: {T} ticks: captured == eager bit for "
+          f"bit, seed by seed; launches {dict((k, v) for k, v in launches.items() if v)}, "
+          f"{syncs} host syncs")
+
+    # the baselines at Exp1's geometry
+    bcfg, ecfg = BaselineConfig(), exp1_config()
+    for name, mod in (("slurm", slurm_like), ("ray", ray_like), ("flux", flux_like)):
+        s, lam = mod.init(ecfg, 0, EXP1_CAPACITY, dev)
+        step = mod.make_step(ecfg, bcfg)
+
+        def bdraws():
+            return TorchBaselineDraws(name, ecfg, lam, EXP1_CAPACITY, 0, dev)
+
+        draws = bdraws()
+        with watching() as runs:
+            (final, ys), launches, syncs, wall, _ = counted(
+                lambda: C.simulate(step, s, draws, BASELINE_TICKS))
+        t0 = time.perf_counter()
+        efinal, eys = eager_run(step, s, bdraws(), BASELINE_TICKS)
+        torch.cuda.synchronize()
+        ewall = time.perf_counter() - t0
+        diff = state_differences(efinal, final)
+        check(not diff and torch.equal(ys, eys),
+              f"[12 (a), {name}] captured and eager differ in {diff or 'the series'}")
+        check(sum(launches.values()) == 0 and syncs == 0,
+              f"[12 (a), {name}] launches {launches}, {syncs} syncs")
+        graphs[name] = graph_census(runs[0][0].graph)
+        out = C.summarize_baseline(ecfg, final.metrics, final.tt)
+        print(f"phase 12 (a) [{name}, Exp1]: {BASELINE_TICKS} ticks, started={out['started']}: "
+              f"captured == eager bit for bit (the series and every leaf of the final state); "
+              f"{syncs} host syncs; from init {BASELINE_TICKS / wall:.1f} ticks/s captured "
+              f"(capture included), {BASELINE_TICKS / ewall:.1f} eager")
+    return graphs
+
+
+def phase12b(graphs):
+    """Each captured tick's graph: its hand-written kernel nodes, host
+    memcpy nodes."""
+    from repro_torch.kernel_bench import tick_entries
+    from repro_torch.kernels import BATCHED
+
+    for tag, c in graphs.items():
+        lockstep = tag.startswith("lockstep")
+        entries = tick_entries(c["names"], lockstep)
+        if tag in ("slurm", "ray", "flux"):
+            want = {}
+        elif lockstep:
+            want = dict.fromkeys(BATCHED.values(), 1)
+        else:
+            want = {"bitmap_fit_rounds": 1, "utility_topk_address": 1,
+                    "zone_aggregate_members": 1, "survival_scan": 1}
+        check(entries == want, f"[12 (b), {tag}] hand-written kernel nodes {entries} != {want}")
+        check(c["host_memcpy"] == 0, f"[12 (b), {tag}] {c['host_memcpy']} memcpy nodes touch "
+              f"host memory")
+        print(f"phase 12 (b) [{tag}]: a tick's graph holds {c['kernel']} kernel nodes "
+              f"(hand-written: {entries or 'none'}), {c['memcpy']} memcpy ({c['host_memcpy']} "
+              f"touching host memory), {c['memset']} memset, {c['other']} other")
+
+
+def timed(fn):
+    """Seconds of ``fn()`` on the host clock, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase12c(dev, eager_lockstep):
+    """Captured against eager rates, each on its own host clock."""
+    from repro_torch.core import BaselineConfig
+    from repro_torch.core.baselines import common as C
+    from repro_torch.core.baselines import flux_like, ray_like, slurm_like
+    from repro_torch.core.baselines.draws import TorchBaselineDraws
+    from repro_torch.core.engine import LaminarEngine, make_step
+    from repro_torch.profile_tick import exp5_config, exp7_config
+
+    def eager_rate(step, s, draws):
+        """Ticks/s of ticks RATE_WARMUP on, ``step`` driven by hand."""
+        s1, _ = eager_run(step, s, draws, RATE_WARMUP)
+        return RATE_TICKS / timed(lambda: eager_run(step, s1, draws, RATE_TICKS, RATE_WARMUP))
+
+    def captured_rate(run, s, draws):
+        """The same through ``run`` (``simulate``), its capture made first."""
+        s1, _ = run(s, draws, RATE_WARMUP)
+        return RATE_TICKS / timed(lambda: run(s1, draws, RATE_TICKS))
+
+    for airlock in (False, True):
+        cfg = exp5_config(airlock, full=True)
+        eng = LaminarEngine(cfg, device=dev)
+        s, lam = eng.init(0)
+        Z = s.zstart.shape[0]
+        rates = []
+        for kind in ("eager", "captured", "captured", "eager"):
+            d = eng.draws(lam, Z, 0)
+            rates.append(eager_rate(make_step(cfg), s, d) if kind == "eager"
+                         else captured_rate(eng.simulate, s, d))
+        print(f"phase 12 (c) [Exp5, {'airlock' if airlock else 'kernel-oom'}]: ticks "
+              f"{RATE_WARMUP} to {RATE_WARMUP + RATE_TICKS - 1}, ticks/s eager, captured, "
+              f"captured, eager: {', '.join(f'{r:.1f}' for r in rates)}")
+    cfg = exp7_config()
+    eng = LaminarEngine(cfg, device=dev)
+    s, lam = eng.init(0)
+    Z = s.zstart.shape[0]
+    eng.simulate(s, eng.draws(lam, Z, 1), 2)  # the capture, apart from the timed run
+    step, d = make_step(cfg), eng.draws(lam, Z, 0)
+    e7 = EXP7_TICKS / timed(lambda: eager_run(step, s, d, EXP7_TICKS))
+    c7 = EXP7_TICKS / timed(lambda: eng.simulate(s, eng.draws(lam, Z, 0), EXP7_TICKS))
+    print(f"phase 12 (c) [Exp7 top cell, flat]: {EXP7_TICKS} ticks from init, ticks/s eager "
+          f"{e7:.1f}, captured {c7:.1f} (capture made before)")
+    cfg = exp5_config(True, full=True)
+    eng = LaminarEngine(cfg, device=dev)
+    captured = {}
+    for B in BATCH_SIZES:
+        sb, draws, _ = lockstep(eng, list(range(B)))
+        s1, _ = eng.simulate_batch(sb, draws, BATCH_WARMUP)
+        captured[B] = B * BATCH_TIMED / timed(lambda: eng.simulate_batch(s1, draws, BATCH_TIMED))
+    print(f"phase 12 (c) [lockstep, Exp5, Airlock on]: seed-ticks/s, ticks {BATCH_WARMUP} to "
+          f"{BATCH_WARMUP + BATCH_TIMED - 1}: "
+          + ", ".join(f"B = {B} eager {eager_lockstep[B]:.1f} (11 (d)) captured "
+                      f"{captured[B]:.1f}" for B in BATCH_SIZES))
+    bcfg, ecfg = BaselineConfig(), exp1_config()
+    for name, mod in (("slurm", slurm_like), ("ray", ray_like), ("flux", flux_like)):
+        s, lam = mod.init(ecfg, 0, EXP1_CAPACITY, dev)
+        step = mod.make_step(ecfg, bcfg)
+        e = eager_rate(step, s, TorchBaselineDraws(name, ecfg, lam, EXP1_CAPACITY, 0, dev))
+        c = captured_rate(lambda *a: C.simulate(step, *a), s,
+                          TorchBaselineDraws(name, ecfg, lam, EXP1_CAPACITY, 0, dev))
+        print(f"phase 12 (c) [{name}, Exp1]: ticks/s eager {e:.1f}, captured {c:.1f} (a "
+              f"capture each call, as the reference jits each run; included)")
+
+
+def phase12d(dev):
+    """The replayed tick's profile: flat Exp5 both ways, lockstep B = 8."""
+    from repro_torch.core.engine import LaminarEngine
+    from repro_torch.profile_tick import exp5_config, print_replayed, replayed_window
+
+    for airlock in (False, True):
+        cfg = exp5_config(airlock, full=True)
+        eng = LaminarEngine(cfg, device=dev)
+        s, lam = eng.init(0)
+        print(f"phase 12 (d) [Exp5, {'airlock' if airlock else 'kernel-oom'}]:")
+        print_replayed(replayed_window(eng, s, eng.draws(lam, s.zstart.shape[0], 0),
+                                       lockstep=False))
+    B = max(BATCH_SIZES)
+    eng = LaminarEngine(exp5_config(True, full=True), device=dev)
+    sb, draws, _ = lockstep(eng, list(range(B)))
+    print(f"phase 12 (d) [lockstep, B = {B}]:")
+    print_replayed(replayed_window(eng, sb, draws, lockstep=True))
+
+
+def phase12(dev, eager_lockstep):
+    graphs = phase12a(dev)
+    phase12b(graphs)
+    phase12c(dev, eager_lockstep)
+    phase12d(dev)
 
 
 def main() -> int:
@@ -2371,7 +2708,8 @@ def main() -> int:
                            (5, lambda: phase5(dev, totals)), (6, lambda: phase6(dev, totals)),
                            (7, lambda: phase7(dev)), (8, lambda: phase8(dev)),
                            (9, lambda: phase9(dev)), (10, lambda: phase10(dev, done[9])),
-                           (11, lambda: phase11(dev, totals, rows))):
+                           (11, lambda: phase11(dev, totals, rows)),
+                           (12, lambda: phase12(dev, done[11]))):
                 t1 = time.perf_counter()
                 done[k] = run()
                 print(f"phase {k}: {time.perf_counter() - t1:.1f} s wall")

@@ -30,6 +30,7 @@ from repro_torch.core.arbiter import _free_atoms_at
 from repro_torch.core.baselines.draws import TorchBaselineDraws
 from repro_torch.core.config import NUM_TIERS, TIER_NAMES, BaselineConfig, LaminarConfig
 from repro_torch.core.disrupt import disrupted_capacity
+from repro_torch.core.scan import scan
 from repro_torch.core.state import (
     HIST_BUCKETS,
     count,
@@ -380,14 +381,15 @@ def simulate(step, s, draws, num_ticks: int):
     """Run ``num_ticks`` steps from ``s``; ``draws.tick(t)`` gives each
     tick's random values. Returns the final state and the (T, 3) int32
     cumulative ``(arrived, started, completed)`` series, both still on the
-    device (nothing waits for them)."""
-    rows = []
-    for t in range(num_ticks):
-        s, y = step(s, draws.tick(t))
-        rows.append(y)
-    if not rows:
+    device (nothing waits for them).
+
+    The run is ``core.scan.scan``, as each reference model's ``run`` is a
+    ``jax.jit`` of ``lax.scan`` made for that run: on CUDA the step is
+    captured once for this call and replayed every tick, on the CPU the
+    same in-place body runs in a loop."""
+    if num_ticks == 0:
         return s, torch.zeros((0, 3), dtype=torch.int32, device=s.t.device)
-    return s, torch.stack(rows)
+    return scan(step, s, draws, num_ticks)
 
 
 def run_model(model: str, init, make_step, cfg: LaminarConfig, bcfg, seed: int,

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import LaminarConfig
-from repro_torch.core.draws import TorchDraws
+from repro_torch.core.draws import DrawTables, TorchDraws
 
 MODELS = ("slurm", "ray", "flux")
 RAY_CANDIDATES = 4  # ray_like: GCS candidate nodes sampled per task
@@ -70,7 +70,8 @@ class TorchBaselineDraws(TorchDraws):
     schedule). ``generator_device`` is where the generator lives (default:
     ``device``); two providers built with the same seed and
     ``generator_device="cpu"`` hand identical values to a CPU and a CUDA
-    run."""
+    run. ``tick(t)`` takes an int or an int32 device tensor, as the engine
+    provider's does."""
 
     def __init__(self, model: str, cfg: LaminarConfig, lam_per_tick: float, capacity: int,
                  seed: int, device, generator_device=None):
@@ -81,36 +82,28 @@ class TorchBaselineDraws(TorchDraws):
         self.model = model
         self.capacity = capacity
 
-    def _randint(self, high: int, *shape):
-        return torch.randint(0, high, shape, generator=self.gen, device=self.gdev,
+    def signature(self) -> tuple:
+        return super().signature() + (self.model, self.capacity)
+
+    def _randint(self, gen, high: int, *shape):
+        return torch.randint(0, high, shape, generator=gen, device=self.gdev,
                              dtype=torch.int32)
 
-    def tick(self, t: int) -> BaselineDraws:
+    def draw(self, t: torch.Tensor, gen: torch.Generator, tab: DrawTables) -> BaselineDraws:
+        """Tick ``t``'s draws (an int32 tensor) from ``gen`` and ``tab``."""
         cfg = self.cfg
-        N, C, n_max = cfg.num_nodes, self.capacity, cfg.max_arrivals_per_tick
-        d = BaselineDraws(
-            arr_n=torch.poisson(self._rate(t), generator=self.gen).to(torch.int32),
-            arr_l=self._u(n_max),
-            arr_squat=self._u(n_max),
-            arr_tier=self._index(self._tier, n_max).to(torch.int32),
-            arr_mass_f=self._choice(self._mass_f, n_max),
-            arr_mass_l=self._choice(self._mass_l, n_max),
-            arr_pri_f=self._choice(self._pri_f, n_max),
-            arr_pri_l=self._choice(self._pri_l, n_max),
-            arr_svc_exp=self._e(n_max),
-            arr_svc_norm=self._n(n_max),
-            arr_pull_exp=self._e(n_max),
-        )
+        N, C = cfg.num_nodes, self.capacity
+        d = BaselineDraws(**self._arrivals(t, gen, tab))
         if self.model == "ray":
-            d = d._replace(local_node=self._randint(N, C), shard_u=self._u(C),
-                           pick_node=self._randint(N, C, RAY_CANDIDATES))
+            d = d._replace(local_node=self._randint(gen, N, C), shard_u=self._u(gen, C),
+                           pick_node=self._randint(gen, N, C, RAY_CANDIDATES))
         elif self.model == "flux":
             tiny = torch.finfo(torch.float32).tiny
-            u = torch.clamp(self._u(C, num_leaves(cfg)), min=tiny)
+            u = torch.clamp(self._u(gen, C, num_leaves(cfg)), min=tiny)
             d = d._replace(leaf_gumbel=-torch.log(-torch.log(u)),
-                           leaf_off=self._randint(LEAF_GROUP, C))
+                           leaf_off=self._randint(gen, LEAF_GROUP, C))
         if self.scenario.disruption.enabled:
-            d = d._replace(dis_u=self._u(), dis_start=self._randint(N))
+            d = d._replace(dis_u=self._u(gen), dis_start=self._randint(gen, N))
         if self.gdev != self.device:
             d = d.to(self.device)
         return d

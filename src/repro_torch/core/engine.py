@@ -1,8 +1,10 @@
 """The Laminar engine: tick-synchronous composition of all subsystems.
 
 A port of ``repro.core.engine``. One tick is one call of the step
-function; a run is a Python loop over ticks. The hot path per tick mirrors
-the paper's control path:
+function; a run is ``core.scan.scan`` over ticks, the counterpart of the
+reference's ``jax.jit(lax.scan(...))``: on CUDA the tick is captured once
+as a CUDA graph and replayed, on the CPU the same in-place body runs in a
+loop. The hot path per tick mirrors the paper's control path:
 
     memory dynamics -> runtime control (Airlock / OOM) -> Airlock
     transitions -> completions -> scenario disruption -> node-view build ->
@@ -24,6 +26,12 @@ simulate_batch`), each hot-path kernel one launch for all seeds
 (``kernels.batching``). So the tick writes in place only into tensors it
 made from the state (``new_zeros``, ``new_full``, ``torch.cat``), which
 carry the seed axis under ``vmap``.
+
+The engine keeps its compiled ticks in ``_compiled``, as the reference keeps
+its jitted runners, keyed on the config (its scenario included), the flat
+or lockstep tick, the state's shapes (so B) and the kind of draws provider.
+``make_step`` stays the eager tick: driven by hand, it is the yardstick the
+tests and ``chip_smoke.py`` hold the compiled run to.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 from repro_torch.core import airlock, arbiter, da, disrupt, hotpath, teg, workload, zhaf
 from repro_torch.core.config import NUM_TIERS, TIER_NAMES, LaminarConfig
 from repro_torch.core.draws import BatchDraws, Draws, TorchDraws, max_dispatch
+from repro_torch.core.scan import scan
 from repro_torch.core.state import (
     EMPTY,
     LOST_WAIT,
@@ -227,6 +236,7 @@ class LaminarEngine:
     def __init__(self, cfg: LaminarConfig, device="cuda"):
         self.cfg = cfg
         self.device = _resolve_device(device)
+        self._compiled: Dict[tuple, Any] = {}  # core.scan's compiled ticks, by key
 
     def init(self, seed: int = 0) -> Tuple[SimState, float]:
         """Initial state on the device and the per-tick arrival intensity."""
@@ -285,20 +295,19 @@ class LaminarEngine:
         self, s: SimState, draws, num_ticks: int, scenario=None
     ) -> Tuple[SimState, torch.Tensor]:
         """Run ``num_ticks`` ticks from ``s``; ``draws.tick(t)`` gives each
-        tick's random values. Returns the final state and the (T, 11) int32
-        timeseries, both still on the device (nothing waits for it).
+        tick's random values. Returns the final state (the caller's own, not
+        the compiled tick's buffers) and the (T, 11) int32 timeseries, both
+        still on the device (nothing waits for them).
 
-        The scenario is ``scenario`` (``None``: ``cfg.scenario``); draws that
+        The run is ``core.scan.scan``: on CUDA the tick is captured the first
+        time this engine sees its key and replayed every tick after. The
+        scenario is ``scenario`` (``None``: ``cfg.scenario``); draws that
         record another one (``TorchDraws.scenario``) are refused."""
         cfg = self._checked_config(draws, scenario)
-        step = make_step(cfg, plane=self._plane(s))
-        rows = []
-        for t in range(num_ticks):
-            s, ts = step(s, draws.tick(t))
-            rows.append(ts)
-        if not rows:
+        if num_ticks == 0:
             return s, torch.zeros((0, len(TS_FIELDS)), dtype=torch.int32, device=s.st.device)
-        return s, torch.stack(rows)
+        return scan(make_step(cfg), s, draws, num_ticks, cache=self._compiled,
+                    key=(cfg, "flat"))
 
     def simulate_batch(
         self, sb: SimState, draws, num_ticks: int, scenario=None
@@ -307,21 +316,24 @@ class LaminarEngine:
         state with a leading seed axis, :meth:`init_batch`); ``draws.tick(t)``
         gives each tick's stacked draws (:class:`BatchDraws`). One tick is
         the flat tick under ``torch.func.vmap``: each hot-path kernel is ONE
-        launch for all B seeds. Returns the final batched state and the (B,
-        T, 11) int32 timeseries, still on the device.
+        launch for all B seeds. On CUDA it is captured once, with the B
+        seeds' sampling, and replayed (``core.scan``): vmap's host cost is
+        paid at the capture. Returns the final batched state and the (B, T,
+        11) int32 timeseries, still on the device.
 
         The scenario is ``scenario`` (``None``: ``cfg.scenario``); draws made
         for another are refused, as :meth:`simulate` refuses them."""
         cfg = self._checked_config(draws, scenario)
-        step = make_step(cfg)
-        rows = []
-        for t in range(num_ticks):
-            d = draws.tick(t)
-            sb, ts = torch.func.vmap(step, in_dims=(0, BatchDraws.in_dims(d)))(sb, d)
-            rows.append(ts)
-        if not rows:
+        if num_ticks == 0:
             return sb, sb.st.new_zeros((sb.st.shape[0], 0, len(TS_FIELDS)))
-        return sb, torch.stack(rows, dim=1)
+        step = make_step(cfg)
+
+        def tick(s, d):
+            return torch.func.vmap(step, in_dims=(0, BatchDraws.in_dims(d)))(s, d)
+
+        final, ts = scan(tick, sb, draws, num_ticks, cache=self._compiled,
+                         key=(cfg, "lockstep"))
+        return final, ts.movedim(0, 1).contiguous()
 
     def run(
         self,

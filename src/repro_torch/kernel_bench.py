@@ -543,11 +543,103 @@ def _kernel_name(cu, node) -> str:
     raise RuntimeError("a kernel node without a function name")
 
 
+class _Memcpy3D(ctypes.Structure):
+    """``CUDA_MEMCPY3D`` (cuda.h)."""
+
+    _fields_ = [("src_x", ctypes.c_size_t), ("src_y", ctypes.c_size_t),
+                ("src_z", ctypes.c_size_t), ("src_lod", ctypes.c_size_t),
+                ("src_type", ctypes.c_int), ("src_host", ctypes.c_void_p),
+                ("src_device", ctypes.c_void_p), ("src_array", ctypes.c_void_p),
+                ("reserved0", ctypes.c_void_p), ("src_pitch", ctypes.c_size_t),
+                ("src_height", ctypes.c_size_t), ("dst_x", ctypes.c_size_t),
+                ("dst_y", ctypes.c_size_t), ("dst_z", ctypes.c_size_t),
+                ("dst_lod", ctypes.c_size_t), ("dst_type", ctypes.c_int),
+                ("dst_host", ctypes.c_void_p), ("dst_device", ctypes.c_void_p),
+                ("dst_array", ctypes.c_void_p), ("reserved1", ctypes.c_void_p),
+                ("dst_pitch", ctypes.c_size_t), ("dst_height", ctypes.c_size_t),
+                ("width", ctypes.c_size_t), ("height", ctypes.c_size_t),
+                ("depth", ctypes.c_size_t)]
+
+
+_HOST, _UNIFIED = 1, 4  # CUmemorytype
+_POINTER_MEMORY_TYPE = 2  # CU_POINTER_ATTRIBUTE_MEMORY_TYPE
+
+
+def _touches_host(cu, node) -> bool:
+    """Whether a memcpy node reads or writes host memory."""
+    p = _Memcpy3D()
+    if cu.cuGraphMemcpyNodeGetParams(node, ctypes.byref(p)) != 0:
+        raise RuntimeError("cuGraphMemcpyNodeGetParams failed")
+    for kind, ptr in ((p.src_type, p.src_device or p.src_host),
+                      (p.dst_type, p.dst_device or p.dst_host)):
+        if kind == _UNIFIED:  # a unified address: ask what it points at
+            at = ctypes.c_uint(0)
+            cu.cuPointerGetAttribute(ctypes.byref(at), _POINTER_MEMORY_TYPE,
+                                     ctypes.c_void_p(ptr))
+            kind = at.value
+        if kind == _HOST:
+            return True
+    return False
+
+
+def graph_census(graph: torch.cuda.CUDAGraph) -> dict:
+    """The nodes of a captured CUDA graph kept by its capture
+    (``keep_graph=True``), through ``libcuda`` (``cuGraphGetNodes``):
+    counts by type (``kernel``, ``memcpy``, ``memset``, ``other``),
+    ``host_memcpy`` (memcpy nodes that read or write host memory) and
+    ``names``, the function name of each kernel node."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    out = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0, "host_memcpy": 0, "names": []}
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        out[kinds.get(t.value, "other")] += 1
+        if t.value == 0:
+            out["names"].append(_kernel_name(cu, ctypes.c_void_p(node)))
+        elif t.value == 1:
+            out["host_memcpy"] += _touches_host(cu, ctypes.c_void_p(node))
+    return out
+
+
+# each hot-path kernel (its function name) -> its entry, unbatched and batched
+TICK_KERNELS = {
+    "bitmap_fit_rounds_kernel": ("bitmap_fit_rounds", "bitmap_fit_rounds_batched"),
+    "utility_topk_address_kernel": ("utility_topk_address", "utility_topk_address_batched"),
+    "zone_aggregate_kernel": ("zone_aggregate_members", "zone_aggregate_members_batched"),
+    "survival_cluster_kernel": ("survival_scan", "survival_scan_batched"),
+}
+# the other hand-written kernels: on no tick
+OTHER_KERNELS = ("bitmap_fit_rounds_blocked_kernel", "bitmap_fit_kernel", "utility_topk_kernel",
+                 "block_copy_kernel")
+
+
+def tick_entries(names, lockstep: bool) -> dict:
+    """The hand-written entries that kernel nodes ``names`` (a graph's)
+    launch: a hot-path kernel is its lockstep entry in a lockstep tick's
+    graph, its flat entry in a flat one; another hand-written kernel counts
+    under its own name (on no tick: a check against the tick's entries
+    fails on it)."""
+    out: dict = {}
+    for name in names:
+        entry = next((pair[lockstep] for k, pair in TICK_KERNELS.items() if k in name),
+                     next((k for k in OTHER_KERNELS if k in name), None))
+        if entry is not None:
+            out[entry] = out.get(entry, 0) + 1
+    return out
+
+
 def graph_nodes(fn, kernel_names: list | None = None) -> dict:
     """The device work one call of ``fn`` enqueues: the call captured in a
-    CUDA graph (``torch.cuda.graph``), its nodes counted by type through
-    ``libcuda`` (``cuGraphGetNodes``): ``kernel``, ``memset``, ``memcpy``
-    and ``other``. Warms ``fn`` up first, outside the capture. Appends each
+    CUDA graph (``torch.cuda.graph``), its nodes counted by type
+    (:func:`graph_census`): ``kernel``, ``memset``, ``memcpy`` and
+    ``other``. Warms ``fn`` up first, outside the capture. Appends each
     kernel node's function name to ``kernel_names`` when given."""
     fn()
     torch.cuda.synchronize()
@@ -555,23 +647,11 @@ def graph_nodes(fn, kernel_names: list | None = None) -> dict:
     with torch.cuda.graph(g):
         fn()
     torch.cuda.synchronize()
-    cu = ctypes.CDLL("libcuda.so.1")
-    graph = ctypes.c_void_p(g.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
-    kinds = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0}
-    names = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
-    for node in nodes:
-        t = ctypes.c_int(-1)
-        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
-        kinds[names.get(t.value, "other")] += 1
-        if kernel_names is not None and t.value == 0:
-            kernel_names.append(_kernel_name(cu, ctypes.c_void_p(node)))
+    census = graph_census(g)
+    if kernel_names is not None:
+        kernel_names.extend(census["names"])
     g.reset()
-    return kinds
+    return {k: census[k] for k in ("kernel", "memcpy", "memset", "other")}
 
 
 def per_kernel_ms(fn, calls=50) -> dict:

@@ -12,6 +12,7 @@ rule under ``torch.func.vmap`` (``kernels.batching``).
 from __future__ import annotations
 
 import ctypes
+from contextlib import contextmanager
 from typing import Tuple
 
 import torch
@@ -64,7 +65,7 @@ def launch(plan: LaunchPlan, outs, s_pred, h_pred, eps, feasible, gamma) -> None
 
 
 _acc_regions: dict = {}  # (device, stream, capture id, seeds) -> word offset in the pool
-_acc_end: dict = {}  # device -> the pool's first word not yet given out
+_acc_owners: list = []  # the lists of owned_regions blocks now open
 
 
 def accumulator(device: int, stream: int, capture: int, seeds: int) -> int:
@@ -74,19 +75,47 @@ def accumulator(device: int, stream: int, capture: int, seeds: int) -> int:
     ``stream`` of ``device``, under the CUDA graph capture ``capture`` (0:
     none), sums its counts in: 4 words a seed. Each key gets a region of its
     own, so two launches share one only when one stream orders them or when
-    they are replays of one captured graph. Refuses a key past the pool."""
+    they are replays of one captured graph. A new key takes the lowest free
+    words (a released region is reused); a key past the pool is refused."""
     key = (device, stream, capture, seeds)
     off = _acc_regions.get(key)
     if off is None:
-        off = _acc_end.get(device, 0)
+        off = 0
+        for lo, hi in sorted((o, o + 4 * k[3]) for k, o in _acc_regions.items()
+                             if k[0] == device):
+            if off + 4 * seeds <= lo:
+                break
+            off = max(off, hi)
         if off + 4 * seeds > _plan.ACC_POOL_WORDS:
             raise RuntimeError(
                 f"utility_topk_address: no count accumulator left for {seeds} seeds on stream "
-                f"{stream:#x} of cuda:{device}: {len(_acc_regions)} regions take {off} of the "
-                f"pool's {_plan.ACC_POOL_WORDS} words")
+                f"{stream:#x} of cuda:{device}: {len(_acc_regions)} regions leave no "
+                f"{4 * seeds} free words of the pool's {_plan.ACC_POOL_WORDS}")
         _acc_regions[key] = off
-        _acc_end[device] = off + 4 * seeds
+        if capture:
+            for keys in _acc_owners:
+                keys.append(key)
     return off
+
+
+@contextmanager
+def owned_regions():
+    """Collect, into the list it yields, the keys of the regions that graph
+    captures inside the block take (:func:`accumulator`): their graphs'
+    owner gives them back with :func:`release` once the graphs are gone."""
+    keys: list = []
+    _acc_owners.append(keys)
+    try:
+        yield keys
+    finally:
+        _acc_owners.remove(keys)
+
+
+def release(keys) -> None:
+    """Give back the regions of ``keys``: a dropped graph's (its replays
+    left them zero)."""
+    for key in keys:
+        _acc_regions.pop(key, None)
 
 
 def launch_address(plan: LaunchPlan, outs, *args, projection: bool, lib=None,

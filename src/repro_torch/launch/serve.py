@@ -9,6 +9,11 @@ re-addresses / reclaims in priority order. A port of
 decodes its running requests from a fresh cache of ``S_MAX`` slots at the
 first request's prompt length, and the model does not run at prefill
 (``on_prefill_done`` only).
+
+The decode step runs eagerly, op by op. The reference jits it
+(``repro/launch/serve.py:40``); a decode step captured in a CUDA graph, as
+the engine's tick is (``core.scan``), needs a static cache and is a later
+slice of the port.
 """
 
 from __future__ import annotations

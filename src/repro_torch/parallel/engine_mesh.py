@@ -38,14 +38,14 @@ host.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core import arbiter, bitmap, hotpath, zhaf
 from repro_torch.core.config import LaminarConfig
-from repro_torch.core.engine import LaminarEngine
+from repro_torch.core.engine import TS_FIELDS, LaminarEngine, make_step
 from repro_torch.core.state import SimState, count, init_numpy, unpack_zoned
 
 __all__ = ["MeshPlane", "ZoneShardedEngine", "traffic_model", "zone_block", "zone_group"]
@@ -231,6 +231,12 @@ class ZoneShardedEngine(LaminarEngine):
     arguments; ``device`` is this rank's device (default ``"cuda"``, the
     current CUDA device). ``run_batch`` runs the seeds one after another,
     as the JAX package's sharded engine does.
+
+    Its tick stays eager, by design: :meth:`simulate` loops over
+    ``make_step`` with this engine's plane, where the flat engine replays a
+    captured tick (``core.scan``). The tick's five ``all_gather`` calls
+    would have to run under the capture, and NCCL inside a CUDA graph is a
+    later slice of the port.
     """
 
     def __init__(
@@ -246,6 +252,23 @@ class ZoneShardedEngine(LaminarEngine):
 
     def _plane(self, s: SimState) -> MeshPlane:
         return MeshPlane(self.cfg, s.zmember, s.zmask, self.group)
+
+    def simulate(
+        self, s: SimState, draws, num_ticks: int, scenario=None
+    ) -> Tuple[SimState, torch.Tensor]:
+        """Run ``num_ticks`` sharded ticks from ``s``, one eager
+        ``make_step`` call a tick (``draws.tick(t)`` each tick's values).
+        Returns the final state and the (T, 11) int32 timeseries, still on
+        the device. Draws made for another scenario are refused."""
+        cfg = self._checked_config(draws, scenario)
+        step = make_step(cfg, plane=self._plane(s))
+        rows = []
+        for t in range(num_ticks):
+            s, ts = step(s, draws.tick(t))
+            rows.append(ts)
+        if not rows:
+            return s, torch.zeros((0, len(TS_FIELDS)), dtype=torch.int32, device=s.st.device)
+        return s, torch.stack(rows)
 
     def run_batch(
         self,

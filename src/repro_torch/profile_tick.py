@@ -19,6 +19,13 @@ under ``torch.func.vmap`` (``LaminarEngine.simulate_batch``): every number
 is then a batched tick's (B seed-ticks), the hand-written kernels are the
 batched entries', and the rounds traffic is a seed's. It needs a CUDA card
 and exits non-zero without one.
+
+Beside that eager tick (``make_step`` driven by hand), the flat and the
+lockstep runs also profile the replayed tick, the one ``simulate`` and
+``simulate_batch`` run (``core.scan``: captured once as a CUDA graph):
+after the same 200 ticks through ``simulate``, 20 replays of its graph, with
+the same numbers, and the graph's nodes (:func:`replayed_window`). The
+sharded tick stays eager, so it has no replayed profile.
 """
 
 from __future__ import annotations
@@ -320,6 +327,10 @@ def profile(airlock: bool, engine_cls) -> int:
             t += 1
 
     print_window(window(advance, n))
+    if engine_cls is LaminarEngine:
+        s0, _ = eng.init(0)
+        print_replayed(replayed_window(eng, s0, eng.draws(lam, s0.zstart.shape[0], seed=0),
+                                       lockstep=False))
     entry = "bitmap_fit_rounds" if engine_cls is LaminarEngine else "bitmap_fit_rounds_blocked"
     with recording(entry) as calls:
         advance(n)
@@ -345,6 +356,10 @@ def profile_batch(airlock: bool, B: int) -> int:
     print(f"host: enqueue {t_enq / n * 1e3:.3f} ms/tick, finished {t_all / n * 1e3:.3f} ms/tick "
           f"({n / t_all:.1f} ticks/s, {B * n / t_all:.1f} seed-ticks/s)")
     print_window(window(advance, n))
+    eng = LaminarEngine(cfg, device="cuda")
+    sb, lam = eng.init_batch(list(range(B)))
+    draws = BatchDraws([eng.draws(lam, sb.zstart.shape[1], sd) for sd in range(B)])
+    print_replayed(replayed_window(eng, sb, draws, lockstep=True))
     entry = "bitmap_fit_rounds_batched"
     with recording(entry) as calls:
         advance(n)
@@ -352,6 +367,50 @@ def profile_batch(airlock: bool, B: int) -> int:
     print_traffic(f"Exp5, {'airlock' if airlock else 'kernel-oom'}, ticks {tick} to "
                   f"{tick + n - 1}, {entry}, a seed", rounds_traffic(per_seed_calls(calls[entry])))
     return 0
+
+
+def replayed_window(eng, s, draws, lockstep: bool, warmup: int = WARMUP_TICKS,
+                    n: int = WINDOW_TICKS) -> dict:
+    """The replayed tick: ``warmup`` ticks from ``s`` through ``simulate``
+    (``simulate_batch`` if ``lockstep``), which captures the tick, then
+    ``n`` replays of its graph timed on the host clock (enqueue, and to the
+    device's end) and ``n`` more under :func:`window`; with the graph's
+    nodes (``kernel_bench.graph_census``) and the hand-written entries its
+    kernel nodes launch."""
+    from repro_torch.core.scan import watching
+    from repro_torch.kernel_bench import graph_census, tick_entries
+
+    run = eng.simulate_batch if lockstep else eng.simulate
+    with watching() as runs:
+        run(s, draws, warmup)
+    ((compiled, _),) = runs
+
+    def advance(k):
+        for _ in range(k):
+            compiled.graph.replay()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    advance(n)
+    t_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    census = graph_census(compiled.graph)
+    return dict(window(advance, n), enqueue_ms=t_enq / n * 1e3, finished_ms=t_all / n * 1e3,
+                census=census, entries=tick_entries(census["names"], lockstep),
+                lockstep=lockstep, seeds=s.st.shape[0] if lockstep else 1)
+
+
+def print_replayed(w: dict) -> None:
+    c = w["census"]
+    seeds = w["seeds"]
+    print(f"replayed tick ({'lockstep, B = ' + str(seeds) if w['lockstep'] else 'flat'}; "
+          f"core.scan's graph): host enqueue {w['enqueue_ms']:.3f} ms/replay, finished "
+          f"{w['finished_ms']:.3f} ms/replay ({1e3 / w['finished_ms']:.1f} ticks/s, "
+          f"{seeds * 1e3 / w['finished_ms']:.1f} seed-ticks/s); graph nodes: {c['kernel']} "
+          f"kernel, {c['memcpy']} memcpy ({c['host_memcpy']} touching host memory), "
+          f"{c['memset']} memset, {c['other']} other; hand-written kernel nodes {w['entries']}")
+    print_window(w)
 
 
 def window(advance, n: int) -> dict:

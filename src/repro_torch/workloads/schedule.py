@@ -3,7 +3,7 @@
 Each schedule is a pure function of the tick ``t`` (and, for ``mmpp``, of
 the burst state of ``t``'s dwell segment): a dimensionless factor on the base
 per-tick intensity ``lam_base``; :func:`rate_per_tick` clips the product into
-``[0, lam_base * lam_max_factor]``.
+``[0, lam_base * lam_max_factor]`` (:func:`rate_cap`).
 
 * ``stationary`` — factor 1.
 * ``mmpp`` — two-state Markov-modulated Poisson: time is cut into dwell
@@ -87,18 +87,27 @@ def rate_factor(
     raise ValueError(f"unknown schedule kind: {sched.kind!r} (one of {KINDS})")
 
 
+def rate_cap(sched: ScheduleConfig, lam_base: float) -> float:
+    """The envelope ``lam_base * lam_max_factor``, rounded to float32 once
+    on the host."""
+    return float(np.float32(lam_base * sched.lam_max_factor))
+
+
 def rate_per_tick(
     sched: ScheduleConfig,
-    lam_base: float,
+    lam: torch.Tensor,
+    cap: torch.Tensor,
     t: torch.Tensor,
     burst: torch.Tensor | None,
     dt_ms: float,
 ) -> torch.Tensor:
-    """Per-tick arrival intensity, clipped into ``[0, lam_base * lam_max]``."""
+    """Per-tick arrival intensity, clipped into ``[0, cap]``.
+
+    ``lam`` is ``lam_base`` and ``cap`` its :func:`rate_cap`, each a float32
+    0-d tensor: the rate reads no host value, so one captured tick serves
+    every provider of a config."""
     factor = rate_factor(sched, t, burst, dt_ms)
-    lam = torch.full((), lam_base, dtype=torch.float32, device=t.device)
-    hi = float(np.float32(lam_base * sched.lam_max_factor))
-    return torch.clamp(lam * factor, 0.0, hi)
+    return torch.minimum(torch.clamp(lam * factor, min=0.0), cap)
 
 
 def schedule_period_ticks(sched: ScheduleConfig, dt_ms: float) -> int | None:

@@ -276,9 +276,8 @@ def test_address_accumulators_are_a_region_a_stream_and_capture():
     from repro_torch.kernels.utility_topk import ops as topk_ops
     from repro_torch.kernels.utility_topk import plan as topk_plan
 
-    saved = dict(topk_ops._acc_regions), dict(topk_ops._acc_end)
+    saved = dict(topk_ops._acc_regions)
     topk_ops._acc_regions.clear()
-    topk_ops._acc_end.clear()
     try:
         acc = topk_ops.accumulator
         a, b = acc(0, 0x10, 0, 4), acc(0, 0x20, 0, 4)  # streams A and B
@@ -292,9 +291,7 @@ def test_address_accumulators_are_a_region_a_stream_and_capture():
         assert acc(0, 0x10, 0, 4) == a
     finally:
         topk_ops._acc_regions.clear()
-        topk_ops._acc_regions.update(saved[0])
-        topk_ops._acc_end.clear()
-        topk_ops._acc_end.update(saved[1])
+        topk_ops._acc_regions.update(saved)
 
 
 @pytest.mark.parametrize("entry", sorted(OPS))

@@ -448,19 +448,33 @@ def test_engine_cuda_matches_cpu(dev, airlock):
     assert outs[0]["started"] > 0
 
 
+def _run_launches(run, lockstep=False):
+    """``run()``'s hand-written launches: a compiled run's graph kernel
+    nodes (``kernel_bench.graph_census``) times its replays, by entry."""
+    from repro_torch.core.scan import watching
+    from repro_torch.kernel_bench import graph_census, tick_entries
+
+    with watching() as runs:
+        out = run()
+    torch.cuda.synchronize()
+    launches = {}
+    for compiled, replays in runs:
+        for entry, n in tick_entries(graph_census(compiled.graph)["names"], lockstep).items():
+            launches[entry] = launches.get(entry, 0) + n * replays
+    return out, launches
+
+
 def test_flat_tick_launches_bitmap_fit_rounds_once(dev):
     """The flat tick runs its arbitration rounds as one bitmap_fit_rounds
-    launch and never the one-round bitmap_fit."""
+    launch and never the one-round bitmap_fit: the captured tick's graph
+    holds one bitmap_fit_rounds kernel node, replayed once a tick."""
     cfg = dataclasses.replace(SMALL_EXP5, airlock=True)
     eng = LaminarEngine(cfg, device=dev)
     s, lam = eng.init(0)
     draws = eng.draws(lam, s.zstart.shape[0], 0)
-    counters = (bitmap_fit.bitmap_fit_rounds, bitmap_fit.bitmap_fit,
-                bitmap_fit.bitmap_fit_blocked, bitmap_fit.bitmap_fit_rounds_blocked)
-    before = [c.launches for c in counters]
-    eng.simulate(s, draws, 30)
-    torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(counters, before)] == [30, 0, 0, 0]
+    _, launches = _run_launches(lambda: eng.simulate(s, draws, 30))
+    assert launches == {"bitmap_fit_rounds": 30, "utility_topk_address": 30,
+                        "zone_aggregate_members": 30, "survival_scan": 30}
 
 
 def test_sharded_tick_launches_bitmap_fit_rounds_blocked_once(dev, tmp_path):
@@ -938,12 +952,9 @@ def test_lockstep_engine_on_the_card(dev, airlock):
     cfg = dataclasses.replace(SMALL_EXP5, airlock=airlock)
     seeds, ticks = [0, 1, 2], 60
     eng = LaminarEngine(cfg, device=dev)
-    for w in WRAPPERS.values():
-        w.launches = 0
-    got = eng.run_batch(seeds, num_ticks=ticks)
-    assert {name: WRAPPERS[name].launches for name in BATCHED.values()} == dict.fromkeys(
-        BATCHED.values(), ticks)
-    assert all(WRAPPERS[name].launches == 0 for name in BATCHED)
+    got, launches = _run_launches(lambda: eng.run_batch(seeds, num_ticks=ticks), lockstep=True)
+    assert launches == dict.fromkeys(BATCHED.values(), ticks)
+    assert all(name in WRAPPERS for name in launches)
     s0, lam = eng.init(0)
     for sd, out in zip(seeds, got):
         final, ts = eng.simulate(s0, eng.draws(lam, s0.zstart.shape[0], sd), ticks)
@@ -958,3 +969,164 @@ def test_lockstep_engine_on_the_card(dev, airlock):
                                        generator_device="cpu") for sd in seeds])
         outs.append(e.simulate_batch(sb, draws, ticks)[1].cpu())
     assert torch.equal(outs[0], outs[1])
+
+
+# ---------------------------------------------------------------------------
+# the compiled run (core.scan): a tick captured once, replayed
+# ---------------------------------------------------------------------------
+
+
+def _eager(step, s, draws, ticks):
+    rows = []
+    for t in range(ticks):
+        s, y = step(s, draws.tick(t))
+        rows.append(y)
+    return s, torch.stack(rows)
+
+
+def _leaves(s):
+    import torch.utils._pytree as pytree
+
+    return pytree.tree_flatten(s)[0]
+
+
+def _bits_equal(a, b):
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes()
+               for x, y in zip(_leaves(a), _leaves(b)))
+
+
+@pytest.mark.parametrize("airlock", [False, True])
+def test_captured_run_equals_make_step_by_hand(dev, airlock):
+    """The flat tick captured and replayed for 300 ticks equals make_step
+    driven by hand on the card: the series and every leaf of the final
+    state, bit for bit; the provider's generator ends where the eager loop
+    leaves it."""
+    from repro_torch.core.engine import make_step
+
+    cfg = dataclasses.replace(SMALL_EXP5, airlock=airlock, horizon_ms=150.0)
+    eng = LaminarEngine(cfg, device=dev)
+    s, lam = eng.init(0)
+    a, b = (eng.draws(lam, s.zstart.shape[0], 0) for _ in range(2))
+    final, ts = eng.simulate(s, a, 300)
+    efinal, ets = _eager(make_step(cfg), s, b, 300)
+    assert torch.equal(ts, ets)
+    assert _bits_equal(final, efinal)
+    assert torch.equal(a.gen.get_state(), b.gen.get_state())
+    assert int(ts[-1, 1]) > 0
+
+
+def test_captured_lockstep_equals_make_step_by_hand(dev):
+    """Lockstep B = 2 captured (the vmapped tick and both seeds' sampling in
+    one graph) equals the vmapped make_step driven by hand, 300 ticks."""
+    from repro_torch.core.draws import BatchDraws
+    from repro_torch.core.engine import make_step
+
+    cfg = dataclasses.replace(SMALL_EXP5, airlock=True, horizon_ms=150.0)
+    eng = LaminarEngine(cfg, device=dev)
+    sb, lam = eng.init_batch([0, 1])
+
+    def draws():
+        return BatchDraws([eng.draws(lam, sb.zstart.shape[1], sd) for sd in (0, 1)])
+
+    final, ts = eng.simulate_batch(sb, draws(), 300)
+    step = make_step(cfg)
+    efinal, ets = _eager(lambda s, d: torch.func.vmap(step, in_dims=(0, BatchDraws.in_dims(d)))(
+        s, d), sb, draws(), 300)
+    assert torch.equal(ts, ets.movedim(0, 1))
+    assert _bits_equal(final, efinal)
+
+
+def test_captured_baseline_equals_make_step_by_hand(dev):
+    """A baseline's step captured for the run (flux: the Gumbel leaf draws
+    and the root choke) equals its step driven by hand, 300 ticks."""
+    from repro_torch.core import BaselineConfig
+    from repro_torch.core.baselines import common as C
+    from repro_torch.core.baselines import flux_like
+    from repro_torch.core.baselines.draws import TorchBaselineDraws
+
+    cfg = LaminarConfig(num_nodes=64, zone_size=32, probe_capacity=1024,
+                        max_arrivals_per_tick=64, horizon_ms=150.0, rho=0.9)
+    s, lam = flux_like.init(cfg, 0, 1 << 12, dev)
+    step = flux_like.make_step(cfg, BaselineConfig())
+    final, ys = C.simulate(step, s, TorchBaselineDraws("flux", cfg, lam, 1 << 12, 0, dev), 300)
+    efinal, eys = _eager(step, s, TorchBaselineDraws("flux", cfg, lam, 1 << 12, 0, dev), 300)
+    assert torch.equal(ys, eys)
+    assert _bits_equal(final, efinal)
+    assert int(ys[-1, 1]) > 0
+
+
+def test_lockstep_graph_holds_the_batched_entries_once(dev):
+    """The captured lockstep tick's kernel nodes: each batched entry once,
+    no unbatched entry, no memcpy node touching host memory."""
+    from repro_torch.core.draws import BatchDraws
+    from repro_torch.core.scan import watching
+    from repro_torch.kernel_bench import graph_census, tick_entries
+    from repro_torch.kernels import BATCHED
+
+    eng = LaminarEngine(dataclasses.replace(SMALL_EXP5, airlock=True), device=dev)
+    sb, lam = eng.init_batch([0, 1, 2])
+    draws = BatchDraws([eng.draws(lam, sb.zstart.shape[1], sd) for sd in (0, 1, 2)])
+    with watching() as runs:
+        eng.simulate_batch(sb, draws, 5)
+    ((compiled, replays),) = runs
+    census = graph_census(compiled.graph)
+    assert replays == 5
+    assert tick_entries(census["names"], lockstep=True) == dict.fromkeys(BATCHED.values(), 1)
+    assert census["host_memcpy"] == 0
+
+
+def test_two_engines_keep_their_graphs_apart(dev):
+    """Two engines of different configs, each with its cached graph, run in
+    turns: each run equals that engine's first run from the same start."""
+    engines = [LaminarEngine(SMALL_EXP5, device=dev),
+               LaminarEngine(dataclasses.replace(SMALL_EXP5, airlock=True, rho=0.9), device=dev)]
+    starts = [e.init(0) for e in engines]
+    first = []
+    for e, (s, lam) in zip(engines, starts):
+        first.append(e.simulate(s, e.draws(lam, s.zstart.shape[0], 0), 60))
+    for _ in range(2):
+        for e, (s, lam), (fs, fts) in zip(engines, starts, first):
+            fs2, fts2 = e.simulate(s, e.draws(lam, s.zstart.shape[0], 0), 60)
+            assert torch.equal(fts, fts2)
+            assert _bits_equal(fs, fs2)
+    assert all(len(e._compiled) == 1 for e in engines)
+    assert not torch.equal(first[0][1], first[1][1])
+
+
+def test_captures_past_the_accumulator_pool_raise_and_dropped_graphs_give_back(dev,
+                                                                              monkeypatch):
+    """The address kernel's count accumulators, with the pool cut to three
+    regions: the side stream's eager warm-up takes one, each captured graph
+    one more; a third graph held at once is refused; dropping a graph gives
+    its region back, and the next capture takes it."""
+    import gc
+
+    from repro_torch.kernels.utility_topk import ops as topk_ops
+    from repro_torch.kernels.utility_topk import plan as topk_plan
+
+    engines = [LaminarEngine(dataclasses.replace(SMALL_EXP5, rho=r), device=dev)
+               for r in (0.7, 0.8, 0.9)]
+
+    def run(e):
+        s, lam = e.init(0)
+        return e.simulate(s, e.draws(lam, s.zstart.shape[0], 0), 5)
+
+    run(engines[0])  # the warm-up stream's region and a graph's, in the pool as it is
+    # a copy of the regions with every gap taken, and the pool cut one region past them
+    device = torch.cuda.current_device()
+    regions = dict(topk_ops._acc_regions)
+    spans = [(off, off + 4 * key[3]) for key, off in regions.items() if key[0] == device]
+    end = max(hi for _, hi in spans)
+    for off in range(0, end, 4):
+        if not any(lo <= off < hi for lo, hi in spans):
+            regions[(device, -1 - off, 0, 1)] = off
+    monkeypatch.setattr(topk_ops, "_acc_regions", regions)
+    monkeypatch.setattr(topk_plan, "ACC_POOL_WORDS", end + 4)
+    run(engines[1])  # the pool's last region
+    with pytest.raises(RuntimeError, match="no count accumulator left"):
+        run(engines[2])
+    engines[1]._compiled.clear()
+    gc.collect()
+    run(engines[2])
+    assert len(engines[2]._compiled) == 1

@@ -96,7 +96,8 @@ def test_rate_matches_jax(preset, seed):
         want_f = jax.jit(jax.vmap(lambda t: jsched.rate_factor(jsc, t, key, DT)))(ts)
         want = jax.jit(jax.vmap(lambda t: jsched.rate_per_tick(jsc, lam, t, key, DT)))(ts)
         got_f = tsched.rate_factor(tsc, t, b, DT)
-        got = tsched.rate_per_tick(tsc, lam, t, b, DT)
+        lam_t, cap_t = (torch.tensor(x, dtype=torch.float32) for x in (lam, tsched.rate_cap(tsc, lam)))
+        got = tsched.rate_per_tick(tsc, lam_t, cap_t, t, b, DT)
         assert got.dtype == torch.float32
         if preset == "diurnal":
             # the phase is bit-equal to the jitted JAX phase; XLA's sin
