@@ -80,15 +80,19 @@ and no result line:
      per-tick timeseries: Exp5 Airlock off and on, the six scenario presets
      with Airlock on, and storm through the zone-sharded engine;
   5. Exp7's top cell (65 536 nodes, 131 072 slots, 100 ticks): the flat
-     engine and the zone-sharded engine with the same draws; ticks/s, the
+     engine and the zone-sharded engine with the same draws, both compiled
+     (the sharded tick captured with its NCCL gathers); ticks/s, the
      traffic model, equal outputs; on the sharded run one
      ``bitmap_fit_rounds_blocked`` a tick, no one-round
-     ``bitmap_fit_blocked``, and five ``all_gather`` calls a tick (none on
-     the flat run);
+     ``bitmap_fit_blocked``, and the five ``all_gather_into_tensor`` calls
+     of a tick made at the warm-up and the capture (none on the flat run);
+     the sharded ticks/s eager (``make_step`` with its mesh plane) beside
+     captured;
   6. the storm scenario at Exp6's full geometry (5000 nodes, 65 536 slots,
      memory on) through the zone-sharded engine, Airlock off then on: node
      failures, kills only without Airlock, task conservation, the launches
-     and ``all_gather`` calls of phase 5's sharded run;
+     and gathers of phase 5's sharded run; sharded ticks/s eager, captured,
+     captured, eager;
   7. the Slurm-, Ray- and Flux-like baselines (``repro_torch.core.baselines``,
      plain PyTorch, no kernel): each at Exp1's geometry (5000 nodes, rho
      0.9, capacity 1 << 15; slurm also at Exp1b's 1 << 17) for 600 ticks,
@@ -107,19 +111,25 @@ and no result line:
      decode after prefill against forward's last logits at S = 2048
      (streaming attention) and S = 24 (dense), in float32 and bfloat16
      compute, rtol = atol = 0.05 (bfloat16 at S = 2048: 2**-5 of the
-     logits' scale), prefill and decode ms, peak memory and a profiled
-     decode step; (c) ``launch.serve`` at full width (24 requests, 2
-     replicas, 120 ticks), its stats equal to a CPU run at ``--smoke``, its
-     tokens/s; (b) the width cut to 2 layers on the card and the CPU with
+     logits' scale), prefill ms; the serve driver's decode
+     (``launch.serve.CompiledDecode``: a CUDA graph a batch size) at B = 1,
+     2 and 4 equal to eager ``lm.decode_step`` bit for bit at positions 10,
+     37 and 95, decode ms captured and eager, peak memory, and a profiled
+     decode step eager and replayed (its graph's nodes); (c)
+     ``launch.serve`` at full width (24 requests, 2 replicas, 120 ticks) on
+     the captured decode, its emitted tokens and stats equal to the same
+     loop on the eager decode and its stats to a CPU run at ``--smoke``,
+     its tokens/s both ways; (b) the width cut to 2 layers on the card and the CPU with
      the same parameters, greedy tokens equal where the margin is clear;
      (d) ``moe_ffn`` at olmoe-1b-7b's layer width on
      ``bench_moe_router.py``'s 2048-token traffic, dropped slots and loads
      equal to the CPU's; every launch counter reads 0 after it;
   9. the training path (``repro_torch.train``, ``launch.train``; plain
      PyTorch, no hand-written kernel) and the RG-LRU / SSD families: (a) the
-     train driver at qwen3-1.7b's full width (float32 parameters, bfloat16
+     train driver (``launch.train.run``) at qwen3-1.7b's full width cut to
+     2 of its 28 layers (float32 parameters, bfloat16
      compute, remat per block), batch 2 x seq 4096, 6 steps with a
-     checkpoint every 4 (20.6 GB each): the losses (finite), ms a step, tokens/s, peak
+     checkpoint every 4: the losses (finite), ms a step, tokens/s, peak
      memory, then a restart from the newest checkpoint (3 steps, as
      ``tests/test_train.py`` counts) and a profiled step; (b) the width cut
      to 2 layers, one train step on the card and on the CPU with the same
@@ -131,7 +141,7 @@ and no result line:
      and peak memory; every launch counter reads 0 after it;
   10. the device mesh (``launch.mesh``, ``parallel.sharding``; plain
      PyTorch and DTensor, no hand-written kernel): (a) the train driver with
-     phase 9 (a)'s own arguments plus ``--mesh 1x1`` (a ``DeviceMesh`` of
+     phase 9 (a)'s own arguments and depth plus ``mesh="1x1"`` (a ``DeviceMesh`` of
      the one-rank NCCL group; parameters, moments and batches DTensors
      placed by the sharding rules), its losses bit-equal to 9 (a)'s (else
      the gap printed and held to the CPU tests' float32 bound 1e-6), a
@@ -163,20 +173,27 @@ and no result line:
      replay it): (a) the captured runs equal ``make_step`` driven by hand on
      the card, bit for bit, on every integer metric, ``lat_hist``, the
      series and every leaf of the final state: Exp5 at 5000 nodes / 65 536
-     slots, Airlock off and on, 800 ticks; the storm and diurnal presets
-     there, 400 ticks; lockstep seeds 0 to 3, Airlock on, 200 ticks; slurm,
-     ray and flux at Exp1's geometry, 600 ticks; one run on draws from a CPU
-     generator (copied into the graph's buffers before each replay);
+     slots, Airlock off and on, 400 ticks; the storm and diurnal presets
+     there, 200 ticks; lockstep seeds 0 to 3, Airlock on, 200 ticks; slurm,
+     ray and flux at Exp1's geometry, 300 ticks; one run on draws from a CPU
+     generator (copied into the graph's buffers before each replay); the
+     zone-sharded engine on the one-rank NCCL group (its tick captured with
+     its five gathers) at Exp5 Airlock off and on, 800 ticks, storm, 400,
+     and seeds 0 and 24 (equal (Z, M), other zones) through one engine, a
+     compiled tick each, 0 host syncs in 20 replays;
      (b) each captured tick's graph: its hand-written kernel nodes (named
      by ``cuFuncGetName``) hold each entry as often as a tick launches it,
-     the batched entries in the lockstep graph, the baselines' none; no
+     the batched entries in the lockstep graph, the blocked rounds in the
+     sharded graph (its NCCL kernel nodes counted apart), the baselines'
+     none; no
      memcpy node touches host memory; the runs make 0 host syncs; (c)
      captured against eager, each on its own host clock ending in a
      synchronize: Exp5 ticks/s (Airlock off and on; eager, captured,
      captured, eager), Exp7's top cell flat (100 ticks), lockstep
      seed-ticks/s at B = 1, 4, 8 (eager: 11 (d)'s), each baseline's
      ticks/s; (d) the replayed tick's profile (``profile_tick``): host ms a
-     replay, device busy, device kernels a replay, flat and at B = 8;
+     replay, device busy, device kernels a replay, flat, sharded and at
+     B = 8;
   13. print the kernel table as JSON, the card's name and power limit, and
      last the result line.
 
@@ -184,8 +201,8 @@ Every launch counter is set to 0 just before each run of phases 3, 5, 6, 7,
 8, 9, 10, 11 and 12 and read just after. A compiled run's launches are its
 captured graph's hand-written kernel nodes (``kernel_bench.graph_census``,
 named by ``cuFuncGetName``) times its replays: its wrappers run only at the
-warm-up and the capture. The zone-sharded tick stays eager, and its
-wrappers count. The table's ``launches`` sums the runs of phases 3, 5 and
+warm-up and the capture; the zone-sharded run is compiled too (phases 5, 6,
+12). The table's ``launches`` sums the runs of phases 3, 5 and
 6 and, for the batched entries, phase 11 (a)'s lockstep run (0 for the
 three fixture rows, whose ``smoke_launches`` counts phase 2b's own).
 """
@@ -214,7 +231,7 @@ FP32_OPS_PER_S = 67e12  # H100 SXM outside the tensor cores
 # default of bench_exp5_airlock.py, 2400 ticks, until the later phases came:
 # cut to keep the whole script near its earlier time
 TICKS = 800
-PARITY_TICKS = 400
+PARITY_TICKS = 200  # 400 until the sharded captures came (the script's time)
 SCENARIO_TICKS = 200  # phase 4's scenario presets
 EXP7_TICKS = 100  # bench_exp7_scale.py NUM_TICKS
 # phase 6's horizon, cut from 2400 ticks (Exp6's) when phase 11 came
@@ -252,11 +269,21 @@ EXACT = ("survival_scan", "utility_topk_address", "survival_scan_batched",
 BATCH_SEEDS = [0, 1, 2, 3]
 BATCH_TICKS = 200
 BATCH_SIZES = (1, 4, 8)  # (d): lockstep seed-ticks/s
-BATCH_WARMUP, BATCH_TIMED = 50, 100  # (d): ticks before and in the timed window
-# phase 12: the compiled run against make_step driven by hand
-PRESET_TICKS = 400  # (a) storm and diurnal at Exp5's geometry
+BATCH_WARMUP, BATCH_TIMED = 50, 50  # (d): ticks before and in the timed window
+# phase 12: the compiled run against make_step driven by hand. The flat and
+# baseline runs of (a) were halved (800, 400, 600 ticks) and the timed
+# windows of 12 (c), 6 and 11 (d) too (300, 100 ticks) when the sharded runs
+# came, to keep the script within 60 % of its time limit on a slow host
+FLAT_TICKS = 400  # (a) Exp5, flat
+FLAT_PRESET_TICKS = 200  # (a) storm and diurnal at Exp5's geometry, flat
+CAPTURED_BASELINE_TICKS = 300  # (a) the baselines at Exp1's geometry
+PRESET_TICKS = 400  # (a) storm, zone-sharded
 HOST_FED_TICKS = 200  # (a) draws from a CPU generator
-RATE_WARMUP, RATE_TICKS = 100, 300  # (c) ticks before and in the timed window
+RATE_WARMUP, RATE_TICKS = 100, 150  # (c) ticks before and in the timed window
+# (a) the zone-sharded run: two seeds whose Exp5 zones differ and whose (Z, M)
+# shapes (20, 301) are equal, through one engine
+GEOMETRY_SEEDS = (0, 24)
+GEOMETRY_TICKS = 100
 
 
 class SmokeFailure(Exception):
@@ -1076,14 +1103,18 @@ def counted(run, lockstep=False):
 
 def drive(eng, s, draws, ticks):
     """One main-path run: counters set to 0 just before, read just after.
-    Returns (summary, launches, host syncs inside the ticks, ticks/s,
-    all_gather calls)."""
+    Returns (summary, launches, host syncs in the run, ticks/s,
+    all_gather_into_tensor calls, the census of the run's graph)."""
     from repro_torch.core.engine import summarize
+    from repro_torch.core.scan import watching
+    from repro_torch.kernel_bench import graph_census
 
-    (final, ts), launches, syncs, wall, gathers = counted(lambda: eng.simulate(s, draws, ticks))
+    with watching() as runs:
+        (final, ts), launches, syncs, wall, gathers = counted(
+            lambda: eng.simulate(s, draws, ticks))
     check(ts.shape == (ticks, 11), f"timeseries shape {tuple(ts.shape)}")
     out = summarize(eng.cfg, final, ts.cpu().numpy())
-    return out, launches, syncs, ticks / wall, gathers
+    return out, launches, syncs, ticks / wall, gathers, graph_census(runs[0][0].graph)
 
 
 def want_launches(cfg, ticks, sharded):
@@ -1102,13 +1133,19 @@ def want_launches(cfg, ticks, sharded):
             **dict.fromkeys(BATCHED.values(), 0)}
 
 
-# the sharded tick's all_gathers: s_true, run_true, the rounds, zS, zH
+# the sharded tick's all_gathers: s_true, run_true, the rounds, zS, zH. A
+# compiled sharded run calls them at its warm-up and its capture; its graph
+# replays the capture's
 GATHERS_A_TICK = 5
+CAPTURE_GATHERS = 2 * GATHERS_A_TICK
+# a sharded run reads its zone geometry's digest on the host once, before
+# its first tick (the key of its compiled tick); its ticks read nothing
+SHARDED_RUN_SYNCS = 1
 
 
-def check_run(tag, out, launches, want, syncs, gathers=0, want_gathers=0):
+def check_run(tag, out, launches, want, syncs, gathers=0, want_gathers=0, want_syncs=0):
     check(launches == want, f"[{tag}] launch counts {launches} != {want}")
-    check(syncs == 0, f"[{tag}] {syncs} host syncs inside the ticks")
+    check(syncs == want_syncs, f"[{tag}] {syncs} host syncs in the run, want {want_syncs}")
     check(gathers == want_gathers, f"[{tag}] {gathers} all_gather calls, want {want_gathers}")
     for k in ("exec_survival_ratio", "completed_success_ratio", "start_success_ratio",
               "p50_ms", "p99_ms"):
@@ -1139,7 +1176,8 @@ def phase3(dev, totals):
         cfg = exp5_config(airlock, full=True, ticks=TICKS)
         eng = LaminarEngine(cfg, device=dev)
         s, lam = eng.init(0)
-        out, launches, syncs, tps, _ = drive(eng, s, eng.draws(lam, s.zstart.shape[0], 0), TICKS)
+        out, launches, syncs, tps, _, _ = drive(eng, s, eng.draws(lam, s.zstart.shape[0], 0),
+                                                TICKS)
         add(totals, launches)
         tag = "airlock" if airlock else "kernel-oom"
         print(f"phase 3 [{tag}]: {tps:.1f} ticks/s, "
@@ -1220,7 +1258,7 @@ def phase4(dev, gloo):
 
 
 def phase5(dev, totals):
-    from repro_torch.core.engine import LaminarEngine
+    from repro_torch.core.engine import LaminarEngine, make_step
     from repro_torch.parallel.engine_mesh import ZoneShardedEngine
     from repro_torch.profile_tick import exp7_config
 
@@ -1234,17 +1272,24 @@ def phase5(dev, totals):
     mesh = ZoneShardedEngine(cfg, num_devices=1, device=dev)
     outs = {}
     for tag, eng in (("flat", flat), ("zone-sharded", mesh)):
-        out, launches, syncs, tps, gathers = drive(eng, s, eng.draws(lam, Z, 0), EXP7_TICKS)
+        out, launches, syncs, tps, gathers, census = drive(eng, s, eng.draws(lam, Z, 0),
+                                                           EXP7_TICKS)
         add(totals, launches)
         outs[tag] = out
-        print(f"phase 5 [{tag}]: {tps:.1f} ticks/s, arrived={out['arrived']} "
-              f"started={out['started']} completed={out['completed']} "
-              f"start_success_ratio={out['start_success_ratio']:.6f} "
-              f"launches={launches} host_syncs_in_ticks={syncs} "
-              f"all_gather_calls_per_tick={gathers / EXP7_TICKS:g}")
         sharded = tag != "flat"
+        print(f"phase 5 [{tag}]: {tps:.1f} ticks/s captured from init (capture included), "
+              f"arrived={out['arrived']} started={out['started']} completed={out['completed']} "
+              f"start_success_ratio={out['start_success_ratio']:.6f} "
+              f"launches={launches} (graph nodes x replays) host_syncs_in_run={syncs} "
+              f"all_gather_into_tensor calls {gathers} (warm-up and capture), "
+              f"NCCL kernel nodes a tick {census['nccl']}")
         check_run(tag, out, launches, want_launches(cfg, EXP7_TICKS, sharded), syncs, gathers,
-                  GATHERS_A_TICK * EXP7_TICKS if sharded else 0)
+                  CAPTURE_GATHERS if sharded else 0, SHARDED_RUN_SYNCS if sharded else 0)
+    step = make_step(cfg, plane=mesh._plane(s))
+    eager = EXP7_TICKS / timed(lambda: eager_run(step, s, mesh.draws(lam, Z, 0), EXP7_TICKS))
+    captured = EXP7_TICKS / timed(lambda: mesh.simulate(s, mesh.draws(lam, Z, 0), EXP7_TICKS))
+    print(f"phase 5 [zone-sharded]: {EXP7_TICKS} ticks from init, ticks/s eager (make_step "
+          f"with the mesh plane) {eager:.1f}, captured {captured:.1f} (capture made before)")
     print(f"phase 5: traffic model (bytes per tick, modelled) at 1 rank: {mesh.traffic(0)}")
     from repro_torch.parallel.engine_mesh import traffic_model
     print(f"phase 5: traffic model at 4 ranks: {traffic_model(cfg, Z, 4, max_zone=M)}")
@@ -1264,6 +1309,7 @@ def phase5(dev, totals):
 
 
 def phase6(dev, totals):
+    from repro_torch.core.engine import make_step
     from repro_torch.parallel.engine_mesh import ZoneShardedEngine
     from repro_torch.profile_tick import exp5_config
     from repro_torch.workloads import SCENARIOS
@@ -1275,24 +1321,35 @@ def phase6(dev, totals):
                                   scenario=SCENARIOS["storm"])
         eng = ZoneShardedEngine(cfg, num_devices=1, device=dev)
         s, lam = eng.init(0)
-        out, launches, syncs, tps, gathers = drive(eng, s, eng.draws(lam, s.zstart.shape[0], 0),
-                                                   STORM_TICKS)
+        Z = s.zstart.shape[0]
+        out, launches, syncs, tps, gathers, census = drive(eng, s, eng.draws(lam, Z, 0),
+                                                           STORM_TICKS)
         add(totals, launches)
         tag = "storm, airlock" if airlock else "storm, kernel-oom"
-        print(f"phase 6 [{tag}]: {tps:.1f} ticks/s, node_failures={out['node_failures']} "
+        print(f"phase 6 [{tag}]: {tps:.1f} ticks/s captured from init (capture included), "
+              f"node_failures={out['node_failures']} "
               f"node_recoveries={out['node_recoveries']} evicted={out['evicted']} "
               f"evicted_killed={out['evicted_killed']} "
               f"exec_survival_ratio={out['exec_survival_ratio']:.6f} "
               f"completed_success_ratio={out['completed_success_ratio']:.6f} "
-              f"started={out['started']} launches={launches} host_syncs_in_ticks={syncs} "
-              f"all_gather_calls_per_tick={gathers / STORM_TICKS:g}")
+              f"started={out['started']} launches={launches} (graph nodes x replays) "
+              f"host_syncs_in_run={syncs} all_gather_into_tensor calls {gathers} (warm-up and "
+              f"capture), NCCL kernel nodes a tick {census['nccl']}")
         check_run(tag, out, launches, want_launches(cfg, STORM_TICKS, sharded=True), syncs,
-                  gathers, GATHERS_A_TICK * STORM_TICKS)
+                  gathers, CAPTURE_GATHERS, SHARDED_RUN_SYNCS)
         check(out["node_failures"] > 0, f"[{tag}] no node failures")
         if airlock:
             check(out["evicted_killed"] == 0, f"[{tag}] Airlock run killed evicted residents")
         else:
             check(out["evicted_killed"] > 0, f"[{tag}] no disruption kills without Airlock")
+        rates = []
+        for kind in ("eager", "captured", "captured", "eager"):
+            d = eng.draws(lam, Z, 0)
+            rates.append(eager_rate(make_step(cfg, plane=eng._plane(s)), s, d)
+                         if kind == "eager" else captured_rate(eng.simulate, s, d))
+        print(f"phase 6 [{tag}]: ticks {RATE_WARMUP} to {RATE_WARMUP + RATE_TICKS - 1}, "
+              f"sharded ticks/s eager, captured, captured, eager: "
+              f"{', '.join(f'{r:.1f}' for r in rates)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1474,6 +1531,9 @@ DECODE_TOL = 0.05  # tests/test_models.py's decode-vs-forward rtol and atol
 # card against the CPU (phases 8d, 9b). The CPU tests hold the port to the
 # reference, one order against the same order, at 2**-7.
 BF16_TOL = 2.0**-5
+DECODE_BATCHES = (1, 2, 4)  # at most ServeConfig.max_slots = 4 running a replica
+DECODE_POSITIONS = (10, 37, 95)  # the graph replays any position (95: S_MAX's last slot)
+DECODE_REPLAYS = 20
 MOE_ARCH = "olmoe-1b-7b"  # d_model 2048, 64 experts, top-8, d_ff_expert 1024
 MOE_TOKENS = 2048  # benchmarks/bench_moe_router.py's traffic
 MOE_BOUNCES = 2
@@ -1550,26 +1610,42 @@ def phase8a(cfg, params, dev):
                      reps=3)
         print(f"phase 8 (a): prefill of {LONG_PROMPT - 1} tokens at B={B}: {ms:.2f} ms "
               f"({B * (LONG_PROMPT - 1) / ms * 1e3:.0f} tokens/s)")
-    for B in (1, 2, 4):
+    decode = tserve.CompiledDecode(cfg, params)
+    for B in DECODE_BATCHES:
         tok = torch.randint(0, cfg.vocab, (B, 1), device=dev, dtype=torch.int32)
-        ms = host_ms(lambda: lm.decode_step(cfg, params, tok, 10,
-                                            lm.init_cache(cfg, B, tserve.S_MAX, dev)))
-        print(f"phase 8 (a): decode step at B={B}, cache {tserve.S_MAX}: {ms:.2f} ms a step "
-              f"({B / ms * 1e3:.1f} tokens/s)")
+
+        def eager(at):
+            return lm.decode_step(cfg, params, tok, at, lm.init_cache(cfg, B, tserve.S_MAX, dev))[0]
+
+        for at in DECODE_POSITIONS:  # the first call captures B's graph
+            got, want = decode(tok, at).clone(), eager(at)
+            check(torch.equal(got, want), f"[decode B={B}, position {at}] captured logits differ "
+                  f"from eager by {float((got - want).abs().max())}")
+        e_ms = host_ms(lambda: eager(10))
+        c_ms = host_ms(lambda: decode(tok, 10))
+        print(f"phase 8 (a): decode step at B={B}, cache {tserve.S_MAX}, {cfg.n_layers} layers: "
+              f"captured logits == eager bit for bit at positions {DECODE_POSITIONS}; eager "
+              f"{e_ms:.2f} ms a step ({B / e_ms * 1e3:.1f} tokens/s), captured {c_ms:.2f} ms "
+              f"({B / c_ms * 1e3:.1f} tokens/s), host clock ending in a synchronize")
+    check(sorted(decode.steps) == list(DECODE_BATCHES), f"decode graphs {sorted(decode.steps)}")
     print(f"phase 8 (a): torch.cuda.max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    decode_profile(cfg, params, dev)
+    decode_profile(cfg, params, dev, decode)
 
 
-def decode_profile(cfg, params, dev, B=2, steps=5):
+def decode_profile(cfg, params, dev, decode, B=2, steps=5):
     """Where a decode step's time goes (the serve driver's step: a fresh
-    cache of S_MAX, B = 2): host wall, aten ops and device kernels a step,
-    device busy share, the largest device kernels (torch.profiler)."""
+    cache of S_MAX, B = 2), eager and replayed: host wall, aten ops and
+    device kernels a step, device busy share, the largest device kernels
+    (torch.profiler); for the replay (``decode``'s graph for B) also the
+    host enqueue ms a replay and the graph's nodes."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
+    from repro_torch.kernel_bench import graph_census, tick_entries
     from repro_torch.launch import serve as tserve
     from repro_torch.models import lm
+    from repro_torch.profile_tick import window
 
     tok = torch.randint(0, cfg.vocab, (B, 1), device=dev, dtype=torch.int32)
     step = lambda: lm.decode_step(cfg, params, tok, 10, lm.init_cache(cfg, B, tserve.S_MAX, dev))  # noqa: E731
@@ -1589,36 +1665,99 @@ def decode_profile(cfg, params, dev, B=2, steps=5):
     n_ops = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
     busy = sum(dev_us.values()) / 1e6 / steps
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:4]
-    print(f"phase 8 (a): profiled decode step (B={B}, cache {tserve.S_MAX}): {wall * 1e3:.2f} ms "
+    print(f"phase 8 (a): profiled eager decode step (B={B}, cache {tserve.S_MAX}, "
+          f"{cfg.n_layers} layers): {wall * 1e3:.2f} ms "
           f"wall, {n_ops / steps:.0f} aten ops (nested ones included) and {dev_n / steps:.0f} "
           f"device kernels a step, device busy {busy * 1e3:.3f} ms = {busy / wall:.1%} of wall; "
           f"largest: " + "; ".join(f"{us / steps / 1e3:.3f} ms {name[:60]}" for name, us in top))
 
+    decode(tok, 10)
+    graph = decode.steps[B].graph
 
-def phase8c(cfg, params, dev):
-    """The serve driver at full width on the card; its stats against a CPU
-    run of the same driver at --smoke (they depend only on the numpy
-    generator)."""
-    from repro_torch.configs import get_smoke
-    from repro_torch.launch import serve as tserve
-    from repro_torch.models import lm
+    def advance(k):
+        for _ in range(k):
+            graph.replay()
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stats, emitted, _ = tserve.serve(cfg, params, requests=24, replicas=2, ticks=120, seed=0,
-                                     device=dev)
+    advance(DECODE_REPLAYS)
+    enqueue = (time.perf_counter() - t0) / DECODE_REPLAYS
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    finished = (time.perf_counter() - t0) / DECODE_REPLAYS
+    w = window(advance, DECODE_REPLAYS)
+    c = graph_census(graph)
+    hand = tick_entries(c["names"], lockstep=False)
+    check(not hand, f"the decode graph holds hand-written kernel nodes {hand}")
+    busy = "not measured" if w["busy_ms"] is None else \
+        f"{w['busy_ms']:.3f} ms = {w['busy_ms'] / w['wall_ms']:.1%} of the profiled wall"
+    top = "; ".join(f"{us / 1e3:.3f} ms {name[:60]}" for name, us in w["top_device"][:4])
+    print(f"phase 8 (a): replayed decode step (B={B}, {cfg.n_layers} layers; CompiledDecode's "
+          f"graph): {finished * 1e3:.3f} ms a replay to its end, host enqueue {enqueue * 1e3:.3f} "
+          f"ms; graph nodes: {c['kernel']} kernel (hand-written: none), {c['memcpy']} memcpy "
+          f"({c['host_memcpy']} touching host memory), {c['memset']} memset, {c['other']} other; "
+          f"profiled {w['wall_ms']:.3f} ms wall, {w['kernels']:.0f} device kernels a replay, "
+          f"device busy {busy}; largest: {top}")
+
+
+class EagerDecode:
+    """The serve driver's decode before it was compiled: ``lm.decode_step``
+    from a fresh cache of ``S_MAX`` slots, op by op (phase 8 (c)'s
+    yardstick, in place of ``CompiledDecode``)."""
+
+    def __init__(self, cfg, params, s_max=None):
+        from repro_torch.launch import serve as tserve
+
+        self.cfg, self.params, self.s_max = cfg, params, s_max or tserve.S_MAX
+
+    def __call__(self, tokens, position):
+        from repro_torch.models import lm
+
+        cache = lm.init_cache(self.cfg, tokens.shape[0], self.s_max, tokens.device)
+        return lm.decode_step(self.cfg, self.params, tokens, position, cache)[0]
+
+
+def phase8c(cfg, params, dev):
+    """The serve driver at full width on the card, on its captured decode;
+    its emitted tokens and stats against the same loop on the eager decode
+    (same seeds), and its stats against a CPU run of the driver at --smoke
+    (they depend only on the numpy generator)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.scan import watching
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import lm
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats, emitted, _ = tserve.serve(cfg, params, requests=24, replicas=2, ticks=120,
+                                         seed=0, device=dev)
+        torch.cuda.synchronize()
+        return stats, emitted, time.perf_counter() - t0
+
+    with watching() as runs:
+        stats, emitted, wall = run()
+    check(not runs, "the serve driver ran an engine tick")
+    compiled = tserve.CompiledDecode
+    tserve.CompiledDecode = EagerDecode
+    try:
+        e_stats, e_emitted, e_wall = run()
+    finally:
+        tserve.CompiledDecode = compiled
     n_tok = sum(len(v) for v in emitted.values())
     smoke = get_smoke(cfg.name)
     cpu_stats, _, _ = tserve.serve(smoke, lm.init_params(smoke, 0, "cpu"), requests=24,
                                    replicas=2, ticks=120, seed=0, device="cpu")
-    print(f"phase 8 (c): launch.serve at full width on the card (24 requests, 2 replicas, 120 "
-          f"ticks, seed 0): {stats}; {n_tok} tokens in {wall:.2f} s wall "
-          f"({n_tok / wall:.1f} tokens/s)")
+    print(f"phase 8 (c): launch.serve at full width on the card ({cfg.n_layers} layers; 24 "
+          f"requests, 2 replicas, 120 ticks, seed 0): {stats}; {n_tok} tokens in {wall:.2f} s "
+          f"wall on the captured decode ({n_tok / wall:.1f} tokens/s), {e_wall:.2f} s on the "
+          f"eager decode ({n_tok / e_wall:.1f} tokens/s)")
+    check(stats == e_stats and emitted == e_emitted,
+          f"[serve] captured and eager decode differ: stats {stats} vs {e_stats}, tokens "
+          f"{sum(emitted[r] != e_emitted.get(r) for r in emitted)} requests apart")
     check(stats == cpu_stats, f"[serve] card stats {stats} != CPU --smoke stats {cpu_stats}")
     check(stats["completed"] > 0 and n_tok > 0, "[serve] nothing decoded")
-    print("phase 8 (c): the stats equal a CPU run of the driver at --smoke")
+    print("phase 8 (c): captured == eager decode on every emitted token and stat; the stats "
+          "equal a CPU run of the driver at --smoke")
 
 
 def phase8b(cfg, dev):
@@ -1737,9 +1876,13 @@ TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_SEQ = 4096  # train_4k's sequence length
 TRAIN_BATCH = 2  # cut from train_4k's global batch of 256
 TRAIN_STEPS = 6
-# tests/test_train.py checkpoints every 2 steps; at full width a checkpoint
-# writes 20.6 GB, so every 4 keeps the run's disk writes to one checkpoint,
-# and the restart still resumes at step 4
+# phases 9 (a) and 10 (a) keep qwen3-1.7b's full width (d_model, heads,
+# vocab), seq 4096 and batch 2, and cut its 28 layers to TRAIN_LAYERS, to
+# keep the whole script within 60 % of its time limit (at 28 layers the two
+# took 319 s, the checkpoints 20.6 GB each; at 4, 82 s on a slow host)
+TRAIN_LAYERS = 2
+# tests/test_train.py checkpoints every 2 steps; every 4 keeps the run's disk
+# writes to one checkpoint, and the restart still resumes at step 4
 CKPT_EVERY = 4
 RESTART_STEPS = 7  # tests/test_train.py's restart: 6 steps, then 7 from the newest checkpoint
 RESTART_WANT = 3  # resumed at step 4, ran 4, 5, 6
@@ -1779,40 +1922,49 @@ def profile_step(fn, label, steps=1):
             "busy": busy / wall}
 
 
-def phase9a(dev, ckpt_dir):
-    """The train driver's path (``launch.train.main``: ``make_pipeline`` and
-    ``Trainer``) at qwen3-1.7b's full width: 6 steps with a checkpoint every
-    ``CKPT_EVERY``, then a restart from the newest checkpoint; a profiled
-    step."""
+def train_config():
+    """qwen3-1.7b at full width, its depth cut to TRAIN_LAYERS."""
     from repro_torch.configs import get
+
+    return dataclasses.replace(get(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+
+
+def phase9a(dev, ckpt_dir):
+    """The train driver's path (``launch.train.run``: ``make_pipeline`` and
+    ``Trainer``) at qwen3-1.7b's full width cut to TRAIN_LAYERS layers: 6
+    steps with a checkpoint every ``CKPT_EVERY``, then a restart from the
+    newest checkpoint; a profiled step."""
     from repro_torch.launch import steps, train
     from repro_torch.models import lm
     from repro_torch.train import data, optimizer
 
-    cfg = get(TRAIN_ARCH)
+    cfg = train_config()
     check(cfg.remat == "block" and cfg.compute_dtype == torch.bfloat16, f"{cfg.name} config")
-    args = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-            "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(CKPT_EVERY), "--device", dev.type]
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=str(ckpt_dir), ckpt_every=CKPT_EVERY,
+              device=dev.type)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = train.main(args + ["--steps", str(TRAIN_STEPS)])
+    out = train.run(cfg, steps=TRAIN_STEPS, **kw)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses, secs = out["losses"], out["step_seconds"]
     check(out["steps"] == TRAIN_STEPS and np.isfinite(losses).all(), f"[train] losses {losses}")
     ms = float(np.median(secs[2:6])) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"phase 9 (a): launch.train at {cfg.name}'s full width ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, float32 parameters, bfloat16 compute, remat {cfg.remat!r}), "
+    print(f"phase 9 (a): launch.train.run at {cfg.name}'s full width cut to {cfg.n_layers} "
+          f"layers (of 28; d_model {cfg.d_model}, vocab {cfg.vocab}, float32 parameters, "
+          f"bfloat16 compute, remat {cfg.remat!r}), "
           f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ} (train_4k's length; its global batch 256 cut "
           f"to {TRAIN_BATCH}), {TRAIN_STEPS} steps, a checkpoint every {CKPT_EVERY}: losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; step seconds "
-          f"{', '.join(f'{x:.3f}' for x in secs)}; {ms:.1f} ms a step (median of steps 2-5, "
-          f"host clock ending in a synchronize) = {tokens / ms * 1e3:.0f} tokens/s; "
-          f"max_memory_allocated {peak:.2f} GiB; {wall:.1f} s wall with the checkpoints")
+          f"{', '.join(f'{x:.3f}' for x in secs)}; {ms:.1f} ms a step at {cfg.n_layers} layers "
+          f"(median of steps 2-5, host clock ending in a synchronize) = "
+          f"{tokens / ms * 1e3:.0f} tokens/s; max_memory_allocated {peak:.2f} GiB; {wall:.1f} s "
+          f"wall with the checkpoints")
     t0 = time.perf_counter()
-    again = train.main(args + ["--steps", str(RESTART_STEPS)])
-    print(f"phase 9 (a): restart with --steps {RESTART_STEPS} from the newest checkpoint: "
+    again = train.run(cfg, steps=RESTART_STEPS, **kw)
+    print(f"phase 9 (a): restart at {cfg.n_layers} layers with steps={RESTART_STEPS} from the "
+          f"newest checkpoint: "
           f"{again['steps']} steps (the reference's count: {RESTART_WANT}), losses "
           f"{', '.join(f'{x:.4f}' for x in again['losses'])}; {time.perf_counter() - t0:.1f} s "
           f"wall with the restore")
@@ -1826,7 +1978,7 @@ def phase9a(dev, ckpt_dir):
              next(data.make_pipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)).items()}
     step = steps.make_train_step(cfg, ocfg)
     prof = profile_step(lambda: step(params, state, batch)[2]["loss"].item(),
-                        "phase 9 (a): profiled train step")
+                        f"phase 9 (a): profiled train step ({cfg.n_layers} layers)")
     return {"losses": losses, "restart_losses": again["losses"], "ms": ms,
             "tokens_s": tokens / ms * 1e3, "peak": peak, "profile": prof}
 
@@ -1967,7 +2119,7 @@ def phase9(dev):
 # (no card: the fake process group and fake tensors trace every rank's
 # shapes); one JSON line out
 DRYRUN_CODE = """
-import json, sys
+import dataclasses, json, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 torch.set_num_threads(2)
@@ -1975,11 +2127,12 @@ from repro_torch.configs import get
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import fake_process_group, make_mesh
-arch, batch = sys.argv[2], int(sys.argv[3])
+arch, batch, layers = sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
 out = {"cells": [dryrun.run_cell(arch, "train_4k", mp, verbose=False) for mp in (False, True)]}
 s = SHAPES["train_4k"]
 with fake_process_group(1):
-    out["roofline"] = roofline.analyze(get(arch), ShapeSpec(s.name, s.seq_len, batch, s.kind),
+    out["roofline"] = roofline.analyze(dataclasses.replace(get(arch), n_layers=layers),
+                                       ShapeSpec(s.name, s.seq_len, batch, s.kind),
                                        make_mesh((1, 1), ("data", "model"), "cpu"))
 print(json.dumps(out))
 """
@@ -1990,7 +2143,8 @@ def start_dryrun():
     """Phase 10 (b)'s process, started to run beside phase 10 (a)."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.Popen(
-        [sys.executable, "-c", DRYRUN_CODE, str(SRC), TRAIN_ARCH, str(TRAIN_BATCH)],
+        [sys.executable, "-c", DRYRUN_CODE, str(SRC), TRAIN_ARCH, str(TRAIN_BATCH),
+         str(TRAIN_LAYERS)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
 
 
@@ -2000,20 +2154,18 @@ def phase10a(dev, ckpt_dir, base):
     parameters, moments and batches DTensors placed by the sharding rules;
     the losses against 9a's, a restart, ms a step, peak memory and a
     profiled step beside 9a's."""
-    from repro_torch.configs import get
     from repro_torch.launch import steps, train
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm
     from repro_torch.parallel import sharding
     from repro_torch.train import data, optimizer
 
-    cfg = get(TRAIN_ARCH)
-    args = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-            "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(CKPT_EVERY), "--device", dev.type,
-            "--mesh", "1x1"]
+    cfg = train_config()
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=str(ckpt_dir), ckpt_every=CKPT_EVERY,
+              device=dev.type, mesh="1x1")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = train.main(args + ["--steps", str(TRAIN_STEPS)])
+    out = train.run(cfg, steps=TRAIN_STEPS, **kw)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses, secs = out["losses"], out["step_seconds"]
@@ -2022,8 +2174,9 @@ def phase10a(dev, ckpt_dir, base):
     gap = float(np.max(np.abs(losses - base["losses"]) / np.abs(base["losses"])))
     ms = float(np.median(secs[2:6])) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"phase 10 (a): launch.train --mesh 1x1 at {cfg.name}'s full width, phase 9 (a)'s "
-          f"arguments: losses {', '.join(f'{x:.4f}' for x in losses)}: "
+    print(f"phase 10 (a): launch.train.run with mesh 1x1 at {cfg.name}'s full width cut to "
+          f"{cfg.n_layers} layers, phase 9 (a)'s arguments: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}: "
           + ("bit-equal to phase 9 (a)'s" if equal else
              f"NOT bit-equal to phase 9 (a)'s (largest gap {gap:.3g} of the loss)")
           + f"; step seconds {', '.join(f'{x:.3f}' for x in secs)}; {ms:.1f} ms a step "
@@ -2032,9 +2185,10 @@ def phase10a(dev, ckpt_dir, base):
           f"{base['peak']:.2f}); {wall:.1f} s wall with the checkpoints")
     check(equal or gap <= LOSS_RTOL, f"[mesh] losses differ from phase 9 (a)'s by {gap:.3g}")
     t0 = time.perf_counter()
-    again = train.main(args + ["--steps", str(RESTART_STEPS)])
+    again = train.run(cfg, steps=RESTART_STEPS, **kw)
     same = np.array_equal(again["losses"], base["restart_losses"])
-    print(f"phase 10 (a): restart with --steps {RESTART_STEPS} from the newest checkpoint: "
+    print(f"phase 10 (a): restart at {cfg.n_layers} layers with steps={RESTART_STEPS} from the "
+          f"newest checkpoint: "
           f"{again['steps']} steps, losses {', '.join(f'{x:.4f}' for x in again['losses'])} "
           f"({'bit-equal to' if same else 'NOT equal to'} phase 9 (a)'s restart); "
           f"{time.perf_counter() - t0:.1f} s wall with the restore")
@@ -2057,7 +2211,8 @@ def phase10a(dev, ckpt_dir, base):
     step = steps.make_train_step(cfg, ocfg)
 
     prof = profile_step(lambda: step(params, state, batch)[2]["loss"].full_tensor().item(),
-                        "phase 10 (a): profiled train step on the 1x1 mesh")
+                        f"phase 10 (a): profiled train step on the 1x1 mesh ({cfg.n_layers} "
+                        f"layers)")
     base_ops = base["profile"]["aten_ops"]
     print(f"phase 10 (a): DTensor's cost on the 1x1 step: {prof['aten_ops']:.0f} aten ops "
           f"(9 (a): {base_ops:.0f}, x{prof['aten_ops'] / base_ops:.3f}), "
@@ -2094,8 +2249,8 @@ def phase10b(proc, base):
     check(r["status"] == "ok", f"phase 10 (b): roofline {r}")
     bound_s = max(r["compute_s"], r["memory_s"], r["collective_s"])
     measured_s = base["ms"] / 1e3
-    print(f"phase 10 (b): H100 roofline of {r['arch']} at phase 9 (a)'s shape (seq "
-          f"{TRAIN_SEQ}, batch {TRAIN_BATCH}) on a (1, 1) mesh: compute "
+    print(f"phase 10 (b): H100 roofline of {r['arch']} at phase 9 (a)'s shape ({TRAIN_LAYERS} "
+          f"layers, seq {TRAIN_SEQ}, batch {TRAIN_BATCH}) on a (1, 1) mesh: compute "
           f"{r['compute_s'] * 1e3:.1f} ms ({r['flops_per_device']:.4g} FLOPs at 989 TFLOP/s "
           f"bf16), memory {r['memory_s'] * 1e3:.1f} ms ({r['bytes_per_device']:.4g} unfused "
           f"bytes at 3.35 TB/s), collective {r['collective_s'] * 1e3:.3f} ms; dominant "
@@ -2428,11 +2583,11 @@ def phase12a(dev):
     from repro_torch.workloads import SCENARIOS
 
     graphs = {}
-    cases = [(f"Exp5, {'airlock' if a else 'kernel-oom'}", exp5_config(a, full=True, ticks=TICKS),
-              TICKS, None) for a in (False, True)]
+    cases = [(f"Exp5, {'airlock' if a else 'kernel-oom'}",
+              exp5_config(a, full=True, ticks=FLAT_TICKS), FLAT_TICKS, None) for a in (False, True)]
     cases += [(f"{name}, airlock", dataclasses.replace(
-        exp5_config(True, full=True, ticks=PRESET_TICKS), scenario=SCENARIOS[name]),
-        PRESET_TICKS, None) for name in ("storm", "diurnal")]
+        exp5_config(True, full=True, ticks=FLAT_PRESET_TICKS), scenario=SCENARIOS[name]),
+        FLAT_PRESET_TICKS, None) for name in ("storm", "diurnal")]
     cases.append(("Exp5, airlock, CPU generator", exp5_config(True, full=True,
                                                               ticks=HOST_FED_TICKS),
                   HOST_FED_TICKS, "cpu"))
@@ -2465,6 +2620,8 @@ def phase12a(dev):
               f"the final state); launches {dict((k, v) for k, v in launches.items() if v)}, "
               f"{syncs} host syncs in the captured run; from init {T / wall:.1f} ticks/s "
               f"captured (capture included), {T / ewall:.1f} eager")
+
+    graphs.update(phase12a_sharded(dev))
 
     # lockstep seeds 0-3
     cfg = exp5_config(True, full=True, ticks=BATCH_TICKS)
@@ -2510,9 +2667,9 @@ def phase12a(dev):
         draws = bdraws()
         with watching() as runs:
             (final, ys), launches, syncs, wall, _ = counted(
-                lambda: C.simulate(step, s, draws, BASELINE_TICKS))
+                lambda: C.simulate(step, s, draws, CAPTURED_BASELINE_TICKS))
         t0 = time.perf_counter()
-        efinal, eys = eager_run(step, s, bdraws(), BASELINE_TICKS)
+        efinal, eys = eager_run(step, s, bdraws(), CAPTURED_BASELINE_TICKS)
         torch.cuda.synchronize()
         ewall = time.perf_counter() - t0
         diff = state_differences(efinal, final)
@@ -2522,10 +2679,99 @@ def phase12a(dev):
               f"[12 (a), {name}] launches {launches}, {syncs} syncs")
         graphs[name] = graph_census(runs[0][0].graph)
         out = C.summarize_baseline(ecfg, final.metrics, final.tt)
-        print(f"phase 12 (a) [{name}, Exp1]: {BASELINE_TICKS} ticks, started={out['started']}: "
+        print(f"phase 12 (a) [{name}, Exp1]: {CAPTURED_BASELINE_TICKS} ticks, "
+              f"started={out['started']}: "
               f"captured == eager bit for bit (the series and every leaf of the final state); "
-              f"{syncs} host syncs; from init {BASELINE_TICKS / wall:.1f} ticks/s captured "
-              f"(capture included), {BASELINE_TICKS / ewall:.1f} eager")
+              f"{syncs} host syncs; from init {CAPTURED_BASELINE_TICKS / wall:.1f} ticks/s "
+              f"captured (capture included), {CAPTURED_BASELINE_TICKS / ewall:.1f} eager")
+    return graphs
+
+
+def replay_syncs(compiled, n=20):
+    """Host syncs in ``n`` replays of a compiled run's graph
+    (``set_sync_debug_mode``)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n):
+                compiled.graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def phase12a_sharded(dev):
+    """The zone-sharded engine's captured run against ``make_step`` with its
+    mesh plane driven by hand, on the one-rank NCCL group: Exp5 Airlock off
+    and on (TICKS), storm (PRESET_TICKS), and GEOMETRY_SEEDS through one
+    engine; each run's launches from its graph, 0 host syncs in its replays.
+    Returns the census of each run's graph, by tag."""
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.engine import make_step, summarize
+    from repro_torch.core.scan import watching
+    from repro_torch.kernel_bench import graph_census
+    from repro_torch.parallel.engine_mesh import ZoneShardedEngine
+    from repro_torch.profile_tick import exp5_config
+    from repro_torch.workloads import SCENARIOS
+
+    graphs = {}
+    cases = [(f"sharded Exp5, {'airlock' if a else 'kernel-oom'}",
+              exp5_config(a, full=True, ticks=TICKS), TICKS, (0,)) for a in (False, True)]
+    cases.append(("sharded storm, airlock", dataclasses.replace(
+        exp5_config(True, full=True, ticks=PRESET_TICKS), scenario=SCENARIOS["storm"]),
+        PRESET_TICKS, (0,)))
+    cases.append(("sharded Exp5, airlock, two geometries",
+                  exp5_config(True, full=True, ticks=GEOMETRY_TICKS), GEOMETRY_TICKS,
+                  GEOMETRY_SEEDS))
+    for tag, cfg, T, seeds in cases:
+        eng = ZoneShardedEngine(cfg, num_devices=1, device=dev)
+        zones = []
+        for sd in seeds:
+            s, lam = eng.init(sd)
+            Z = s.zstart.shape[0]
+            zones.append((tuple(s.zmember.shape), s.zcount.cpu().tolist()))
+            draws = TorchDraws(cfg, lam, Z, seed=sd, device=dev)
+            with watching() as runs:
+                (final, ts), launches, syncs, wall, gathers = counted(
+                    lambda: eng.simulate(s, draws, T))
+            t0 = time.perf_counter()
+            efinal, ets = eager_run(make_step(cfg, plane=eng._plane(s)), s,
+                                    TorchDraws(cfg, lam, Z, seed=sd, device=dev), T)
+            torch.cuda.synchronize()
+            ewall = time.perf_counter() - t0
+            got = summarize(cfg, final, ts.cpu().numpy())
+            want = summarize(cfg, efinal, ets.cpu().numpy())
+            diff = int_differences(want, got) + state_differences(efinal, final)
+            label = f"{tag}, seed {sd}"
+            check(not diff, f"[12 (a), {label}] captured and eager differ in {diff}")
+            check(torch.equal(ts, ets), f"[12 (a), {label}] series differ")
+            # each run captures: a new engine, or a seed of another geometry
+            check_run(label, got, launches, want_launches(cfg, T, sharded=True), syncs, gathers,
+                      CAPTURE_GATHERS, SHARDED_RUN_SYNCS)
+            in_replays = replay_syncs(runs[0][0])
+            check(in_replays == 0, f"[12 (a), {label}] {in_replays} host syncs in 20 replays")
+            graphs[label] = graph_census(runs[0][0].graph)
+            print(f"phase 12 (a) [{label}]: {T} ticks, started={got['started']} "
+                  f"suspended={got['suspended_cnt']} node_failures={got['node_failures']}: "
+                  f"captured == eager bit for bit (every integer metric, lat_hist, the series, "
+                  f"every leaf of the final state); launches "
+                  f"{dict((k, v) for k, v in launches.items() if v)} (graph nodes x replays), "
+                  f"{syncs} host sync in the run (the zone digest, before its first tick), "
+                  f"{in_replays} in 20 replays; {gathers} all_gather_into_tensor calls (warm-up "
+                  f"and capture); from init {T / wall:.1f} ticks/s captured (capture included), "
+                  f"{T / ewall:.1f} eager")
+        if len(seeds) > 1:
+            check(len({z[0] for z in zones}) == 1
+                  and len({str(z[1]) for z in zones}) == len(seeds),
+                  f"[12 (a), {tag}] the seeds' zones {zones}: want equal shapes, other zones")
+            check(len(eng._compiled) == len(seeds),
+                  f"[12 (a), {tag}] {len(eng._compiled)} compiled ticks for {len(seeds)} "
+                  f"geometries")
+            print(f"phase 12 (a) [{tag}]: seeds {seeds}, zones of (Z, M) = {zones[0][0]}, sizes "
+                  f"differ: one compiled tick each ({len(eng._compiled)})")
     return graphs
 
 
@@ -2543,14 +2789,17 @@ def phase12b(graphs):
         elif lockstep:
             want = dict.fromkeys(BATCHED.values(), 1)
         else:
-            want = {"bitmap_fit_rounds": 1, "utility_topk_address": 1,
-                    "zone_aggregate_members": 1, "survival_scan": 1}
+            sharded = tag.startswith("sharded")
+            rounds = "bitmap_fit_rounds_blocked" if sharded else "bitmap_fit_rounds"
+            want = {rounds: 1, "utility_topk_address": 1, "zone_aggregate_members": 1,
+                    "survival_scan": 1}
         check(entries == want, f"[12 (b), {tag}] hand-written kernel nodes {entries} != {want}")
         check(c["host_memcpy"] == 0, f"[12 (b), {tag}] {c['host_memcpy']} memcpy nodes touch "
               f"host memory")
         print(f"phase 12 (b) [{tag}]: a tick's graph holds {c['kernel']} kernel nodes "
-              f"(hand-written: {entries or 'none'}), {c['memcpy']} memcpy ({c['host_memcpy']} "
-              f"touching host memory), {c['memset']} memset, {c['other']} other")
+              f"(hand-written: {entries or 'none'}; NCCL: {c['nccl']}), {c['memcpy']} memcpy "
+              f"({c['host_memcpy']} touching host memory), {c['memset']} memset, "
+              f"{c['other']} other")
 
 
 def timed(fn):
@@ -2562,6 +2811,18 @@ def timed(fn):
     return time.perf_counter() - t0
 
 
+def eager_rate(step, s, draws):
+    """Ticks/s of ticks RATE_WARMUP on, ``step`` driven by hand."""
+    s1, _ = eager_run(step, s, draws, RATE_WARMUP)
+    return RATE_TICKS / timed(lambda: eager_run(step, s1, draws, RATE_TICKS, RATE_WARMUP))
+
+
+def captured_rate(run, s, draws):
+    """The same through ``run`` (``simulate``), its capture made first."""
+    s1, _ = run(s, draws, RATE_WARMUP)
+    return RATE_TICKS / timed(lambda: run(s1, draws, RATE_TICKS))
+
+
 def phase12c(dev, eager_lockstep):
     """Captured against eager rates, each on its own host clock."""
     from repro_torch.core import BaselineConfig
@@ -2570,16 +2831,6 @@ def phase12c(dev, eager_lockstep):
     from repro_torch.core.baselines.draws import TorchBaselineDraws
     from repro_torch.core.engine import LaminarEngine, make_step
     from repro_torch.profile_tick import exp5_config, exp7_config
-
-    def eager_rate(step, s, draws):
-        """Ticks/s of ticks RATE_WARMUP on, ``step`` driven by hand."""
-        s1, _ = eager_run(step, s, draws, RATE_WARMUP)
-        return RATE_TICKS / timed(lambda: eager_run(step, s1, draws, RATE_TICKS, RATE_WARMUP))
-
-    def captured_rate(run, s, draws):
-        """The same through ``run`` (``simulate``), its capture made first."""
-        s1, _ = run(s, draws, RATE_WARMUP)
-        return RATE_TICKS / timed(lambda: run(s1, draws, RATE_TICKS))
 
     for airlock in (False, True):
         cfg = exp5_config(airlock, full=True)
@@ -2627,8 +2878,10 @@ def phase12c(dev, eager_lockstep):
 
 
 def phase12d(dev):
-    """The replayed tick's profile: flat Exp5 both ways, lockstep B = 8."""
+    """The replayed tick's profile: flat and sharded Exp5 both ways,
+    lockstep B = 8."""
     from repro_torch.core.engine import LaminarEngine
+    from repro_torch.parallel.engine_mesh import ZoneShardedEngine
     from repro_torch.profile_tick import exp5_config, print_replayed, replayed_window
 
     for airlock in (False, True):
@@ -2637,6 +2890,10 @@ def phase12d(dev):
         s, lam = eng.init(0)
         print(f"phase 12 (d) [Exp5, {'airlock' if airlock else 'kernel-oom'}]:")
         print_replayed(replayed_window(eng, s, eng.draws(lam, s.zstart.shape[0], 0),
+                                       lockstep=False))
+        sharded = ZoneShardedEngine(cfg, num_devices=1, device=dev)
+        print(f"phase 12 (d) [sharded Exp5, {'airlock' if airlock else 'kernel-oom'}]:")
+        print_replayed(replayed_window(sharded, s, sharded.draws(lam, s.zstart.shape[0], 0),
                                        lockstep=False))
     B = max(BATCH_SIZES)
     eng = LaminarEngine(exp5_config(True, full=True), device=dev)

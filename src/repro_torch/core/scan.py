@@ -83,6 +83,41 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device=device)
 
 
+def on_side_stream(fn, device: torch.device) -> None:
+    """``fn()`` on ``device``'s side stream, after the work queued on the
+    current stream and before the work queued on it later (a warm-up
+    before a capture)."""
+    side = _side_stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
+def capture(body, device: torch.device, generators=()) -> torch.cuda.CUDAGraph:
+    """``body()`` captured as a CUDA graph on ``device``'s side stream, in
+    ``thread_local`` mode (another thread's CUDA calls, such as NCCL's
+    watchdog's, do not break it), ``generators`` registered with it; the
+    graph kept (``keep_graph=True``, so ``kernel_bench.graph_census`` can
+    read its nodes) and instantiated. Warm ``body`` up first (lazy
+    initializations, NCCL's communicator): :func:`on_side_stream`. A
+    capture that fails raises."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    for gen in generators:
+        graph.register_generator_state(gen)
+
+    def captured():
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            body()
+        finally:
+            graph.capture_end()
+
+    on_side_stream(captured, device)
+    graph.instantiate()
+    return graph
+
+
 class Sampled:
     """Draws sampled inside the tick from the tick counter: ``providers``
     (one, or a seed each, stacked) give ``draw(t, gen, tables)``; the
@@ -205,28 +240,15 @@ class Compiled:
         run overwrites; the generators put back), then capture one tick on
         it. The address kernel's accumulator regions taken by the capture
         are given back when this object goes."""
-        side = _side_stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._body()
+        on_side_stream(self._body, self.device)
         self.feed.restore(saved)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        for gen in self.feed.gens:
-            graph.register_generator_state(gen)
-        with _topk.owned_regions() as regions, torch.cuda.stream(side):
+        with _topk.owned_regions() as regions:
             weakref.finalize(self, _topk.release, regions)
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self._body()
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(self.device).wait_stream(side)
+            self.graph = capture(self._body, self.device, self.feed.gens)
         moved = [i for i, (a, b) in enumerate(zip(saved, self.feed.states()))
                  if not torch.equal(a, b)]
         if moved:
             raise RuntimeError(f"the capture moved generators {moved} of the tick's draws")
-        graph.instantiate()
-        self.graph = graph
 
     def _body(self) -> None:
         s = pytree.tree_unflatten(self.bufs, self.spec)

@@ -586,8 +586,10 @@ def graph_census(graph: torch.cuda.CUDAGraph) -> dict:
     """The nodes of a captured CUDA graph kept by its capture
     (``keep_graph=True``), through ``libcuda`` (``cuGraphGetNodes``):
     counts by type (``kernel``, ``memcpy``, ``memset``, ``other``),
-    ``host_memcpy`` (memcpy nodes that read or write host memory) and
-    ``names``, the function name of each kernel node."""
+    ``host_memcpy`` (memcpy nodes that read or write host memory), ``nccl``
+    (the kernel nodes of NCCL's collectives, ``nccl*`` functions: counted
+    among ``kernel`` too, apart from the hand-written ones) and ``names``,
+    the function name of each kernel node."""
     cu = ctypes.CDLL("libcuda.so.1")
     raw = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -595,7 +597,8 @@ def graph_census(graph: torch.cuda.CUDAGraph) -> dict:
         raise RuntimeError("cuGraphGetNodes failed")
     nodes = (ctypes.c_void_p * n.value)()
     cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
-    out = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0, "host_memcpy": 0, "names": []}
+    out = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0, "host_memcpy": 0, "nccl": 0,
+           "names": []}
     kinds = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
     for node in nodes:
         t = ctypes.c_int(-1)
@@ -603,29 +606,33 @@ def graph_census(graph: torch.cuda.CUDAGraph) -> dict:
         out[kinds.get(t.value, "other")] += 1
         if t.value == 0:
             out["names"].append(_kernel_name(cu, ctypes.c_void_p(node)))
+            out["nccl"] += "nccl" in out["names"][-1].lower()
         elif t.value == 1:
             out["host_memcpy"] += _touches_host(cu, ctypes.c_void_p(node))
     return out
 
 
 # each hot-path kernel (its function name) -> its entry, unbatched and batched
+# (the sharded tick's blocked rounds have no batched entry: its seeds run one
+# after another)
 TICK_KERNELS = {
     "bitmap_fit_rounds_kernel": ("bitmap_fit_rounds", "bitmap_fit_rounds_batched"),
+    "bitmap_fit_rounds_blocked_kernel": ("bitmap_fit_rounds_blocked", "bitmap_fit_rounds_blocked"),
     "utility_topk_address_kernel": ("utility_topk_address", "utility_topk_address_batched"),
     "zone_aggregate_kernel": ("zone_aggregate_members", "zone_aggregate_members_batched"),
     "survival_cluster_kernel": ("survival_scan", "survival_scan_batched"),
 }
 # the other hand-written kernels: on no tick
-OTHER_KERNELS = ("bitmap_fit_rounds_blocked_kernel", "bitmap_fit_kernel", "utility_topk_kernel",
-                 "block_copy_kernel")
+OTHER_KERNELS = ("bitmap_fit_kernel", "utility_topk_kernel", "block_copy_kernel")
 
 
 def tick_entries(names, lockstep: bool) -> dict:
     """The hand-written entries that kernel nodes ``names`` (a graph's)
     launch: a hot-path kernel is its lockstep entry in a lockstep tick's
-    graph, its flat entry in a flat one; another hand-written kernel counts
-    under its own name (on no tick: a check against the tick's entries
-    fails on it)."""
+    graph, its flat (or sharded) entry in a flat (or sharded) one; NCCL's
+    kernels are none (``graph_census`` counts them); another hand-written
+    kernel counts under its own name (on no tick: a check against the
+    tick's entries fails on it)."""
     out: dict = {}
     for name in names:
         entry = next((pair[lockstep] for k, pair in TICK_KERNELS.items() if k in name),

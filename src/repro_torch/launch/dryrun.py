@@ -241,10 +241,10 @@ def _place(mesh, args, specs):
 
 
 def _step_args(shape, args):
-    """The decode step's ``index`` as a host int (the port's decode takes a
-    Python position): the last slot of a full cache."""
+    """The decode step's ``index``, a 0-d int32 as the reference's: the
+    last slot of a full cache."""
     if shape.kind == "decode":
-        return args[:2] + (shape.seq_len - 1,) + args[3:]
+        return args[:2] + (torch.full((), shape.seq_len - 1, dtype=torch.int32),) + args[3:]
     return args
 
 

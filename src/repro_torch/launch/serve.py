@@ -10,10 +10,12 @@ decodes its running requests from a fresh cache of ``S_MAX`` slots at the
 first request's prompt length, and the model does not run at prefill
 (``on_prefill_done`` only).
 
-The decode step runs eagerly, op by op. The reference jits it
-(``repro/launch/serve.py:40``); a decode step captured in a CUDA graph, as
-the engine's tick is (``core.scan``), needs a static cache and is a later
-slice of the port.
+The decode step is compiled, as the reference jits it
+(``repro/launch/serve.py:40``): :class:`CompiledDecode` keeps one body a
+batch size over static buffers (the tokens, the position as a 0-d int32 on
+the device, a fresh cache of ``S_MAX`` slots). On CUDA each body is captured
+once as a CUDA graph and replayed, at most ``ServeConfig.max_slots`` graphs
+for both replicas and every tick; on the CPU the same body runs as it is.
 """
 
 from __future__ import annotations
@@ -25,6 +27,73 @@ import numpy as np
 import torch
 
 S_MAX = 96
+
+
+class CompiledDecode:
+    """``lm.decode_step`` from a fresh cache of ``s_max`` slots, compiled
+    once a batch size: the reference's ``jax.jit(lambda p, t, i, c:
+    lm.decode_step(cfg, p, t, i, c))`` with ``c = lm.init_cache(cfg, B,
+    s_max)``.
+
+    A call copies the (B, 1) int32 tokens and the position (a host int,
+    filled on the device with no sync) into batch size B's static buffers
+    and runs its body, which leaves the logits (B, 1, V) in a static output:
+    the tensor returned, overwritten by B's next call. On CUDA the body is
+    captured as a CUDA graph at B's first call (warm-up and capture on one
+    side stream a device, ``capture_error_mode="thread_local"``; the graph is
+    kept, so ``kernel_bench.graph_census`` can read its nodes) and replayed;
+    a capture that fails raises. On the CPU the body runs. The body never
+    writes the static cache (``decode_step`` writes a copy), so every call
+    decodes from a fresh cache, zeros with ``pos = arange``, as the
+    reference's loop does. The parameters are read in place, never copied.
+    """
+
+    def __init__(self, cfg, params, s_max: int = S_MAX):
+        self.cfg, self.params, self.s_max = cfg, params, s_max
+        self.steps: Dict[int, _DecodeBody] = {}  # batch size -> its body (and graph)
+
+    def __call__(self, tokens: torch.Tensor, position: int) -> torch.Tensor:
+        B = tokens.shape[0]
+        with torch.inference_mode():
+            body = self.steps.get(B)
+            if body is None:
+                body = self.steps[B] = _DecodeBody(self.cfg, self.params, B, self.s_max,
+                                                   tokens.device)
+            return body(tokens, position)
+
+
+class _DecodeBody:
+    """Batch size B's static buffers, its body and, on CUDA, its graph."""
+
+    def __init__(self, cfg, params, B: int, s_max: int, device):
+        from repro_torch.core.scan import capture, on_side_stream
+        from repro_torch.models import lm
+
+        self.cfg, self.params = cfg, params
+        self.tokens = torch.zeros((B, 1), dtype=torch.int32, device=device)
+        self.position = torch.zeros((), dtype=torch.int32, device=device)
+        self.cache = lm.init_cache(cfg, B, s_max, device)
+        self.logits = None
+        self.graph = None
+        dev = self.tokens.device  # a tensor's device: cuda:<index>
+        if dev.type == "cuda":
+            on_side_stream(self._body, dev)  # warm-up: lazy initializations outside the capture
+            self.graph = capture(self._body, dev)
+
+    def _body(self) -> None:
+        from repro_torch.models import lm
+
+        self.logits, _ = lm.decode_step(self.cfg, self.params, self.tokens, self.position,
+                                        self.cache)
+
+    def __call__(self, tokens: torch.Tensor, position: int) -> torch.Tensor:
+        self.tokens.copy_(tokens)
+        self.position.fill_(int(position))
+        if self.graph is None:
+            self._body()
+        else:
+            self.graph.replay()
+        return self.logits
 
 
 class Served(NamedTuple):
@@ -57,7 +126,6 @@ def serve(
     (default: :func:`default_prompt`). Returns the scheduler's stats, each
     request's emitted tokens and the requests."""
     from repro_torch.core.engine import _resolve_device
-    from repro_torch.models import lm
     from repro_torch.sched.serving import LaminarServingScheduler, ServeConfig
 
     dev = _resolve_device(device)
@@ -67,6 +135,7 @@ def serve(
     if prompts is None:
         prompts = lambda rid, n: default_prompt(rid, n, cfg.vocab)  # noqa: E731
 
+    decode = CompiledDecode(cfg, params)
     toks_of: Dict[int, torch.Tensor] = {}
     positions: Dict[int, int] = {}
     emitted: Dict[int, List[int]] = {}
@@ -102,8 +171,7 @@ def serve(
                     ],
                     dim=0,
                 )
-                cache = lm.init_cache(cfg, toks.shape[0], S_MAX, dev)
-                logits, _ = lm.decode_step(cfg, params, toks, positions[running[0]], cache)
+                logits = decode(toks, positions[running[0]])
                 nxt = torch.argmax(logits[:, 0], dim=-1).tolist()
                 for j, rid in enumerate(running):
                     emitted[rid].append(int(nxt[j]))

@@ -11,7 +11,8 @@ the one ``torchrun`` describes (``torchrun --nproc-per-node N -m
 repro_torch.launch.train --mesh DxM ...``: NCCL, one card a rank; gloo
 with ``--device cpu``), else a one-rank group of its own (``--mesh 1x1``).
 Without ``--mesh`` it trains on one device. Prints ``arch=... steps=...
-first_loss=... final_loss=...`` (rank 0).
+first_loss=... final_loss=...`` (rank 0). :func:`run` is the same run for an
+``ArchConfig`` given directly (a depth cut, say), without the flags.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import tempfile
 import torch
 import torch.distributed as dist
 
+DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt")
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -33,8 +36,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
-                                                       "repro_torch_train_ckpt"))
+    ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default=None,
                     help='e.g. 2x4 ("data" x "model" ranks; default: one device)')
@@ -43,31 +45,43 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get, get_smoke
+
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    return run(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, mesh=args.mesh,
+               compress_grads=args.compress_grads, device=args.device)
+
+
+def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128, lr: float = 1e-3,
+        ckpt_dir: str = DEFAULT_CKPT_DIR, ckpt_every: int = 50, mesh: str | None = None,
+        compress_grads: bool = False, device="cuda"):
+    """The driver's run for the ``ArchConfig`` ``cfg``, with ``main``'s
+    options as keywords (``mesh``: ``"DxM"`` or None). Returns the
+    trainer's result."""
     from repro_torch.core.engine import _resolve_device
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import data as data_mod
     from repro_torch.train import optimizer as opt
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    dev = _resolve_device(args.device)
-    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    dev = _resolve_device(device)
     tcfg = TrainerConfig(
-        total_steps=args.steps,
-        ckpt_every=args.ckpt_every,
-        ckpt_dir=args.ckpt_dir,
+        total_steps=steps,
+        ckpt_every=ckpt_every,
+        ckpt_dir=ckpt_dir,
         opt=opt.OptConfig(
-            lr=args.lr, warmup_steps=max(args.steps // 20, 1),
-            total_steps=args.steps, compress_grads=args.compress_grads,
+            lr=lr, warmup_steps=max(steps // 20, 1),
+            total_steps=steps, compress_grads=compress_grads,
         ),
     )
-    pipeline = data_mod.make_pipeline(cfg.vocab, args.batch, args.seq, seed=0)
-    with _process_group(dev) if args.mesh else contextlib.nullcontext():
+    pipeline = data_mod.make_pipeline(cfg.vocab, batch, seq, seed=0)
+    with _process_group(dev) if mesh else contextlib.nullcontext():
         where = dev
-        if args.mesh:
-            shape = tuple(int(x) for x in args.mesh.split("x"))
+        if mesh:
+            shape = tuple(int(x) for x in mesh.split("x"))
             where = make_mesh(shape, ("data", "model"), dev.type)
         out = Trainer(cfg, tcfg, where, pipeline).run()
-        rank0 = not args.mesh or dist.get_rank() == 0
+        rank0 = not mesh or dist.get_rank() == 0
     if rank0:
         print(
             f"arch={cfg.name} steps={out['steps']} "

@@ -238,7 +238,7 @@ def attend(
     kind: str,  # "global" | "local"
     causal: bool = True,
     cache: Optional[KVCache] = None,
-    cache_at: Optional[int] = None,  # write offset for decode (a Python int)
+    cache_at=None,  # write offset: an int, or for decode a 0-d int32 on the device
     xk: Optional[torch.Tensor] = None,  # cross-attention source (pre-projected x)
     rope: bool = True,
 ):
@@ -301,11 +301,12 @@ def _attend_local(p, cfg, q, k, v, pos, kind, causal, cache, cache_at, cross, ro
 
     if cache is not None:
         S_cache = cache.k.shape[1]
-        at = int(cache_at)
         if S > S_cache:
             # prefill longer than a windowed ring: attend directly over the
             # in-sequence K/V (window mask bounds the reach), then store only
             # the last S_cache entries, slot-aligned so slot == pos % S_cache.
+            # Prefill only: the start is read on the host.
+            at = int(cache_at)
             kp = pos[0] if pos.ndim == 2 else pos[0, 0]
             out = dot_attention(cfg, q, k, v, q_pos1, kp, causal, window)
             tail_k = k[:, -S_cache:].to(cache.k.dtype)
@@ -322,15 +323,17 @@ def _attend_local(p, cfg, q, k, v, pos, kind, causal, cache, cache_at, cross, ro
             # decode / short prefill: write at cache_at (mod ring size), then
             # attend over the whole cache; positional masking does the rest.
             # The start is clamped so the update fits, as
-            # lax.dynamic_update_slice clamps it.
-            write_at = min(at % S_cache, S_cache - S)
+            # lax.dynamic_update_slice clamps it, and stays on the device: a
+            # 0-d int32 position is never read on the host.
+            at = cm.position(cache_at, q.device)
+            rows = torch.arange(S, dtype=torch.int32, device=q.device)
+            idx = (torch.clamp(at % S_cache, max=S_cache - S) + rows).long()
             k_all = cache.k.clone()
             v_all = cache.v.clone()
             pos_new = cache.pos.clone()
-            k_all[:, write_at:write_at + S] = k.to(cache.k.dtype)
-            v_all[:, write_at:write_at + S] = v.to(cache.v.dtype)
-            pos_new[write_at:write_at + S] = at + torch.arange(S, dtype=torch.int32,
-                                                               device=q.device)
+            k_all.index_copy_(1, idx, k.to(cache.k.dtype))
+            v_all.index_copy_(1, idx, v.to(cache.v.dtype))
+            pos_new.index_copy_(0, idx, at + rows)
             out = dot_attention(cfg, q, k_all, v_all, q_pos1, pos_new, causal, window)
             new_cache = KVCache(k_all, v_all, pos_new)
     else:

@@ -82,7 +82,7 @@ def apply_block(
     x: torch.Tensor,
     pos: torch.Tensor,
     cache: Any = None,
-    cache_at: Optional[int] = None,
+    cache_at=None,  # an int, or a 0-d int32 on the device (decode)
     enc_out: Optional[torch.Tensor] = None,
     aux: Optional[dict] = None,
     causal: bool = True,
@@ -223,7 +223,7 @@ def apply_stack(
     x: torch.Tensor,
     pos: torch.Tensor,
     caches=None,
-    cache_at: Optional[int] = None,
+    cache_at=None,  # an int, or a 0-d int32 on the device (decode)
     enc_out: Optional[torch.Tensor] = None,
     causal: bool = True,
 ):

@@ -225,6 +225,15 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x * scalar(1.0 / cap, x.dtype))
 
 
+def position(at, device) -> torch.Tensor:
+    """A decode position as a 0-d int32 tensor on ``device``: a tensor as
+    it is (cast to int32 where it is not), an int through a fill on the
+    device (no copy from the host)."""
+    if isinstance(at, torch.Tensor):
+        return at.to(device=device, dtype=torch.int32)
+    return torch.full((), int(at), dtype=torch.int32, device=device)
+
+
 # ---------------------------------------------------------------------------
 # RoPE / M-RoPE
 # ---------------------------------------------------------------------------
@@ -259,8 +268,10 @@ def apply_mrope(
     half = x.shape[-1] // 2
     assert sum(sections) == half, (sections, half)
     freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
-    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
-                          device=x.device)  # (half,) section of each channel
+    # (half,) section of each channel, made on the device (a CUDA graph
+    # cannot copy a host list in)
+    lane = torch.arange(half, device=x.device)
+    sec_id = (lane >= sections[0]).long() + (lane >= sections[0] + sections[1]).long()
     pos = torch.movedim(pos3[sec_id], 0, -1)  # (..., S, half)
     ang = pos.float() * freqs
     return _rotate(x, ang)

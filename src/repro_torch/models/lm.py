@@ -211,16 +211,20 @@ def decode_step(
     cfg: ArchConfig,
     p: Params,
     token: torch.Tensor,  # (B, 1)
-    index: int,  # current absolute position
+    index: Union[int, torch.Tensor],  # current absolute position: an int or a 0-d int32
     caches,
     pos3: Optional[torch.Tensor] = None,  # (3, B, 1)
     enc_embeds: Optional[torch.Tensor] = None,
 ):
-    """One serving step: append one token, return (logits (B,1,V), caches)."""
+    """One serving step: append one token, return (logits (B,1,V), caches).
+
+    ``index`` may be a 0-d int32 tensor on the device, as the reference's
+    ``index: jax.Array``: then nothing reads it on the host (a CUDA graph
+    of the step replays any position). An int is made one on the device."""
     B = token.shape[0]
-    index = int(index)
     x = _embed(cfg, p, token)
-    pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+    index = cm.position(index, x.device)
+    pos = index.reshape(1, 1).expand(B, 1)
     if cfg.mrope_sections is not None:
         pos = pos3 if pos3 is not None else pos[None].expand(3, B, 1)
     enc_out = _encode(cfg, p, enc_embeds) if cfg.enc_layers > 0 else None

@@ -18,7 +18,8 @@ device:
               runs the same deterministic ops, so all ranks hold identical
               copies.
 
-  exchanged   per tick, five ``all_gather``s: (a) the (Z,) zone-aggregate
+  exchanged   per tick, five ``all_gather_into_tensor`` calls (one
+              collective into one buffer each): (a) the (Z,) zone-aggregate
               table (zS, zH) and (b) the per-node results of the sharded
               pipeline: s_true, run_true, and one int32 tensor of every
               round's winner slot, feasibility flag and allocation words.
@@ -34,10 +35,16 @@ with one rank per device (gloo on the CPU, NCCL on CUDA), then
 ``ZoneShardedEngine(cfg, num_devices=world_size, device=...)`` on every rank.
 ``repro_torch.parallel.local.run_local`` does this for D processes on one
 host.
+
+The run is compiled as the flat engine's is (``core.scan``, the reference's
+``jax.jit(shard_map(lax.scan))``): on CUDA every rank captures one tick,
+its five NCCL collectives included, as a CUDA graph once per zone geometry
+and replays it; on the CPU (gloo) the same in-place body runs in a loop.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -46,6 +53,7 @@ import torch.distributed as dist
 from repro_torch.core import arbiter, bitmap, hotpath, zhaf
 from repro_torch.core.config import LaminarConfig
 from repro_torch.core.engine import TS_FIELDS, LaminarEngine, make_step
+from repro_torch.core.scan import scan
 from repro_torch.core.state import SimState, count, init_numpy, unpack_zoned
 
 __all__ = ["MeshPlane", "ZoneShardedEngine", "traffic_model", "zone_block", "zone_group"]
@@ -124,10 +132,11 @@ class MeshPlane:
     # ---- blocked-layout plumbing ---------------------------------------
 
     def _gather(self, x_l: torch.Tensor) -> torch.Tensor:
-        """all_gather the ranks' (Zb, ...) blocks into (D * Zb, ...)."""
-        out = torch.empty((self.D,) + tuple(x_l.shape), dtype=x_l.dtype, device=x_l.device)
-        dist.all_gather(list(out.unbind(0)), x_l.contiguous(), group=self.group)
-        return out.reshape((self.D * x_l.shape[0],) + tuple(x_l.shape[1:]))
+        """Gather the ranks' (Zb, ...) blocks into (D * Zb, ...): one
+        collective into one buffer, rank r's block at rows r * Zb."""
+        out = x_l.new_empty((self.D * x_l.shape[0],) + tuple(x_l.shape[1:]))
+        dist.all_gather_into_tensor(out, x_l.contiguous(), group=self.group)
+        return out
 
     def _to_flat(self, x_l: torch.Tensor) -> torch.Tensor:
         """Local (Zb, M, ...) rows -> flat replicated (N, ...)."""
@@ -223,6 +232,14 @@ def traffic_model(
     }
 
 
+def zone_digest(s: SimState) -> str:
+    """A digest of the zone geometry (``zmember``, ``zmask``'s float32 bits):
+    the one host read of a sharded run, one copy made before its first
+    tick."""
+    geometry = torch.cat([s.zmember.reshape(-1), s.zmask.reshape(-1).view(torch.int32)])
+    return hashlib.sha1(geometry.cpu().numpy().tobytes()).hexdigest()
+
+
 class ZoneShardedEngine(LaminarEngine):
     """:class:`LaminarEngine` whose tick runs the zone-sharded node plane.
 
@@ -232,11 +249,12 @@ class ZoneShardedEngine(LaminarEngine):
     current CUDA device). ``run_batch`` runs the seeds one after another,
     as the JAX package's sharded engine does.
 
-    Its tick stays eager, by design: :meth:`simulate` loops over
-    ``make_step`` with this engine's plane, where the flat engine replays a
-    captured tick (``core.scan``). The tick's five ``all_gather`` calls
-    would have to run under the capture, and NCCL inside a CUDA graph is a
-    later slice of the port.
+    :meth:`simulate` is the compiled run (``core.scan``), as the flat
+    engine's: on CUDA one tick is captured as a CUDA graph, its five NCCL
+    collectives inside it, and replayed; on the CPU (gloo) the same body runs
+    in a loop. A captured tick is kept per zone geometry (a digest of
+    ``zmember`` / ``zmask``, taken once a run), since the plane's block
+    tables are built from it and two seeds may share shapes but not zones.
     """
 
     def __init__(
@@ -256,19 +274,17 @@ class ZoneShardedEngine(LaminarEngine):
     def simulate(
         self, s: SimState, draws, num_ticks: int, scenario=None
     ) -> Tuple[SimState, torch.Tensor]:
-        """Run ``num_ticks`` sharded ticks from ``s``, one eager
-        ``make_step`` call a tick (``draws.tick(t)`` each tick's values).
-        Returns the final state and the (T, 11) int32 timeseries, still on
-        the device. Draws made for another scenario are refused."""
+        """Run ``num_ticks`` sharded ticks from ``s`` (``draws.tick(t)`` each
+        tick's values) through ``core.scan``: on CUDA the tick is captured
+        the first time this engine sees its config and zone geometry and
+        replayed every tick after. Returns the final state and the (T, 11)
+        int32 timeseries, still on the device. Draws made for another
+        scenario are refused."""
         cfg = self._checked_config(draws, scenario)
-        step = make_step(cfg, plane=self._plane(s))
-        rows = []
-        for t in range(num_ticks):
-            s, ts = step(s, draws.tick(t))
-            rows.append(ts)
-        if not rows:
+        if num_ticks == 0:
             return s, torch.zeros((0, len(TS_FIELDS)), dtype=torch.int32, device=s.st.device)
-        return s, torch.stack(rows)
+        return scan(make_step(cfg, plane=self._plane(s)), s, draws, num_ticks,
+                    cache=self._compiled, key=(cfg, "mesh", zone_digest(s)))
 
     def run_batch(
         self,

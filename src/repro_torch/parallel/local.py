@@ -9,8 +9,11 @@ not collide): NCCL on CUDA (the default) with rank ``r`` on ``cuda:r``, gloo
 with one intra-op thread per rank when the caller asks for the CPU.
 Every rank runs ``ZoneShardedEngine.run`` with the same arguments and writes
 its ``summarize()`` dict; :func:`run_local` returns all of them, in rank
-order. They are equal when the ranks stayed replicas. :func:`spawn_ranks`
-is the same harness for any function (the mesh-aware trainer's tests).
+order. They are equal when the ranks stayed replicas. The run is compiled
+(``core.scan``): under NCCL every rank captures one tick, its collectives
+included, as a CUDA graph and replays it; under gloo the same body runs in
+a loop. :func:`spawn_ranks` is the same harness for any function (the
+mesh-aware trainer's tests).
 """
 
 from __future__ import annotations

@@ -20,12 +20,12 @@ is then a batched tick's (B seed-ticks), the hand-written kernels are the
 batched entries', and the rounds traffic is a seed's. It needs a CUDA card
 and exits non-zero without one.
 
-Beside that eager tick (``make_step`` driven by hand), the flat and the
-lockstep runs also profile the replayed tick, the one ``simulate`` and
-``simulate_batch`` run (``core.scan``: captured once as a CUDA graph):
-after the same 200 ticks through ``simulate``, 20 replays of its graph, with
-the same numbers, and the graph's nodes (:func:`replayed_window`). The
-sharded tick stays eager, so it has no replayed profile.
+Beside that eager tick (``make_step`` driven by hand), every run also
+profiles the replayed tick, the one ``simulate`` and ``simulate_batch`` run
+(``core.scan``: captured once as a CUDA graph, the sharded tick's NCCL
+collectives inside it): after the same 200 ticks through ``simulate``, 20
+replays of its graph, with the same numbers, and the graph's nodes
+(:func:`replayed_window`; NCCL's kernel nodes apart).
 """
 
 from __future__ import annotations
@@ -327,10 +327,9 @@ def profile(airlock: bool, engine_cls) -> int:
             t += 1
 
     print_window(window(advance, n))
-    if engine_cls is LaminarEngine:
-        s0, _ = eng.init(0)
-        print_replayed(replayed_window(eng, s0, eng.draws(lam, s0.zstart.shape[0], seed=0),
-                                       lockstep=False))
+    s0, _ = eng.init(0)
+    print_replayed(replayed_window(eng, s0, eng.draws(lam, s0.zstart.shape[0], seed=0),
+                                   lockstep=False))
     entry = "bitmap_fit_rounds" if engine_cls is LaminarEngine else "bitmap_fit_rounds_blocked"
     with recording(entry) as calls:
         advance(n)
@@ -396,20 +395,26 @@ def replayed_window(eng, s, draws, lockstep: bool, warmup: int = WARMUP_TICKS,
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
     census = graph_census(compiled.graph)
+    from repro_torch.parallel.engine_mesh import ZoneShardedEngine
+
+    seeds = s.st.shape[0] if lockstep else 1
+    label = f"lockstep, B = {seeds}" if lockstep else (
+        "sharded" if isinstance(eng, ZoneShardedEngine) else "flat")
     return dict(window(advance, n), enqueue_ms=t_enq / n * 1e3, finished_ms=t_all / n * 1e3,
                 census=census, entries=tick_entries(census["names"], lockstep),
-                lockstep=lockstep, seeds=s.st.shape[0] if lockstep else 1)
+                label=label, seeds=seeds)
 
 
 def print_replayed(w: dict) -> None:
     c = w["census"]
     seeds = w["seeds"]
-    print(f"replayed tick ({'lockstep, B = ' + str(seeds) if w['lockstep'] else 'flat'}; "
+    print(f"replayed tick ({w['label']}; "
           f"core.scan's graph): host enqueue {w['enqueue_ms']:.3f} ms/replay, finished "
           f"{w['finished_ms']:.3f} ms/replay ({1e3 / w['finished_ms']:.1f} ticks/s, "
           f"{seeds * 1e3 / w['finished_ms']:.1f} seed-ticks/s); graph nodes: {c['kernel']} "
-          f"kernel, {c['memcpy']} memcpy ({c['host_memcpy']} touching host memory), "
-          f"{c['memset']} memset, {c['other']} other; hand-written kernel nodes {w['entries']}")
+          f"kernel ({c['nccl']} NCCL), {c['memcpy']} memcpy ({c['host_memcpy']} touching host "
+          f"memory), {c['memset']} memset, {c['other']} other; hand-written kernel nodes "
+          f"{w['entries']}")
     print_window(w)
 
 
@@ -471,22 +476,24 @@ def print_window(w: dict) -> None:
 
 @contextmanager
 def counting_gathers():
-    """Count the ``torch.distributed.all_gather`` calls made while the
-    block runs, into the list it yields (one entry a call)."""
+    """Count the ``torch.distributed.all_gather_into_tensor`` calls (the
+    sharded tick's gathers) made while the block runs, into the list it
+    yields (one entry a call). A replayed graph makes none: its gathers
+    were recorded at the capture."""
     import torch.distributed as dist
 
     calls = []
-    real = dist.all_gather
+    real = dist.all_gather_into_tensor
 
     def count(*args, **kw):
         calls.append(1)
         return real(*args, **kw)
 
-    dist.all_gather = count
+    dist.all_gather_into_tensor = count
     try:
         yield calls
     finally:
-        dist.all_gather = real
+        dist.all_gather_into_tensor = real
 
 
 if __name__ == "__main__":

@@ -477,26 +477,36 @@ def test_flat_tick_launches_bitmap_fit_rounds_once(dev):
                         "zone_aggregate_members": 30, "survival_scan": 30}
 
 
-def test_sharded_tick_launches_bitmap_fit_rounds_blocked_once(dev, tmp_path):
-    """The zone-sharded tick (one NCCL rank) runs its arbitration rounds as
-    one bitmap_fit_rounds_blocked launch, never a one-round entry, and
-    equals the flat engine on the card."""
+@pytest.fixture
+def nccl1(dev, tmp_path):
+    """A one-rank NCCL process group in this process (FileStore, no port),
+    destroyed after the test, once its graphs are gone."""
+    import gc
+
     import torch.distributed as dist
 
-    from repro_torch.parallel.engine_mesh import ZoneShardedEngine
-
-    cfg = dataclasses.replace(SMALL_EXP5, airlock=True)
     dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
                             rank=0, world_size=1)
     try:
-        mesh = ZoneShardedEngine(cfg, device=dev)
-        counters = (bitmap_fit.bitmap_fit_rounds_blocked, bitmap_fit.bitmap_fit_rounds,
-                    bitmap_fit.bitmap_fit_blocked, bitmap_fit.bitmap_fit)
-        before = [c.launches for c in counters]
-        got = mesh.run(seed=0, num_ticks=30)
-        assert [c.launches - b for c, b in zip(counters, before)] == [30, 0, 0, 0]
+        yield
     finally:
+        gc.collect()
+        torch.cuda.synchronize()
         dist.destroy_process_group()
+
+
+def test_sharded_tick_launches_bitmap_fit_rounds_blocked_once(dev, nccl1):
+    """The zone-sharded tick (one NCCL rank) runs its arbitration rounds as
+    one bitmap_fit_rounds_blocked launch, never a one-round entry (its
+    captured graph's kernel nodes times its replays), and equals the flat
+    engine on the card."""
+    from repro_torch.parallel.engine_mesh import ZoneShardedEngine
+
+    cfg = dataclasses.replace(SMALL_EXP5, airlock=True)
+    mesh = ZoneShardedEngine(cfg, device=dev)
+    got, launches = _run_launches(lambda: mesh.run(seed=0, num_ticks=30))
+    assert launches == {"bitmap_fit_rounds_blocked": 30, "utility_topk_address": 30,
+                        "zone_aggregate_members": 30, "survival_scan": 30}
     want = LaminarEngine(cfg, device=dev).run(seed=0, num_ticks=30)
     for f in want["timeseries"]:
         np.testing.assert_array_equal(got["timeseries"][f], want["timeseries"][f], err_msg=f)
@@ -1130,3 +1140,98 @@ def test_captures_past_the_accumulator_pool_raise_and_dropped_graphs_give_back(d
     gc.collect()
     run(engines[2])
     assert len(engines[2]._compiled) == 1
+
+
+# ---------------------------------------------------------------------------
+# the compiled sharded run and the compiled decode step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("airlock", [False, True])
+def test_captured_sharded_run_equals_make_step_by_hand(dev, nccl1, airlock):
+    """The zone-sharded tick captured with its NCCL gathers (world size 1)
+    and replayed for 300 ticks equals make_step with the engine's mesh
+    plane driven by hand: the series and every leaf of the final state, bit
+    for bit; the graph holds each hand-written entry once a tick."""
+    from repro_torch.core.engine import make_step
+    from repro_torch.core.scan import watching
+    from repro_torch.kernel_bench import graph_census, tick_entries
+    from repro_torch.parallel.engine_mesh import ZoneShardedEngine
+
+    cfg = dataclasses.replace(SMALL_EXP5, airlock=airlock, horizon_ms=150.0)
+    eng = ZoneShardedEngine(cfg, device=dev)
+    s, lam = eng.init(0)
+    a, b = (eng.draws(lam, s.zstart.shape[0], 0) for _ in range(2))
+    with watching() as runs:
+        final, ts = eng.simulate(s, a, 300)
+    efinal, ets = _eager(make_step(cfg, plane=eng._plane(s)), s, b, 300)
+    assert torch.equal(ts, ets)
+    assert _bits_equal(final, efinal)
+    assert torch.equal(a.gen.get_state(), b.gen.get_state())
+    assert int(ts[-1, 1]) > 0
+    ((compiled, replays),) = runs
+    census = graph_census(compiled.graph)
+    assert replays == 300
+    assert tick_entries(census["names"], lockstep=False) == {
+        "bitmap_fit_rounds_blocked": 1, "utility_topk_address": 1,
+        "zone_aggregate_members": 1, "survival_scan": 1}
+    assert census["host_memcpy"] == 0
+
+
+def _smoke_decode(dev, arch="qwen3-1.7b"):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_smoke(arch)
+    return cfg, lm.init_params(cfg, 0, dev), serve.CompiledDecode
+
+
+# every smoke arch whose decode_step the serve driver runs (whisper-base
+# needs its encoder frames, in both packages)
+DECODING = ["qwen2.5-32b", "gemma2-9b", "qwen3-1.7b", "qwen1.5-110b", "olmoe-1b-7b",
+            "phi3.5-moe-42b-a6.6b", "recurrentgemma-2b", "qwen2-vl-7b", "mamba2-130m"]
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("arch", DECODING)
+def test_captured_decode_equals_eager(dev, arch, B):
+    """The serve driver's decode captured for B (smoke width) equals eager
+    ``lm.decode_step`` from a fresh cache bit for bit, at three positions
+    replayed through one graph (95: the cache's last slot, past every
+    local ring), for every arch the driver decodes: the MoE routing, the
+    RG-LRU / SSD states and M-RoPE capture with no host value."""
+    from repro_torch.launch.serve import S_MAX
+    from repro_torch.models import lm
+
+    cfg, params, CompiledDecode = _smoke_decode(dev, arch)
+    dec = CompiledDecode(cfg, params)
+    tok = torch.randint(0, cfg.vocab, (B, 1), device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        for at in (4, 50, 95):
+            got = dec(tok, at).clone()
+            want, _ = lm.decode_step(cfg, params, tok, at, lm.init_cache(cfg, B, S_MAX, dev))
+            assert torch.equal(got, want), at
+    assert dec.steps[B].graph is not None
+
+
+def test_decode_graphs_of_two_batch_sizes_stay_apart(dev):
+    """B = 1 and B = 2 in turns through one CompiledDecode: each call equals
+    the eager step, two graphs, each replay leaving the other's output."""
+    from repro_torch.launch.serve import S_MAX
+    from repro_torch.models import lm
+
+    cfg, params, CompiledDecode = _smoke_decode(dev)
+    dec = CompiledDecode(cfg, params)
+    toks = {B: torch.randint(0, cfg.vocab, (B, 1), device=dev, dtype=torch.int32)
+            for B in (1, 2)}
+    with torch.inference_mode():
+        want = {B: lm.decode_step(cfg, params, t, 7, lm.init_cache(cfg, B, S_MAX, dev))[0]
+                for B, t in toks.items()}
+        out1 = dec(toks[1], 7)
+        for _ in range(2):
+            for B, t in toks.items():
+                assert torch.equal(dec(t, 7), want[B])
+        assert torch.equal(out1, want[1])  # B = 2's replays left B = 1's output alone
+    assert sorted(dec.steps) == [1, 2]
+    assert dec.steps[1].graph is not dec.steps[2].graph
