@@ -131,7 +131,16 @@ and no result line:
      compute, remat per block), batch 2 x seq 4096, 6 steps with a
      checkpoint every 4: the losses (finite), ms a step, tokens/s, peak
      memory, then a restart from the newest checkpoint (3 steps, as
-     ``tests/test_train.py`` counts) and a profiled step; (b) the width cut
+     ``tests/test_train.py`` counts) and a profiled eager step; the
+     trainer's step is compiled (``launch.steps.CompiledTrainStep``: its
+     first step eager as the warm-up, then a CUDA graph replayed), so the
+     run and the restart each capture once; (d) at (a)'s config, the
+     compiled step against eager ``make_train_step`` from one init and
+     batches, 6 steps: bit for bit, else within the CPU tests' float32
+     bounds with the gap of two eager runs beside it; ms a step, tokens/s,
+     allocated and reserved peaks of each; the replay's host enqueue ms,
+     its profiled device busy share beside (a)'s eager one, and the
+     graph's nodes (no host memcpy, no hand-written kernel); (b) the width cut
      to 2 layers, one train step on the card and on the CPU with the same
      parameters: float32 loss, grad norm and parameters within the CPU
      tests' bounds, bfloat16 loss within 2**-5, and decode after prefill
@@ -143,7 +152,9 @@ and no result line:
      PyTorch and DTensor, no hand-written kernel): (a) the train driver with
      phase 9 (a)'s own arguments and depth plus ``mesh="1x1"`` (a ``DeviceMesh`` of
      the one-rank NCCL group; parameters, moments and batches DTensors
-     placed by the sharding rules), its losses bit-equal to 9 (a)'s (else
+     placed by the sharding rules; the step compiled as in 9 (a), DTensor's
+     dispatch and its one-rank collectives in the graph), its losses
+     bit-equal to 9 (a)'s (else
      the gap printed and held to the CPU tests' float32 bound 1e-6), a
      restart, ms a step, tokens/s, peak memory and a profiled step's aten
      ops beside 9 (a)'s; (b) in a CPU process of its own, started beside
@@ -1951,7 +1962,8 @@ def phase9a(dev, ckpt_dir):
     check(out["steps"] == TRAIN_STEPS and np.isfinite(losses).all(), f"[train] losses {losses}")
     ms = float(np.median(secs[2:6])) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"phase 9 (a): launch.train.run at {cfg.name}'s full width cut to {cfg.n_layers} "
+    print(f"phase 9 (a): launch.train.run (the compiled step) at {cfg.name}'s full width "
+          f"cut to {cfg.n_layers} "
           f"layers (of 28; d_model {cfg.d_model}, vocab {cfg.vocab}, float32 parameters, "
           f"bfloat16 compute, remat {cfg.remat!r}), "
           f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ} (train_4k's length; its global batch 256 cut "
@@ -1978,7 +1990,7 @@ def phase9a(dev, ckpt_dir):
              next(data.make_pipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)).items()}
     step = steps.make_train_step(cfg, ocfg)
     prof = profile_step(lambda: step(params, state, batch)[2]["loss"].item(),
-                        f"phase 9 (a): profiled train step ({cfg.n_layers} layers)")
+                        f"phase 9 (a): profiled eager train step ({cfg.n_layers} layers)")
     return {"losses": losses, "restart_losses": again["losses"], "ms": ms,
             "tokens_s": tokens / ms * 1e3, "peak": peak, "profile": prof}
 
@@ -2091,6 +2103,124 @@ def phase9c(dev):
         del params, state, step, batch
 
 
+def train_steps(step, params, state, batches):
+    """``step`` over ``batches`` from ``params`` / ``state``: each step's
+    metrics (host values) and seconds (host clock ending in reading the
+    loss), the final state's leaves, and the allocated and reserved peaks
+    (GiB) from a reset before the first step."""
+    from repro_torch.train import optimizer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, secs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        loss = m["loss"].item()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({"loss": loss, "grad_norm": m["grad_norm"].item(),
+                        "lr": m["lr"].item(), "dropped": int(m["moe_dropped_slots"])})
+    return {"metrics": metrics, "secs": secs, "params": optimizer.sorted_leaves(params),
+            "state": (params, state),
+            "alloc": torch.cuda.max_memory_allocated() / 2**30,
+            "reserved": torch.cuda.max_memory_reserved() / 2**30}
+
+
+def train_gaps(a, b, lr):
+    """Largest loss and grad-norm gaps (relative) and parameter gap (in lr)
+    of two runs of :func:`train_steps`; whether they are bit-equal."""
+    loss = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+               for x, y in zip(a["metrics"], b["metrics"]))
+    gnorm = max(abs(x["grad_norm"] - y["grad_norm"]) / y["grad_norm"]
+                for x, y in zip(a["metrics"], b["metrics"]))
+    par = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a["params"], b["params"]))
+    equal = a["metrics"] == b["metrics"] and all(
+        torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+    return {"loss": loss, "gnorm": gnorm, "params_lr": par / lr, "equal": equal}
+
+
+def phase9d(dev, base):
+    """The compiled train step (``launch.steps.CompiledTrainStep``: a
+    warm-up step, the capture, then replays) against eager
+    ``make_train_step`` at phase 9 (a)'s config (qwen3-1.7b's full width, 2
+    layers, batch 2 x seq 4096), the same init and batches: eager twice
+    (their own gap), captured once; the loss, grad-norm and final-parameter
+    gaps, ms a step (median of steps 2-5), tokens/s, allocated and reserved
+    peaks; the replay's host enqueue ms, a profiled replay's device busy
+    share beside 9 (a)'s eager one, and the graph's nodes."""
+    from repro_torch.kernel_bench import graph_census, tick_entries
+    from repro_torch.launch import steps
+    from repro_torch.models import blocks, lm
+    from repro_torch.train import data, optimizer
+
+    cfg = train_config()
+    ocfg = optimizer.OptConfig(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+    it = data.make_pipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+               for _ in range(TRAIN_STEPS)]
+    init = lm.init_params(cfg, 0, dev)
+
+    def fresh():
+        p = blocks.tree_map(torch.clone, init)
+        return p, optimizer.init_opt_state(ocfg, p)
+
+    eager, step = steps.make_train_step(cfg, ocfg), steps.CompiledTrainStep(cfg, ocfg)
+    runs = {}
+    for tag in ("eager", "eager again", "captured"):
+        runs[tag] = train_steps(step if tag == "captured" else eager, *fresh(), batches)
+        if tag != "captured":
+            del runs[tag]["state"]
+            torch.cuda.empty_cache()
+    e, e2, c = runs["eager"], runs["eager again"], runs["captured"]
+    losses = ", ".join(f"{m['loss']:.6f}" for m in c["metrics"])
+    ee, ce = train_gaps(e2, e, ocfg.lr), train_gaps(c, e, ocfg.lr)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ms = {tag: float(np.median(r["secs"][2:6])) * 1e3 for tag, r in runs.items()}
+    check(step.builds == 1 and step.graph is not None, "[9 (d)] the step was not captured once")
+
+    def gaps(g):
+        return ("bit-equal" if g["equal"] else
+                f"loss {g['loss']:.3g}, grad norm {g['gnorm']:.3g} of themselves, parameters "
+                f"{g['params_lr']:.3g} lr")
+
+    print(f"phase 9 (d): the compiled train step (CompiledTrainStep: step 0 eager as the "
+          f"warm-up, then the capture; steps 1-{TRAIN_STEPS - 1} replays) at {cfg.name}'s full "
+          f"width, {cfg.n_layers} layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} "
+          f"steps from one init: captured against eager {gaps(ce)}; eager against eager "
+          f"{gaps(ee)}; losses {losses}")
+    for tag, r in runs.items():
+        print(f"phase 9 (d) [{tag}]: step seconds {', '.join(f'{x:.4f}' for x in r['secs'])}; "
+              f"{ms[tag]:.2f} ms a step (median of steps 2-5) = {tokens / ms[tag] * 1e3:.0f} "
+              f"tokens/s; max_memory_allocated {r['alloc']:.2f} GiB, max_memory_reserved "
+              f"{r['reserved']:.2f} GiB")
+    check(ce["equal"] or (ce["loss"] <= LOSS_RTOL and ce["gnorm"] <= GNORM_RTOL
+                          and ce["params_lr"] <= STEP_PARAM_LR_TOL),
+          f"[9 (d)] captured differs from eager: {ce} (eager against eager: {ee})")
+
+    params, state = c.pop("state")
+    b = batches[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, state, b)
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    finished = time.perf_counter() - t0
+    prof = profile_step(lambda: step(params, state, b)[2]["loss"].item(),
+                        f"phase 9 (d): profiled replayed train step ({cfg.n_layers} layers)")
+    census = graph_census(step.graph)
+    hand = tick_entries(census["names"], lockstep=False)
+    print(f"phase 9 (d): a replay {finished * 1e3:.2f} ms to its end, host enqueue "
+          f"{enqueue * 1e3:.3f} ms (batch copy and replay); device busy {prof['busy']:.1%} "
+          f"of the profiled wall (eager, 9 (a): {base['profile']['busy']:.1%} of "
+          f"{base['profile']['wall_ms']:.1f} ms); graph nodes: {census['kernel']} kernel "
+          f"(hand-written: {hand or 'none'}), {census['memcpy']} memcpy "
+          f"({census['host_memcpy']} touching host memory), {census['memset']} memset, "
+          f"{census['other']} other")
+    check(census["host_memcpy"] == 0 and not hand and census["kernel"] > 0,
+          f"[9 (d)] the train step's graph: {census}")
+    return {"ms": ms, "gaps": ce, "eager_gaps": ee, "profile": prof}
+
+
 def phase9(dev):
     """The training path and the new families on the card; every launch
     counter is set to 0 before and must read 0 after."""
@@ -2103,7 +2233,8 @@ def phase9(dev):
     (ROOT / "build").mkdir(exist_ok=True)
     out = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
-        for part, run in (("a", lambda: phase9a(dev, ckpt_dir)), ("b", lambda: phase9b(dev)),
+        for part, run in (("a", lambda: phase9a(dev, ckpt_dir)),
+                          ("d", lambda: phase9d(dev, out["a"])), ("b", lambda: phase9b(dev)),
                           ("c", lambda: phase9c(dev))):
             t1 = time.perf_counter()
             out[part] = run()

@@ -59,6 +59,7 @@ from repro_torch.configs import list_archs
 from repro_torch.configs.shapes import SHAPES, SUBQUADRATIC_ARCHS
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import fake_process_group, make_production_mesh
+from repro_torch.models import regions
 from repro_torch.parallel import sharding
 from repro_torch.train import optimizer as opt
 from repro_torch.train.optimizer import AdamState
@@ -81,10 +82,6 @@ _NO_DATA = frozenset(("empty", "empty_strided", "empty_like", "detach", "device"
 
 def _nbytes(t) -> int:
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
-
-
-def _local(t):
-    return t.to_local() if isinstance(t, DTensor) else t
 
 
 class LocalCost(TorchDispatchMode):
@@ -262,11 +259,11 @@ def trace_cost(cfg, shape, step, mesh) -> Dict[str, Any]:
     try:
         with FakeTensorMode():
             args = _place(mesh, abstract, specs)
-            arg_bytes = sum(_nbytes(_local(t)) for t in tree_leaves(args))
+            arg_bytes = sum(_nbytes(regions.shard(t)) for t in tree_leaves(args))
             cost = LocalCost()
             with cost:
                 out = step(*_step_args(shape, args))
-            out_bytes = sum(_nbytes(_local(t)) for t in tree_leaves(out))
+            out_bytes = sum(_nbytes(regions.shard(t)) for t in tree_leaves(out))
     finally:
         log.setLevel(level)
         opt.lr_table.cache_clear()

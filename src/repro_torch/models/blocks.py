@@ -250,7 +250,10 @@ def apply_stack(
     new_caches = []
     for gp, gc in zip(group_params, group_caches):
         if remat:
-            x, d, new_gc = checkpoint(group_apply, x, gp, gc, use_reentrant=False)
+            # the group draws no random numbers, so no RNG state to keep for
+            # the recompute (reading a CUDA generator's state breaks a capture)
+            x, d, new_gc = checkpoint(group_apply, x, gp, gc, use_reentrant=False,
+                                      preserve_rng_state=False)
         else:
             x, d, new_gc = group_apply(x, gp, gc)
         if d is not None:

@@ -134,3 +134,8 @@ def batch_local(fn, p, cfg, x, state=None):
 def full(x):
     """A DTensor's whole value on every rank; a plain tensor as it is."""
     return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def shard(x):
+    """This rank's shard of a DTensor (no collective); a plain tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x

@@ -64,8 +64,11 @@ def _device(tree) -> torch.device:
 
 
 def _const(x: float, device) -> torch.Tensor:
-    """A float32 constant as a device tensor (a divisor that rounds once)."""
-    return torch.tensor(x, dtype=F32, device=device)
+    """A float32 constant as a device tensor (a divisor that rounds once):
+    a fill on the device, which a CUDA graph can capture (``torch.tensor``
+    would copy from pageable host memory). The double rounds to float32
+    once, as ``torch.tensor(x, dtype=float32)`` rounds it."""
+    return torch.full((), x, dtype=F32, device=device)
 
 
 def init_opt_state(cfg: OptConfig, params: Any) -> AdamState:
@@ -91,10 +94,11 @@ def _cosf(x: np.ndarray) -> np.ndarray:
 @functools.lru_cache(maxsize=8)
 def lr_table(cfg: OptConfig, device: torch.device) -> torch.Tensor:
     """The schedule at steps 0 .. ``total_steps`` (past it, the last entry),
-    a float32 tensor on ``device`` made once, rounded as the jitted reference rounds it: XLA turns each
-    division by a constant into a multiply by its float32 reciprocal,
-    contracts ``(1 + cos) * c + min_lr_frac`` into a fused multiply-add
-    and calls ``cosf``."""
+    a float32 tensor on ``device`` made once (a host-to-device copy: a
+    compiled train step's eager first step makes it, before the capture),
+    rounded as the jitted reference rounds it: XLA turns each division by a
+    constant into a multiply by its float32 reciprocal, contracts ``(1 +
+    cos) * c + min_lr_frac`` into a fused multiply-add and calls ``cosf``."""
     f = np.float32
     s = np.arange(cfg.total_steps + 1, dtype=f)
     warm = s * f(floatops.recip(max(cfg.warmup_steps, 1)))

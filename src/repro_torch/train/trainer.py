@@ -17,8 +17,24 @@ tensors (``full_tensor()``, a collective every rank joins): rank 0 writes,
 the others wait at a barrier. A restore places every array again under the
 current mesh's specs, so a checkpoint restores under any mesh.
 
+The step is compiled, as the reference jits it in ``_build``
+(``jax.jit(step_fn, donate_argnums=(0, 1) if tcfg.donate else ())``):
+``launch.steps.CompiledTrainStep``, on one device and under a mesh
+alike (on the card DTensor's dispatch and its one-rank NCCL collectives
+capture at (1, 1)). On CUDA the first step of each build runs eagerly as
+the warm-up and the body is captured as a CUDA graph, then every step
+replays it; on the CPU the same body runs. The step builds at its first
+call after ``_build`` (a re-mesh makes a new step) and whenever it is
+handed a new state (``restore_or_init`` at a run's start, a restart): one
+warm-up step each, never an extra one. ``TrainerConfig.donate`` (default
+True, the reference's) updates the state in place; ``donate=False``
+leaves the tensors a run starts from as they were and trains copies of
+them, taken once a build.
+
 The step synchronizes once (reading the loss), where the reference calls
-``block_until_ready``, so the straggler monitor times the whole step.
+``block_until_ready``, so the straggler monitor times the whole step, a
+build's warm-up and capture included, as the reference's first step
+includes its compilation.
 """
 
 from __future__ import annotations
@@ -53,6 +69,7 @@ class TrainerConfig:
         default_factory=lambda: os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
     log_every: int = 10
     opt: opt.OptConfig = dataclasses.field(default_factory=opt.OptConfig)
+    donate: bool = True
 
 
 class Trainer:
@@ -85,7 +102,8 @@ class Trainer:
             self.mesh = None
             self.device = _resolve_device(mesh_or_device)
             self.pspecs = None
-        self.train_step = steps_mod.make_train_step(self.cfg, self.tcfg.opt)
+        self.train_step = steps_mod.CompiledTrainStep(self.cfg, self.tcfg.opt,
+                                                      donate=self.tcfg.donate)
 
     def _abstract(self):
         return {

@@ -1235,3 +1235,151 @@ def test_decode_graphs_of_two_batch_sizes_stay_apart(dev):
         assert torch.equal(out1, want[1])  # B = 2's replays left B = 1's output alone
     assert sorted(dec.steps) == [1, 2]
     assert dec.steps[1].graph is not dec.steps[2].graph
+
+
+# ---------------------------------------------------------------------------
+# the compiled train step (launch.steps.CompiledTrainStep)
+# ---------------------------------------------------------------------------
+
+TRAIN_CAPTURE_STEPS = 4
+
+
+def _train_case(dev, arch, compute=torch.float32):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.train import data, optimizer
+
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype=compute)
+    ocfg = optimizer.OptConfig(lr=1e-3, warmup_steps=2, total_steps=5)
+    it = iter(data.PackedBatcher(data.SyntheticSource(cfg.vocab, seed=0), 2, 16))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+               for _ in range(TRAIN_CAPTURE_STEPS)]
+    return cfg, ocfg, lm.init_params(cfg, 0, dev), batches
+
+
+def _fresh(p, ocfg):
+    from repro_torch.models import blocks
+    from repro_torch.train import optimizer
+
+    q = blocks.tree_map(torch.clone, p)
+    return q, optimizer.init_opt_state(ocfg, q)
+
+
+def _train_run(step, p, st, batches):
+    from repro_torch.train import optimizer
+
+    ms = []
+    for b in batches:
+        p, st, m = step(p, st, b)
+        ms.append({k: v.clone() for k, v in m.items()})
+    return ms, [x.clone() for x in optimizer.sorted_leaves((p, st))]
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "recurrentgemma-2b",
+                                  "mamba2-130m", "gemma2-9b"])
+def test_captured_train_step_equals_eager(dev, arch, compute):
+    """4 steps at smoke width: the compiled step (a warm-up step, then 3
+    replays) against eager ``make_train_step`` from the same parameters
+    and batches: bit for bit where two eager runs are; where the card's
+    atomics make two eager runs differ, within the CPU tests' float32
+    bounds (loss 1e-6, grad norm 1e-5, parameters 0.25 lr)."""
+    from repro_torch.launch import steps
+
+    cfg, ocfg, p, batches = _train_case(dev, arch, getattr(torch, compute))
+    step = steps.CompiledTrainStep(cfg, ocfg)
+    got, got_state = _train_run(step, *_fresh(p, ocfg), batches)
+    eager = steps.make_train_step(cfg, ocfg)
+    (want, want_state), (again, again_state) = (_train_run(eager, *_fresh(p, ocfg), batches)
+                                                for _ in range(2))
+    assert step.builds == 1 and step.graph is not None
+    if all(torch.equal(a[k], b[k]) for a, b in zip(want, again) for k in a) and all(
+            torch.equal(a, b) for a, b in zip(want_state, again_state)):
+        assert all(torch.equal(g[k], w[k]) for g, w in zip(got, want) for k in g)
+        assert all(torch.equal(g, w) for g, w in zip(got_state, want_state, strict=True))
+        return
+    for g, w in zip(got, want):
+        assert float(g["lr"]) == float(w["lr"])
+        assert int(g["moe_dropped_slots"]) == int(w["moe_dropped_slots"])
+        assert abs(float(g["loss"]) - float(w["loss"])) <= 1e-6 * abs(float(w["loss"]))
+        assert abs(float(g["grad_norm"]) - float(w["grad_norm"])) <= 1e-5 * float(w["grad_norm"])
+    for g, w in zip(got_state, want_state, strict=True):
+        assert float((g.float() - w.float()).abs().max()) <= 0.25 * ocfg.lr
+
+
+def test_train_step_graph_holds_the_step_and_no_host_copy(dev):
+    """The captured step's graph: kernel nodes (the forward, the backward
+    that autograd's device thread queued, AdamW), none of them hand-written,
+    no memcpy node touching host memory; a replay allocates nothing outside
+    the graph's pool."""
+    from repro_torch.kernel_bench import graph_census, tick_entries
+    from repro_torch.launch import steps
+
+    cfg, ocfg, p, batches = _train_case(dev, "qwen3-1.7b", torch.bfloat16)
+    step = steps.CompiledTrainStep(cfg, ocfg)
+    p, st = _fresh(p, ocfg)
+    p, st, _ = step(p, st, batches[0])
+    census = graph_census(step.graph)
+    assert census["kernel"] > 0 and census["host_memcpy"] == 0, census
+    assert tick_entries(census["names"], lockstep=False) == {}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    for b in batches[1:]:
+        p, st, m = step(p, st, b)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == before and np.isfinite(float(m["loss"]))
+
+
+def test_a_restored_state_makes_a_new_capture(dev):
+    """Two steps (warm-up, replay), then another set of tensors holding
+    the same values (a restore): a new build and graph, whose steps equal
+    the first graph's run from those values."""
+    from repro_torch.launch import steps
+    from repro_torch.train import optimizer
+
+    cfg, ocfg, p, batches = _train_case(dev, "qwen3-1.7b")
+    step = steps.CompiledTrainStep(cfg, ocfg)
+    p0, s0 = _fresh(p, ocfg)
+    want, _ = _train_run(steps.CompiledTrainStep(cfg, ocfg), *_fresh(p, ocfg), batches)
+    q, qs, _ = step(p0, s0, batches[0])
+    q, qs, _ = step(q, qs, batches[1])
+    first = step.graph
+    restored = [x.clone() for x in optimizer.sorted_leaves((q, qs))]
+    r, rs = _fresh(p, ocfg)
+    for dst, src in zip(optimizer.sorted_leaves((r, rs)), restored, strict=True):
+        dst.copy_(src)
+    for b, w in zip(batches[2:], want[2:]):
+        r, rs, m = step(r, rs, b)
+        assert torch.equal(m["loss"], w["loss"]) or \
+            abs(float(m["loss"]) - float(w["loss"])) <= 1e-6 * abs(float(w["loss"]))
+    assert step.builds == 2 and step.graph is not first and step.graph is not None
+
+
+def test_captured_mesh_step_equals_eager(dev, nccl1):
+    """The step over DTensors on a (1, 1) mesh of the one-rank NCCL group,
+    captured (DTensor's dispatch and its one-rank collectives in the
+    graph), against the eager step over the same DTensors."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import regions
+    from repro_torch.parallel import sharding
+    from repro_torch.train import optimizer
+
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    cfg, ocfg, p, batches = _train_case(dev, "qwen3-1.7b")
+    specs = sharding.tree_param_specs(mesh, p)
+
+    def placed():
+        q, s = _fresh(p, ocfg)
+        d = lambda tree, sp: sharding.distribute(mesh, tree, sp)  # noqa: E731
+        return d(q, specs), optimizer.AdamState(step=d(s.step, ()), mu=d(s.mu, specs),
+                                                nu=d(s.nu, specs), err=None)
+
+    tb = [sharding.distribute(mesh, b, sharding.tokens_spec(mesh)) for b in batches]
+    step = steps.CompiledTrainStep(cfg, ocfg)
+    got, _ = _train_run(step, *placed(), tb)
+    want, _ = _train_run(steps.make_train_step(cfg, ocfg), *placed(), tb)
+    assert step.graph is not None
+    for g, w in zip(got, want):
+        gl, wl = float(regions.full(g["loss"])), float(regions.full(w["loss"]))
+        assert gl == wl or abs(gl - wl) <= 1e-6 * abs(wl)

@@ -51,6 +51,7 @@ from repro.models import lm as jlm
 from repro.train import data as jdata
 from repro.train import optimizer as jopt
 from repro.train import straggler as jstrag
+from repro.train import trainer as jtrainer
 from repro_torch.configs import SMOKE as T_SMOKE
 from repro_torch.configs import shapes as tshapes
 from repro_torch.launch import serve as tserve
@@ -389,11 +390,13 @@ def test_straggler_verdicts_equal_the_reference():
 # ---------------------------------------------------------------------------
 
 
-def _trainer(tmp_path, total_steps=6, fail_at=None):
+def _trainer(tmp_path, total_steps=6, fail_at=None, donate=False):
+    """The reference's ``TestTrainerE2E._mk`` on the port: ``donate=False``
+    as it passes."""
     cfg = T_SMOKE["qwen3-1.7b"]
     tcfg = TrainerConfig(
         total_steps=total_steps, ckpt_every=2, log_every=2, ckpt_dir=str(tmp_path),
-        opt=topt.OptConfig(lr=1e-3, warmup_steps=2, total_steps=total_steps),
+        opt=topt.OptConfig(lr=1e-3, warmup_steps=2, total_steps=total_steps), donate=donate,
     )
     it = tdata.make_pipeline(cfg.vocab, batch=2, seq=16, seed=0)
     inj = (lambda s: s == fail_at) if fail_at is not None else None
@@ -434,6 +437,56 @@ def test_trainer_straggler_breaker_remesh_path(tmp_path):
     out = t.run()
     assert out["steps"] == 5 and np.isfinite(out["losses"]).all() and len(seen) == 5
     assert (tmp_path / "step_00000002" / "COMMITTED").exists() and not t.monitor.tripped
+
+
+def test_trainer_config_takes_the_reference_s_fields():
+    """``TrainerConfig`` has the reference's fields and defaults (its
+    ``ckpt_dir`` is the port's own temporary directory): ``donate=True``
+    unless given."""
+    want = {f.name: f.default for f in dataclasses.fields(jtrainer.TrainerConfig)}
+    got = {f.name: f.default for f in dataclasses.fields(TrainerConfig)}
+    assert want.keys() == got.keys()
+    assert all(want[k] == got[k] for k in want if k not in ("ckpt_dir", "opt"))
+    assert TrainerConfig().donate and not TrainerConfig(donate=False).donate
+
+
+def test_trainer_losses_equal_with_and_without_donation(tmp_path):
+    outs = {}
+    for donate in (True, False):
+        t = _trainer(tmp_path / str(donate), total_steps=4, donate=donate)
+        outs[donate] = (t.run()["losses"], topt.sorted_leaves(t.state))
+    np.testing.assert_array_equal(outs[True][0], outs[False][0])
+    assert all(torch.equal(a, b) for a, b in zip(outs[True][1], outs[False][1], strict=True))
+
+
+def test_undonated_step_leaves_the_tensors_handed_to_it():
+    """``CompiledTrainStep(donate=False)`` trains copies taken at its build
+    and leaves the caller's parameters and Adam state as they were; handed
+    them again, it copies them in and repeats the first step. Donated, the
+    same steps give the same values, written into the caller's tensors."""
+    tc = dataclasses.replace(T_SMOKE["qwen3-1.7b"], compute_dtype=torch.float32)
+    ocfg = topt.OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    bs = [_tb(b) for b in _batches(J_SMOKE["qwen3-1.7b"], 3)]
+    p = tlm.init_params(tc, 0, "cpu")
+    st = topt.init_opt_state(ocfg, p)
+    before = [x.clone() for x in topt.sorted_leaves((p, st))]
+    step = tsteps.CompiledTrainStep(tc, ocfg, donate=False)
+    q, qs, m = step(p, st, bs[0])
+    losses = [float(m["loss"])]
+    for b in bs[1:]:
+        q, qs, m = step(q, qs, b)
+        losses.append(float(m["loss"]))
+    assert all(torch.equal(a, b) for a, b in zip(before, topt.sorted_leaves((p, st))))
+    assert q is not p and int(qs.step) == 3 and step.builds == 1
+    again = step(p, st, bs[0])[2]  # the caller's tensors again: copied in, no new build
+    assert float(again["loss"]) == losses[0] and step.builds == 1
+
+    donated = tsteps.CompiledTrainStep(tc, ocfg)
+    dp, ds = p, st
+    for b, want in zip(bs, losses):
+        dp, ds, dm = donated(dp, ds, b)
+        assert dp is p and float(dm["loss"]) == want
+    assert int(st.step) == 3  # written in place
 
 
 def test_train_driver_smoke_on_cpu(tmp_path):
