@@ -205,11 +205,26 @@ and no result line:
      ticks/s; (d) the replayed tick's profile (``profile_tick``): host ms a
      replay, device busy, device kernels a replay, flat, sharded and at
      B = 8;
-  13. print the kernel table as JSON, the card's name and power limit, and
+  13. the examples and dev smokes (``examples/torch_*.py``,
+     ``scripts/torch_smoke_*.py``), in this process through each one's
+     ``main(argv)`` on the card, each run's wall time printed with the
+     card's name and power limit: quickstart (2000 ticks) and
+     cluster_survival (Airlock off and on, 2400 ticks each): the printed
+     text equals each module's ``report``, every printed number finite,
+     task conservation, L-task OOM kills 0 with Airlock on, and in each
+     run's captured graph the tick kernels (all four with memory on, the
+     three others with it off), their launches its kernel nodes times its
+     replays; the serve example at its defaults (its stats line); the
+     train example at ``TRAIN_EXAMPLE_STEPS`` steps (cut from 200) into a
+     temporary folder (finite losses, its lines); the engine smoke (two runs
+     on one engine, the second a replay of the first's capture), the
+     baselines smoke (no hand-written kernel in their graphs) and the models
+     smoke on all 10 archs (finite loss and decode logits, right shapes);
+  14. print the kernel table as JSON, the card's name and power limit, and
      last the result line.
 
 Every launch counter is set to 0 just before each run of phases 3, 5, 6, 7,
-8, 9, 10, 11 and 12 and read just after. A compiled run's launches are its
+8, 9, 10, 11, 12 and 13 and read just after. A compiled run's launches are its
 captured graph's hand-written kernel nodes (``kernel_bench.graph_census``,
 named by ``cuFuncGetName``) times its replays: its wrappers run only at the
 warm-up and the capture; the zone-sharded run is compiled too (phases 5, 6,
@@ -220,10 +235,13 @@ three fixture rows, whose ``smoke_launches`` counts phase 2b's own).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3040,6 +3058,161 @@ def phase12(dev, eager_lockstep):
     phase12d(dev)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the examples and dev smokes, through each one's main(argv)
+# ---------------------------------------------------------------------------
+
+SCRIPTS = {
+    "quickstart": "examples/torch_quickstart.py",
+    "cluster_survival": "examples/torch_cluster_survival.py",
+    "serve_laminar": "examples/torch_serve_laminar.py",
+    "train_lm": "examples/torch_train_lm.py",
+    "smoke_engine": "scripts/torch_smoke_engine.py",
+    "smoke_baselines": "scripts/torch_smoke_baselines.py",
+    "smoke_models": "scripts/torch_smoke_models.py",
+}
+TRAIN_EXAMPLE_STEPS = 20  # cut from the example's 200 for the script's time limit
+TICK_KERNELS = ("bitmap_fit_rounds", "utility_topk_address", "zone_aggregate_members",
+                "survival_scan")
+NON_FINITE = re.compile(r"(?<![\w.])[-+]?(nan|inf)(?![\w.])", re.IGNORECASE)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
+            else f"nvidia-smi unavailable (rc {smi.returncode})")
+
+
+def load_script(name: str):
+    """The port's script ``name`` as a module (it runs nothing on import)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", ROOT / SCRIPTS[name])
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def script_run(name: str, argv, card: str):
+    """``main(argv)`` of the port's script ``name``: every launch counter set
+    to 0 just before, read just after. Returns (the module, its result, its
+    printed text, the hand-written launches of each compiled run: its
+    graph's kernel nodes by entry times its replays, its seconds of wall
+    time). The text is echoed, and checked to hold no NaN or infinity."""
+    from repro_torch.core.scan import watching
+    from repro_torch.kernel_bench import graph_census, tick_entries
+    from repro_torch.kernels import WRAPPERS
+
+    mod = load_script(name)
+    torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    text = io.StringIO()
+    with watching() as runs, contextlib.redirect_stdout(text):
+        t0 = time.perf_counter()
+        result = mod.main(list(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    text = text.getvalue()
+    for line in text.splitlines():
+        print(f"  | {line}")
+    per_run = [{e: n * replays for e, n in tick_entries(graph_census(c.graph)["names"],
+                                                          False).items()}
+               for c, replays in runs]
+    eager = {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+    print(f"phase 13 [{name}]: {wall:.2f} s wall, {len(runs)} compiled runs, eager launches "
+          f"(warm-ups and captures) {eager} ({card})")
+    check(not NON_FINITE.search(text), f"[{name}] printed a NaN or an infinity")
+    return mod, result, text, per_run, wall
+
+
+def check_tick_launches(name, per_run, ticks, memory):
+    """Each compiled run launched the tick kernels once a tick:
+    survival_scan only with memory on, the other three always."""
+    for i, launches in enumerate(per_run):
+        for entry in TICK_KERNELS:
+            want = ticks if memory or entry != "survival_scan" else 0
+            check(launches.get(entry, 0) == want,
+                  f"[{name}] run {i}: {entry} launched {launches.get(entry, 0)} times, "
+                  f"want {want}")
+
+
+def phase13(dev):
+    from repro_torch.configs import list_archs
+
+    card = card_line()
+    mod, out, text, per_run, wall = script_run("quickstart", [], card)
+    ticks = mod.CFG.num_ticks
+    check(text == mod.report(mod.CFG, out) + "\n", "[quickstart] printed text")
+    check(conservation(out) and out["started"] > 0, "[quickstart] task conservation broken")
+    check(len(per_run) == 1, f"[quickstart] {len(per_run)} compiled runs")
+    check_tick_launches("quickstart", per_run, ticks, memory=False)
+    print(f"phase 13 [quickstart]: {ticks} ticks, {wall / ticks * 1e3:.3f} ms a tick from "
+          f"init (capture included), started={out['started']}, launches {per_run[0]} ({card})")
+
+    mod, outs, text, per_run, wall = script_run("cluster_survival", [], card)
+    ticks = mod.BASE.num_ticks
+    cfgs = [dataclasses.replace(mod.BASE, airlock=a) for a in (False, True)]
+    check(text == "".join(mod.report(c, o) + "\n" for c, o in zip(cfgs, outs)),
+          "[cluster_survival] printed text")
+    for cfg, o in zip(cfgs, outs):
+        check(conservation(o) and o["started"] > 0,
+              f"[cluster_survival] airlock={cfg.airlock}: task conservation broken")
+    check(outs[1]["oom_kill_l"] == 0,
+          f"[cluster_survival] {outs[1]['oom_kill_l']} L-task OOM kills with Airlock on")
+    check(len(per_run) == 2, f"[cluster_survival] {len(per_run)} compiled runs")
+    check_tick_launches("cluster_survival", per_run, ticks, memory=True)
+    print(f"phase 13 [cluster_survival]: {ticks} ticks a run, {wall / (2 * ticks) * 1e3:.3f} ms "
+          f"a tick from init (captures included), L-task OOM kills {outs[0]['oom_kill_l']} -> "
+          f"{outs[1]['oom_kill_l']}, launches {per_run} ({card})")
+
+    _, _, text, per_run, _ = script_run("serve_laminar", [], card)
+    stats = re.match(r"arch=\S+ replicas=2 arrived=(\d+) started=(\d+) completed=(\d+) "
+                     r"suspended=\d+ resumed=\d+ migrated=\d+ reclaimed=\d+ fastfail=\d+$",
+                     text.splitlines()[0] if text else "")
+    check(stats is not None and int(stats.group(2)) > 0, "[serve_laminar] stats line")
+    check(all(not any(r.values()) for r in per_run), "[serve_laminar] a hand-written launch")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, out, text, _, _ = script_run(
+            "train_lm", ["--steps", str(TRAIN_EXAMPLE_STEPS), "--ckpt-dir", tmp], card)
+    losses = np.asarray(out["losses"])
+    check(len(losses) == TRAIN_EXAMPLE_STEPS and np.isfinite(losses).all(),
+          f"[train_lm] losses {losses}")
+    check(f"final loss after {TRAIN_EXAMPLE_STEPS} steps: {out['final_loss']:.4f}" in text
+          and len(out["log"]) == TRAIN_EXAMPLE_STEPS, "[train_lm] printed lines")
+    print(f"phase 13 [train_lm]: {TRAIN_EXAMPLE_STEPS} steps (cut from the example's 200), "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} ({card})")
+
+    mod, got, text, per_run, _ = script_run("smoke_engine", [], card)
+    check(text == mod.report(got["runs"][0], *got["seconds"]) + "\n", "[smoke_engine] text")
+    for o in got["runs"]:
+        check(conservation(o) and o["started"] > 0, "[smoke_engine] task conservation broken")
+    check(len(per_run) == 2, f"[smoke_engine] {len(per_run)} compiled runs")
+    check_tick_launches("smoke_engine", per_run, mod.CFG.num_ticks, memory=False)
+    print(f"phase 13 [smoke_engine]: first run (capture) {got['seconds'][0]:.3f} s, second "
+          f"(replay) {got['seconds'][1]:.3f} s, {mod.CFG.num_ticks} ticks each ({card})")
+
+    mod, got, text, per_run, _ = script_run("smoke_baselines", [], card)
+    check(list(got) == ["slurm", "ray", "flux"] and len(text.splitlines()) == 3,
+          "[smoke_baselines] runs")
+    for name, o in got.items():
+        check(o["started"] > 0 and np.isfinite(o["start_success_raw"]),
+              f"[smoke_baselines] {name}: started={o['started']}")
+    check(all(not any(r.values()) for r in per_run), "[smoke_baselines] a hand-written launch")
+
+    _, got, _, _, _ = script_run("smoke_models", [], card)
+    check(list(got) == list_archs(), f"[smoke_models] archs {list(got)}")
+    for name, r in got.items():
+        check(r["shapes_ok"] and r["finite"], f"[smoke_models] {name}: {r}")
+    print(f"phase 13 [smoke_models]: {len(got)} archs, forward, loss, prefill and decode "
+          f"finite with the right shapes, {sum(r['wall'] for r in got.values()):.2f} s ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3097,7 +3270,7 @@ def main() -> int:
                            (7, lambda: phase7(dev)), (8, lambda: phase8(dev)),
                            (9, lambda: phase9(dev)), (10, lambda: phase10(dev, done[9])),
                            (11, lambda: phase11(dev, totals, rows)),
-                           (12, lambda: phase12(dev, done[11]))):
+                           (12, lambda: phase12(dev, done[11])), (13, lambda: phase13(dev))):
                 t1 = time.perf_counter()
                 done[k] = run()
                 print(f"phase {k}: {time.perf_counter() - t1:.1f} s wall")
@@ -3111,12 +3284,7 @@ def main() -> int:
 
     print(f"total wall {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
-          else f"nvidia-smi unavailable (rc {smi.returncode})")
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -71,6 +71,7 @@ __all__ = [
     "compare_routes",
     "fingerprint",
     "record_tick",
+    "recorded",
     "run_signature_audit",
     "run_trace_audit",
     "stub_hotpath",
@@ -232,24 +233,43 @@ def _base_state(cfg: LaminarConfig):
     return engine.LaminarEngine(cfg, device="cpu").init(0)
 
 
+def recorded(make_body: Callable[[], Callable[[], Any]], stubbed: bool = False):
+    """The ops of one call of a body from ``make_body()`` and its result.
+
+    A first body runs unrecorded, as ``core.scan`` runs a warm-up tick
+    before it captures: a table the first call in a process fills (the
+    histogram edges of ``state._edges_on``) fills there, so the trace does
+    not depend on what ran before it. ``make_body`` runs outside both
+    calls, so each body starts from state of its own. ``stubbed``: the
+    hot-path entries by their plans' outputs, in both calls."""
+    with stub_hotpath() if stubbed else contextlib.nullcontext():
+        make_body()()
+    body = make_body()
+    with OpRecorder() as rec, stub_hotpath(rec) if stubbed else contextlib.nullcontext():
+        out = body()
+    return rec.ops, out
+
+
 def record_tick(
     cfg: LaminarConfig,
     scenario: Optional[ScenarioConfig] = None,
     base: Any = None,
 ):
-    """Record one tick (t = 0) and the making of its draws.
+    """Record one tick (t = 0) and the making of its draws (:func:`recorded`).
 
     Returns ``(ops, s_in, s_out, ts)``. ``base`` is ``(state, lam)`` from
     ``LaminarEngine.init`` (the geometry does not depend on the scenario)."""
     if scenario is not None:
         cfg = dataclasses.replace(cfg, scenario=scenario)
     s, lam = base if base is not None else _base_state(cfg)
-    draws = TorchDraws(cfg, lam, s.zstart.shape[0], seed=0, device="cpu")
     step = engine.make_step(cfg)
-    with OpRecorder() as rec, stub_hotpath(rec):
-        d = draws.tick(0)
-        s2, ts = step(s, d)
-    return rec.ops, s, s2, ts
+
+    def make_body():
+        draws = TorchDraws(cfg, lam, s.zstart.shape[0], seed=0, device="cpu")
+        return lambda: step(s, draws.tick(0))
+
+    ops, (s2, ts) = recorded(make_body, stubbed=True)
+    return ops, s, s2, ts
 
 
 def fingerprint(ops: Sequence[OpRecord]) -> str:

@@ -18,7 +18,10 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
+import tempfile
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
@@ -88,3 +91,27 @@ def fake_process_group(world_size: int, rank: int = 0):
         yield
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def process_group(dev):
+    """The default process group for a mesh on ``dev``'s type: the one open
+    in this process, else the one ``torchrun`` describes (its environment),
+    else a one-rank group in a temporary directory (NCCL on CUDA, gloo on
+    the CPU). A group opened here is destroyed on exit."""
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        if "WORLD_SIZE" in os.environ:
+            if dev.type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()

@@ -22,7 +22,6 @@ import contextlib
 import os
 import tempfile
 
-import torch
 import torch.distributed as dist
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt")
@@ -54,12 +53,13 @@ def main(argv=None):
 
 def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128, lr: float = 1e-3,
         ckpt_dir: str = DEFAULT_CKPT_DIR, ckpt_every: int = 50, mesh: str | None = None,
-        compress_grads: bool = False, device="cuda"):
+        compress_grads: bool = False, device="cuda", warmup_steps: int | None = None):
     """The driver's run for the ``ArchConfig`` ``cfg``, with ``main``'s
-    options as keywords (``mesh``: ``"DxM"`` or None). Returns the
+    options as keywords (``mesh``: ``"DxM"`` or None; ``warmup_steps``:
+    the lr warm-up, by default a twentieth of the steps). Returns the
     trainer's result."""
     from repro_torch.core.engine import _resolve_device
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import make_mesh, process_group
     from repro_torch.train import data as data_mod
     from repro_torch.train import optimizer as opt
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -70,12 +70,12 @@ def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128, lr: float = 1e
         ckpt_every=ckpt_every,
         ckpt_dir=ckpt_dir,
         opt=opt.OptConfig(
-            lr=lr, warmup_steps=max(steps // 20, 1),
+            lr=lr, warmup_steps=max(steps // 20, 1) if warmup_steps is None else warmup_steps,
             total_steps=steps, compress_grads=compress_grads,
         ),
     )
     pipeline = data_mod.make_pipeline(cfg.vocab, batch, seq, seed=0)
-    with _process_group(dev) if mesh else contextlib.nullcontext():
+    with process_group(dev) if mesh else contextlib.nullcontext():
         where = dev
         if mesh:
             shape = tuple(int(x) for x in mesh.split("x"))
@@ -88,29 +88,6 @@ def run(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128, lr: float = 1e
             f"first_loss={out['losses'][0]:.4f} final_loss={out['final_loss']:.4f}"
         )
     return out
-
-
-@contextlib.contextmanager
-def _process_group(dev):
-    """The default process group: the one open in this process, else the
-    one ``torchrun`` describes (its environment), else a one-rank group in a
-    temporary directory. A group opened here is destroyed on exit."""
-    if dist.is_initialized():
-        yield
-        return
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    with tempfile.TemporaryDirectory() as tmp:
-        if "WORLD_SIZE" in os.environ:
-            if dev.type == "cuda":
-                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-            dist.init_process_group(backend)
-        else:
-            dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
-                                    rank=0, world_size=1)
-        try:
-            yield
-        finally:
-            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -91,10 +91,13 @@ class ArchConfig:
     remat: str = "block"
 
     # --- performance knobs, kept so a config means what it means in the
-    # reference. The sharding knobs (sharded_xent, cast_params_once,
-    # zero3_inference, row_parallel, kv_replicated, moe_ep_constraint) steer
-    # the reference's GSPMD layout and change no value; this package has no
-    # sharded model yet, so it carries them without acting on them.
+    # reference. The sharding knobs change no value. The port acts on each:
+    # sharded_xent in models/lm.py (the loss's logsumexp form),
+    # cast_params_once in launch/steps.py (one cast of the parameters a
+    # step), zero3_inference, row_parallel and kv_replicated in
+    # launch/dryrun.py (a cell's parameter specs, by parallel/sharding.py),
+    # and moe_ep_constraint in models/moe.py (expert_parallel: under a mesh,
+    # the dispatch buffer and the expert output on "model").
     sharded_xent: bool = False
     cast_params_once: bool = False
     zero3_inference: bool = True

@@ -23,6 +23,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.core import floatops
 from repro_torch.models import common as cm
@@ -133,14 +134,29 @@ def route(p: Params, cfg: ArchConfig, xt: torch.Tensor):
     return picks, C, probs, granted
 
 
+def expert_parallel(x, cfg: ArchConfig):
+    """Under ``cfg.moe_ep_constraint`` and a mesh with a "model" axis, the
+    DTensor ``x`` (experts first) pinned to experts over "model" and
+    replicated over the other axes, the reference's ``PS("model", None,
+    None)``: the expert matmuls then stay on the expert shard. The values
+    do not change. Otherwise ``x`` as it is."""
+    mesh = x.device_mesh
+    if not cfg.moe_ep_constraint or "model" not in mesh.mesh_dim_names:
+        return x
+    return x.redistribute(mesh, tuple(Shard(0) if n == "model" else Replicate()
+                                      for n in mesh.mesh_dim_names))
+
+
 def moe_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor):
     """x: (B, S, d) -> (B, S, d); returns (out, aux) with load-balance stats.
 
     Under a mesh (a DTensor ``x``) the routing, the dispatch into the
     buffers and the combine are a local region on every rank's copy of all
     B * S tokens (the capacity is the whole batch's, as the reference's);
-    the expert FFN between them stays DTensor ops on the sharded weights,
-    and the output goes back to batch over the DP axes."""
+    the expert FFN between them stays DTensor ops on the sharded weights
+    (its input and output pinned to experts over "model" under
+    ``moe_ep_constraint``, :func:`expert_parallel`), and the output goes
+    back to batch over the DP axes."""
     assert cfg.moe is not None
     mc = cfg.moe
     cd = cfg.compute_dtype
@@ -165,7 +181,7 @@ def moe_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor):
         buf.index_add_(0, idx, xc)
     buf = buf[: E * C].reshape(E, C, d)
     if mesh is not None:
-        buf = regions.wrap(buf, mesh, rep)
+        buf = expert_parallel(regions.wrap(buf, mesh, rep), cfg)
 
     # ---- expert FFN (batched over experts) --------------------------------
     g = torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(cd))
@@ -173,6 +189,7 @@ def moe_ffn(p: Params, cfg: ArchConfig, x: torch.Tensor):
     h = cm.silu(g) * u
     y = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(cd))
     if mesh is not None:  # gathered before the flatten, which DTensor cannot split
+        y = expert_parallel(y, cfg)
         y = regions.local(y, mesh, rep)
     y = y.reshape(E * C, d)
 

@@ -4,10 +4,15 @@ module imports no JAX). Each returns numpy arrays, the same on every rank."""
 
 from __future__ import annotations
 
+import dataclasses
+
+import torch
+
 from repro_torch.configs import get_smoke
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import regions
+from repro_torch.models import moe, regions
 from repro_torch.models.blocks import tree_flatten
+from repro_torch.parallel import sharding
 from repro_torch.train import data as tdata
 from repro_torch.train import optimizer as topt
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -31,11 +36,29 @@ def host(tree) -> dict:
 
 def train_on_mesh(dev, arch, shape, steps, ckpt_dir, cfg=None):
     """``steps`` trainer steps on a ("data", "model") mesh of ``shape``:
-    the losses and the final parameters and optimizer state."""
-    tr = trainer(arch, make_mesh(shape, ("data", "model"), "cpu"), steps, ckpt_dir, cfg=cfg)
+    the losses and the final parameters and optimizer state; for a MoE
+    arch also :func:`moe_with_and_without_ep` on that mesh."""
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    tr = trainer(arch, mesh, steps, ckpt_dir, cfg=cfg)
     out = tr.run()
     params, opt_state = tr.state
-    return {"losses": out["losses"], "state": host({"params": params, "opt": opt_state})}
+    got = {"losses": out["losses"], "state": host({"params": params, "opt": opt_state})}
+    if tr.cfg.moe is not None:
+        got["moe"] = moe_with_and_without_ep(mesh, tr.cfg)
+    return got
+
+
+def moe_with_and_without_ep(mesh, cfg):
+    """One MoE layer's full output on ``mesh`` without ``moe_ep_constraint``
+    and with it, from seeded parameters and a seeded batch (B, S, d)."""
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe_params(gen, cfg)
+    p = sharding.distribute(mesh, p, sharding.tree_param_specs(mesh, p))
+    x = torch.randn((B, S, cfg.d_model), generator=gen)
+    x = sharding.distribute(mesh, x, sharding.batch_spec(mesh) + (None, None))
+    with torch.no_grad():
+        return [regions.full(moe.moe_ffn(p, dataclasses.replace(cfg, moe_ep_constraint=knob), x)[0])
+                .numpy() for knob in (False, True)]
 
 
 def remesh_round_trip(dev, arch, ckpt_dir):

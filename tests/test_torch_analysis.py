@@ -141,6 +141,20 @@ def test_cachekey_field_shapes_the_ports_trace():
     assert "mmpp_hi_factor" in findings[0].message
 
 
+def test_recorded_tick_does_not_depend_on_the_first_call():
+    """With the histogram edges' table emptied, as in a fresh process, two
+    recordings of one tick are alike: the table fills in the warm-up, not
+    in the first trace, so the fingerprints above compare ticks and not
+    call order."""
+    from repro_torch.core import state
+
+    cfg = trace_audit.audit_config()
+    state._edges_on.cache_clear()
+    fp = [trace_audit.fingerprint(trace_audit.record_tick(cfg, SCENARIOS["storm"])[0])
+          for _ in range(2)]
+    assert fp[0] == fp[1]
+
+
 def test_config_declaration_check_catches_compare_false(monkeypatch):
     @dataclasses.dataclass(frozen=True)
     class BrokenConfig:

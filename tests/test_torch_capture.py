@@ -29,7 +29,7 @@ import pytest
 import torch
 import torch.utils._pytree as pytree
 
-from repro_torch.analysis.trace_audit import OpRecorder
+from repro_torch.analysis.trace_audit import recorded
 from repro_torch.core import BaselineConfig, LaminarConfig, LaminarEngine, MemoryConfig
 from repro_torch.core.baselines import common as C
 from repro_torch.core.baselines import flux_like, ray_like, slurm_like
@@ -163,16 +163,15 @@ def test_draws_from_the_device_tick_equal_the_host_tick(preset):
 
 def _recorded_tick(cfg, t, host_tick=False):
     """The ops of one flat tick with its draws, made at tick ``t`` (an int32
-    tensor, or the Python int with ``host_tick``)."""
+    tensor, or the Python int with ``host_tick``), after a warm-up tick."""
     eng = LaminarEngine(cfg, device="cpu")
     s, lam = eng.init(0)
     prov = eng.draws(lam, s.zstart.shape[0], 0)
     prov.cover(HORIZON)
     step = make_step(cfg)
     tick = t if host_tick else torch.tensor(t, dtype=torch.int32)
-    with OpRecorder() as rec:
-        step(s, prov.draw(prov._tick(tick), prov.gen, prov.tables))
-    return [(op.name, op.sig) for op in rec.ops]
+    ops, _ = recorded(lambda: lambda: step(s, prov.draw(prov._tick(tick), prov.gen, prov.tables)))
+    return [(op.name, op.sig) for op in ops]
 
 
 @pytest.mark.parametrize("preset", ["storm", "diurnal", "flash"])

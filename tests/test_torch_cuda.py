@@ -1383,3 +1383,23 @@ def test_captured_mesh_step_equals_eager(dev, nccl1):
     for g, w in zip(got, want):
         gl, wl = float(regions.full(g["loss"])), float(regions.full(w["loss"]))
         assert gl == wl or abs(gl - wl) <= 1e-6 * abs(wl)
+
+
+def test_quickstart_example_launches_the_tick_kernels(dev, capsys):
+    """``examples/torch_quickstart.py`` at its full 2000 ticks on the card:
+    its captured tick launches bitmap_fit_rounds, utility_topk_address and
+    zone_aggregate_members once a tick (memory is off: no survival_scan),
+    and it prints its six lines."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "examples" / "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    out, launches = _run_launches(lambda: quickstart.main([]))
+    ticks = quickstart.CFG.num_ticks
+    for entry in ("bitmap_fit_rounds", "utility_topk_address", "zone_aggregate_members"):
+        assert launches.get(entry) == ticks, launches
+    assert launches.get("survival_scan", 0) == 0, launches
+    assert out["started"] > 0 and len(capsys.readouterr().out.splitlines()) == 6

@@ -216,3 +216,38 @@ def test_main_records_every_cell_and_fails_on_an_error(tmp_path, monkeypatch, ca
     with pytest.raises(SystemExit) as e:  # cached cells are not run again
         dryrun.main(["--arch", "qwen3-1.7b", "--shape", "train_4k"])
     assert e.value.code == 0
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_moe_ep_constraint_pins_the_expert_buffers(mesh24, monkeypatch, kind):
+    """``moe_ep_constraint`` on olmoe-1b-7b: the dispatch buffer and the
+    expert output come out of ``expert_parallel`` as experts over "model"
+    (``Shard(0)``) and replicated over "data", the reference's ``PS("model",
+    None, None)``, and the cell's collective bytes move. Without the knob
+    they keep DTensor's own placements (the buffer replicated, the output
+    batch over "data" and partial over "model")."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models import moe
+
+    seen = []
+
+    def recording(x, cfg):
+        y = pinned(x, cfg)
+        seen.append(tuple(y.placements))
+        return y
+
+    pinned = moe.expert_parallel
+    monkeypatch.setattr(moe, "expert_parallel", recording)
+    shape = ShapeSpec("t", 64, 8, kind)
+    coll, where = {}, {}
+    for knob in (False, True):
+        cfg = dataclasses.replace(get_smoke("olmoe-1b-7b"), moe_ep_constraint=knob)
+        step = tsteps.make_train_step(cfg) if kind == "train" else tsteps.make_prefill_step(cfg)
+        seen.clear()
+        coll[knob] = dryrun.trace_cost(cfg, shape, step, mesh24)["collectives"]["total_bytes"]
+        where[knob] = list(seen)
+    layers = get_smoke("olmoe-1b-7b").n_layers
+    assert where[True] == [(Replicate(), Shard(0))] * (2 * layers), where[True]
+    assert len(where[False]) == 2 * layers and where[False] != where[True], where[False]
+    assert coll[True] != coll[False], coll

@@ -2,8 +2,11 @@
 
   * ``repro_torch`` and every module under it import in a fresh interpreter
     in which ``jax`` cannot be imported;
-  * an AST scan of ``src/repro_torch/`` and ``chip_smoke.py`` finds no import
-    of ``jax``, ``jaxlib``, ``repro`` or ``repro.*`` (``repro_torch`` is fine);
+  * so do the port's examples and dev smokes (``examples/torch_*.py``,
+    ``scripts/torch_smoke_*.py``), which run nothing on import;
+  * an AST scan of ``src/repro_torch/``, ``chip_smoke.py`` and those scripts
+    finds no import of ``jax``, ``jaxlib``, ``repro`` or ``repro.*``
+    (``repro_torch`` is fine);
   * importing the kernel packages builds nothing (no ``nvcc`` here).
 """
 
@@ -19,7 +22,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCRIPTS = sorted(ROOT.glob("examples/torch_*.py")) + sorted(ROOT.glob("scripts/torch_smoke_*.py"))
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + SCRIPTS
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
@@ -52,6 +56,7 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_modules_import_with_jax_blocked():
+    assert len(SCRIPTS) == 7, SCRIPTS
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
         for p in PKG.rglob("*.py")
@@ -65,6 +70,10 @@ def test_modules_import_with_jax_blocked():
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
+        "import importlib.util\n"
+        f"for p in {[str(p) for p in SCRIPTS]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('script', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "from repro_torch.kernels import _build\n"
         "assert not _build._loaded\n"

@@ -17,7 +17,10 @@ the mesh trainer is held to:
     trainer steps of qwen3-1.7b, olmoe-1b-7b and mamba2-130m (its SSD mixer
     a batch-local region) within those bounds of the one-device trainer
     (the sums of a sharded contraction reduce in another order: measured
-    within 1.5e-7 of the loss, 0.03 lr of the parameters);
+    within 1.5e-7 of the loss, 0.03 lr of the parameters); on the same
+    ranks olmoe-1b-7b's MoE layer gives the same output bit for bit with
+    ``moe_ep_constraint`` (the dispatch buffer and expert output on
+    "model") as without it;
   * a checkpoint written under (2, 1) restores under (1, 2) with every
     value equal.
 """
@@ -144,6 +147,8 @@ def test_two_ranks_within_float32_bounds(tmp_path, arch):
                            (arch, shape, 2, str(tmp_path / f"m{shape}"), cfg), device="cpu")
         for o in outs:  # both ranks hold the same full values
             _assert_within(want_losses, want, o["losses"], o["state"])
+            if cfg.moe is not None:
+                np.testing.assert_array_equal(*o["moe"], err_msg=f"moe_ep_constraint {shape}")
         _assert_state_equal(outs[0]["state"], outs[1]["state"])
 
 
