@@ -27,6 +27,17 @@ simulate_batch`), each hot-path kernel one launch for all seeds
 made from the state (``new_zeros``, ``new_full``, ``torch.cat``), which
 carry the seed axis under ``vmap``.
 
+The tick's stages are spans (``core.spans``), in the paper's control path:
+``tick.survival`` (memory dynamics, the survival scan, runtime control,
+Airlock transitions), ``tick.completions``, ``tick.disruption``,
+``tick.dissemination`` (node view, Z-HAF reports, TEG refresh),
+``tick.admission`` (arrivals, probe movement, TEG dispatch, DA addressing),
+``tick.arbitration`` (the rounds) and ``tick.pending`` (pending stage,
+absolute timeout, the tick counter, the series row); each holds a span a
+call of the list above, and each hot-path entry one of its own
+(``hotpath.<entry>``). Every operation of the tick lies inside one stage.
+``engine.init`` spans the making of an initial state.
+
 The engine keeps its compiled ticks in ``_compiled``, as the reference keeps
 its jitted runners, keyed on the config (its scenario included), the flat
 or lockstep tick, the state's shapes (so B) and the kind of draws provider.
@@ -46,6 +57,7 @@ from repro_torch.core import airlock, arbiter, da, disrupt, hotpath, teg, worklo
 from repro_torch.core.config import NUM_TIERS, TIER_NAMES, LaminarConfig
 from repro_torch.core.draws import BatchDraws, Draws, TorchDraws, max_dispatch
 from repro_torch.core.scan import scan
+from repro_torch.core.spans import span
 from repro_torch.core.state import (
     EMPTY,
     LOST_WAIT,
@@ -159,57 +171,75 @@ def make_step(cfg: LaminarConfig, plane=None):
 
     def step(s: SimState, d: Draws) -> Tuple[SimState, torch.Tensor]:
         # ---- runtime survival (Exp5) ---------------------------------------
-        if cfg.memory.enabled:
-            s = airlock.memory_dynamics(cfg, s, d, noise)
-            # one fused pass over the probe table: pressure + victim +
-            # transition masks (survival_scan kernel or its plain version)
-            pressure, victim, resume, react, expire = hotpath.survival_scan(cfg, s)
-            s = airlock.runtime_control(cfg, s, victim)
-            s, react_mask = airlock.airlock_transitions(cfg, s, resume, react, expire)
-        else:
-            pressure = s.amb.new_zeros(cfg.num_nodes)
-            react_mask = torch.zeros_like(s.migrating)
+        with span("tick.survival"):
+            if cfg.memory.enabled:
+                with span("airlock.memory_dynamics"):
+                    s = airlock.memory_dynamics(cfg, s, d, noise)
+                # one fused pass over the probe table: pressure + victim +
+                # transition masks (survival_scan kernel or its plain version)
+                pressure, victim, resume, react, expire = hotpath.survival_scan(cfg, s)
+                with span("airlock.runtime_control"):
+                    s = airlock.runtime_control(cfg, s, victim)
+                with span("airlock.airlock_transitions"):
+                    s, react_mask = airlock.airlock_transitions(cfg, s, resume, react, expire)
+            else:
+                pressure = s.amb.new_zeros(cfg.num_nodes)
+                react_mask = torch.zeros_like(s.migrating)
 
         # ---- service progress ------------------------------------------------
-        s = arbiter.completions(cfg, s)
+        with span("tick.completions"), span("arbiter.completions"):
+            s = arbiter.completions(cfg, s)
 
         # ---- scenario disruption: fail/drain/recover nodes --------------------
         if disruption_on:
-            s, evict_mask = disrupt.apply(cfg, scenario, s, d)
+            with span("tick.disruption"), span("disrupt.apply"):
+                s, evict_mask = disrupt.apply(cfg, scenario, s, d)
 
-        # ---- true node state, computed once per tick ---------------------------
-        view = zhaf.build_view(cfg, s) if plane is None else plane.build_view(cfg, s)
-
-        # ---- cold path: state dissemination -------------------------------
-        s = zhaf.report(cfg, s, d, view)
-        s = teg.refresh(cfg, s, plane)
+        # ---- cold path: state dissemination over the true node state ----------
+        with span("tick.dissemination"):
+            with span("zhaf.build_view"):
+                view = zhaf.build_view(cfg, s) if plane is None else plane.build_view(cfg, s)
+            with span("zhaf.report"):
+                s = zhaf.report(cfg, s, d, view)
+            with span("teg.refresh"):
+                s = teg.refresh(cfg, s, plane)
 
         # ---- admissions hot path ----------------------------------------------
-        s, arrival_mask = _inject_arrivals(cfg, s, d)
-        s, regen_mask = da.move(cfg, s, d)
-        dispatch_mask = arrival_mask | regen_mask | react_mask
-        if disruption_on:
-            dispatch_mask = dispatch_mask | evict_mask
-        s = teg.dispatch(cfg, s, d, dispatch_mask, n_dispatch)
-        s = da.address(cfg, s, d, view)
+        with span("tick.admission"):
+            with span("engine.inject_arrivals"):
+                s, arrival_mask = _inject_arrivals(cfg, s, d)
+            with span("da.move"):
+                s, regen_mask = da.move(cfg, s, d)
+            dispatch_mask = arrival_mask | regen_mask | react_mask
+            if disruption_on:
+                dispatch_mask = dispatch_mask | evict_mask
+            with span("teg.dispatch"):
+                s = teg.dispatch(cfg, s, d, dispatch_mask, n_dispatch)
+            with span("da.address"):
+                s = da.address(cfg, s, d, view)
 
-        if cfg.memory.enabled and cfg.airlock:
-            throttled = pressure > cfg.memory.high_watermark
-        else:
-            throttled = s.node_up.new_zeros(cfg.num_nodes)
-        # multiple admission rounds per tick: after each reservation the node
-        # removes the winner's atoms and proceeds to the next feasible
-        # candidate; one launch runs them all, on every node or on the
-        # rank's zone block
-        if plane is None:
-            s = arbiter.arbitrate_rounds(cfg, s, throttled)
-        else:
-            s = plane.arb_rounds(cfg, s, throttled)
-        s = arbiter.pending_stage(cfg, s)
-        s = arbiter.timeouts(cfg, s)
+        with span("tick.arbitration"):
+            if cfg.memory.enabled and cfg.airlock:
+                throttled = pressure > cfg.memory.high_watermark
+            else:
+                throttled = s.node_up.new_zeros(cfg.num_nodes)
+            # multiple admission rounds per tick: after each reservation the
+            # node removes the winner's atoms and proceeds to the next
+            # feasible candidate; one launch runs them all, on every node or
+            # on the rank's zone block
+            with span("arbiter.arbitrate_rounds"):
+                if plane is None:
+                    s = arbiter.arbitrate_rounds(cfg, s, throttled)
+                else:
+                    s = plane.arb_rounds(cfg, s, throttled)
 
-        s = s._replace(t=s.t + 1)
-        ts = torch.stack([getattr(s.metrics, f) for f in TS_FIELDS])
+        with span("tick.pending"):
+            with span("arbiter.pending_stage"):
+                s = arbiter.pending_stage(cfg, s)
+            with span("arbiter.timeouts"):
+                s = arbiter.timeouts(cfg, s)
+            s = s._replace(t=s.t + 1)
+            ts = torch.stack([getattr(s.metrics, f) for f in TS_FIELDS])
         return s, ts
 
     return step
@@ -240,6 +270,10 @@ class LaminarEngine:
 
     def init(self, seed: int = 0) -> Tuple[SimState, float]:
         """Initial state on the device and the per-tick arrival intensity."""
+        with span("engine.init"):
+            return self._init(seed)
+
+    def _init(self, seed: int) -> Tuple[SimState, float]:
         d = init_numpy(self.cfg, seed)
         # host-side float32 sum, as the JAX engine computes it
         free_atoms = float(np.asarray(d["rep_S"]).sum())
@@ -259,8 +293,9 @@ class LaminarEngine:
         seeds = [int(x) for x in seeds]
         if not seeds:
             raise ValueError("init_batch needs at least one seed")
-        s, lam = self.init(seeds[0])
-        return _stack(s, len(seeds)), lam
+        with span("engine.init"):
+            s, lam = self._init(seeds[0])
+            return _stack(s, len(seeds)), lam
 
     def config_for(self, scenario=None) -> LaminarConfig:
         """``cfg`` running ``scenario`` (``None``: ``cfg.scenario``), as the

@@ -19,7 +19,8 @@ The four entries the flat tick calls go through their custom ops
 (``repro_torch::<entry>``, ``kernels.batching``): outside ``vmap`` the op
 is the wrapper; under the lockstep engine's ``torch.func.vmap`` over a seed
 axis it is ONE call of the entry's batched twin (one launch for all seeds
-on CUDA, the plain version seed by seed on the CPU).
+on CUDA, the plain version seed by seed on the CPU). Each of the four is a
+span, ``hotpath.<entry>`` (``core.spans``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.core import state as _state
 from repro_torch.core.config import LaminarConfig
+from repro_torch.core.spans import span
 from repro_torch.kernels.bitmap_fit import ops as _bitmap_ops
 from repro_torch.kernels.survival_scan import ops as _surv_ops
 from repro_torch.kernels.survival_scan import ref as _surv_ref
@@ -80,10 +82,11 @@ def bitmap_fit_rounds(cfg: LaminarConfig, s, throttled: torch.Tensor):
     admit (P,))``: each round's winner slot (-1: none), whether it was
     admitted and the words it took; each probe's round won (-1: none) and
     admission."""
-    return _bitmap_ops.bitmap_fit_rounds_op(
-        s.st, s.node, s.ev, s.mass, s.contig, s.free, throttled,
-        rounds=cfg.arb_rounds, atoms=cfg.atoms_per_node, policy=cfg.alloc_policy,
-    )
+    with span("hotpath.bitmap_fit_rounds"):
+        return _bitmap_ops.bitmap_fit_rounds_op(
+            s.st, s.node, s.ev, s.mass, s.contig, s.free, throttled,
+            rounds=cfg.arb_rounds, atoms=cfg.atoms_per_node, policy=cfg.alloc_policy,
+        )
 
 
 def bitmap_fit_rounds_blocked(cfg: LaminarConfig, s, throttled: torch.Tensor,
@@ -129,12 +132,13 @@ def utility_topk_address(cfg: LaminarConfig, s, d, view):
     ``st == ADDRESSING``, reading the draws ``d`` and the true node view
     ``view``. Returns the new ``(st, node, zone, timer, patience)`` (P,) and
     the int32 counts ``(op_eval, op_bounce, fastfail)``."""
-    return _topk_ops.utility_topk_address_op(
-        s.st, s.node, s.zone, s.timer, s.patience, s.migrating, s.mass, s.contig,
-        d.cand_u, d.addr_eps, s.zstart, s.zcount, s.zone_id,
-        s.rep_S, s.rep_H, s.rep_run, s.rep_t, s.dS, s.dH,
-        view.s_true, view.h_true, view.run_true, s.t, **address_params(cfg),
-    )
+    with span("hotpath.utility_topk_address"):
+        return _topk_ops.utility_topk_address_op(
+            s.st, s.node, s.zone, s.timer, s.patience, s.migrating, s.mass, s.contig,
+            d.cand_u, d.addr_eps, s.zstart, s.zcount, s.zone_id,
+            s.rep_S, s.rep_H, s.rep_run, s.rep_t, s.dS, s.dH,
+            view.s_true, view.h_true, view.run_true, s.t, **address_params(cfg),
+        )
 
 
 def zone_aggregate(s_gather: torch.Tensor, h_gather: torch.Tensor, mask: torch.Tensor):
@@ -147,8 +151,9 @@ def zone_aggregate_members(rep_S, rep_H, member, mask, t=None, zS=None, zH=None,
     """Per-zone (mean slack, total heat) of the node vectors over the
     ``(Z, M)`` zone members; given the tick ``t``, the old ``zS``, ``zH``
     are kept where ``t % every != 0`` (decided on the device)."""
-    return _agg_ops.zone_aggregate_members_op(rep_S, rep_H, member, mask, t, zS, zH,
-                                              every=every)
+    with span("hotpath.zone_aggregate_members"):
+        return _agg_ops.zone_aggregate_members_op(rep_S, rep_H, member, mask, t, zS, zH,
+                                                  every=every)
 
 
 def survival_scan(cfg: LaminarConfig, s):
@@ -159,21 +164,22 @@ def survival_scan(cfg: LaminarConfig, s):
     are empty when ``cfg.airlock`` is off.
     """
     mc = cfg.memory
-    return _surv_ops.survival_scan_op(
-        s.st,
-        s.alloc_node,
-        s.mem,
-        s.ev,
-        s.tier,
-        s.migrating,
-        s.susp_tick,
-        s.surv_deadline,
-        s.rigid_mem + s.amb,
-        s.t,
-        airlock=cfg.airlock,
-        residual=mc.suspended_residual,
-        watermark=mc.high_watermark if cfg.airlock else mc.kill_watermark,
-        safe=mc.safe_watermark,
-        t_susp=cfg.ticks(cfg.t_susp_ms),
-        t_surv=cfg.ticks(cfg.t_surv_ms),
-    )
+    with span("hotpath.survival_scan"):
+        return _surv_ops.survival_scan_op(
+            s.st,
+            s.alloc_node,
+            s.mem,
+            s.ev,
+            s.tier,
+            s.migrating,
+            s.susp_tick,
+            s.surv_deadline,
+            s.rigid_mem + s.amb,
+            s.t,
+            airlock=cfg.airlock,
+            residual=mc.suspended_residual,
+            watermark=mc.high_watermark if cfg.airlock else mc.kill_watermark,
+            safe=mc.safe_watermark,
+            t_susp=cfg.ticks(cfg.t_susp_ms),
+            t_surv=cfg.ticks(cfg.t_surv_ms),
+        )

@@ -37,19 +37,35 @@ The draws reach the body one of two ways:
 A run copies the caller's state into the buffers first and returns copies of
 them: a second run of the same compiled tick leaves the first one's result
 alone.
+
+Spans (``core.spans``), a call's, never a replay's: ``scan.run`` around a
+call, with ``scan.lookup`` (the key and the cache), ``scan.capture`` (a
+miss: the warm-up tick, the capture, the instantiation), ``scan.load``
+(the state copied in, the draws loaded), ``scan.replays`` (the loop) and
+``scan.unload`` (the ring copied out, the draws stored, the state's copies).
+While a recording is open, the counter ``scan.launch_ns`` sums the host ns
+spent inside ``graph.replay()``. The body's own spans, ``scan.draws`` and
+``scan.copyback``, run where the tick's do: at the capture. The capture
+maps them (:attr:`Compiled.stages`): each kernel, memcpy and memset node
+of the graph, in order, with the path of the innermost span that enqueued
+it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import time
 import weakref
 from contextlib import contextmanager
-from typing import Any, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch.core import spans
 from repro_torch.core.draws import BatchDraws, TorchDraws
+from repro_torch.core.spans import span
 from repro_torch.kernels.utility_topk import ops as _topk
 
 RING = 256  # rows of the series ring: one copy out of it every RING ticks
@@ -116,6 +132,91 @@ def capture(body, device: torch.device, generators=()) -> torch.cuda.CUDAGraph:
     on_side_stream(captured, device)
     graph.instantiate()
     return graph
+
+
+# CUgraphNodeType -> the kinds a stage map lists (any other node is "other")
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+_CAPTURE_ACTIVE = 1  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda() -> ctypes.CDLL:
+    """``libcuda``, with the signatures this module calls (the unsuffixed
+    graph calls and ``cuStreamGetCaptureInfo_v2`` keep their CUDA 12 form
+    in every later CUDA release)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, sz = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+    cu.cuStreamGetCaptureInfo_v2.argtypes = [
+        vp, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(vp),
+        ctypes.POINTER(ctypes.POINTER(vp)), sz]
+    cu.cuGraphGetNodes.argtypes = [vp, ctypes.POINTER(vp), sz]
+    cu.cuGraphGetEdges.argtypes = [vp, ctypes.POINTER(vp), ctypes.POINTER(vp), sz]
+    cu.cuGraphNodeGetType.argtypes = [vp, ctypes.POINTER(ctypes.c_int)]
+    for fn in (cu.cuStreamGetCaptureInfo_v2, cu.cuGraphGetNodes, cu.cuGraphGetEdges,
+               cu.cuGraphNodeGetType):
+        fn.restype = ctypes.c_int
+    return cu
+
+
+def capture_position() -> int:
+    """The node the next operation captured on the current stream will
+    depend on (0 before the first), from ``cuStreamGetCaptureInfo``.
+    Raises ``RuntimeError`` where it cannot be read or is not one node."""
+    try:
+        cu = _libcuda()
+    except (OSError, AttributeError) as e:
+        raise RuntimeError(f"libcuda: {e}") from None
+    status, cid, graph = ctypes.c_int(0), ctypes.c_uint64(0), ctypes.c_void_p()
+    deps, n = ctypes.POINTER(ctypes.c_void_p)(), ctypes.c_size_t(0)
+    err = cu.cuStreamGetCaptureInfo_v2(
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream), ctypes.byref(status),
+        ctypes.byref(cid), ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuStreamGetCaptureInfo_v2 returned CUresult {err}")
+    if status.value != _CAPTURE_ACTIVE:
+        raise RuntimeError("the current stream is not capturing")
+    if n.value > 1:
+        raise RuntimeError(f"the next captured operation depends on {n.value} nodes: "
+                           f"the graph is not a chain")
+    return (deps[0] or 0) if n.value else 0
+
+
+def graph_chain(graph: torch.cuda.CUDAGraph) -> List[Tuple[int, str]]:
+    """The nodes of a kept graph in order, ``(handle, kind)``, from its one
+    root along its edges. Raises ``RuntimeError`` where the graph is not a
+    chain."""
+    try:
+        cu = _libcuda()
+    except (OSError, AttributeError) as e:
+        raise RuntimeError(f"libcuda: {e}") from None
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n, m = ctypes.c_size_t(0), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) or cu.cuGraphGetEdges(
+            raw, None, None, ctypes.byref(m)):
+        raise RuntimeError("cuGraphGetNodes / cuGraphGetEdges failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    src, dst = (ctypes.c_void_p * m.value)(), (ctypes.c_void_p * m.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) or cu.cuGraphGetEdges(
+            raw, src, dst, ctypes.byref(m)):
+        raise RuntimeError("cuGraphGetNodes / cuGraphGetEdges failed")
+    after, heads = {}, set()
+    for a, b in zip(src, dst):
+        if a in after or b in heads:
+            raise RuntimeError("a node of the graph has two edges in or out: not a chain")
+        after[a] = b
+        heads.add(b)
+    roots = [x for x in nodes if x not in heads]
+    if len(roots) != 1:
+        raise RuntimeError(f"the graph has {len(roots)} roots: not a chain")
+    chain, node = [], roots[0]
+    while node is not None:
+        t = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        chain.append((node, _NODE_KINDS.get(t.value, "other")))
+        node = after.get(node)
+    if len(chain) != n.value:
+        raise RuntimeError(f"the chain from the root holds {len(chain)} of {n.value} nodes")
+    return chain
 
 
 class Sampled:
@@ -221,7 +322,14 @@ class Compiled:
     """One tick of ``step`` as an in-place body over static buffers shaped
     as ``state``, its draws from ``feed``; on CUDA the body captured once in
     ``graph`` (the CUDA graph is kept, so its nodes can be read) and replayed
-    by :meth:`run`, on the CPU called by it."""
+    by :meth:`run`, on the CPU called by it.
+
+    ``stages``: each kernel, memcpy and memset node of ``graph`` in chain
+    order as ``(kind, path)``, ``path`` the innermost span that enqueued it
+    (``core.spans``: e.g. ``tick.admission/da.address/
+    hotpath.utility_topk_address``). None where the graph is not a chain,
+    or a position could not be read, or on the CPU; ``stages_fault`` then
+    says why. Building it never fails the capture."""
 
     def __init__(self, step, state, feed):
         leaves, self.spec = pytree.tree_flatten(state)
@@ -232,72 +340,103 @@ class Compiled:
         self.t = torch.zeros((), dtype=torch.int32, device=self.device)
         self.ring = None  # made by the first tick: the warm-up on CUDA, the run's first on the CPU
         self.graph = None
+        self.stages: Optional[list] = None
+        self.stages_fault: Optional[str] = "the CPU runs the body: no graph"
         if self.device.type == "cuda":
             self._capture(feed.states())
 
     def _capture(self, saved) -> None:
         """Warm up on the side stream (one tick on the buffers, which every
         run overwrites; the generators put back), then capture one tick on
-        it. The address kernel's accumulator regions taken by the capture
-        are given back when this object goes."""
-        on_side_stream(self._body, self.device)
-        self.feed.restore(saved)
-        with _topk.owned_regions() as regions:
-            weakref.finalize(self, _topk.release, regions)
-            self.graph = capture(self._body, self.device, self.feed.gens)
-        moved = [i for i, (a, b) in enumerate(zip(saved, self.feed.states()))
-                 if not torch.equal(a, b)]
-        if moved:
-            raise RuntimeError(f"the capture moved generators {moved} of the tick's draws")
+        it, its stage map beside it. The address kernel's accumulator
+        regions taken by the capture are given back when this object goes."""
+        with span("scan.capture"):
+            on_side_stream(self._body, self.device)
+            self.feed.restore(saved)
+            stage_map = spans.StageMap(capture_position)
+            with _topk.owned_regions() as regions, spans.mapping(stage_map):
+                weakref.finalize(self, _topk.release, regions)
+                self.graph = capture(self._body, self.device, self.feed.gens)
+            moved = [i for i, (a, b) in enumerate(zip(saved, self.feed.states()))
+                     if not torch.equal(a, b)]
+            if moved:
+                raise RuntimeError(f"the capture moved generators {moved} of the tick's draws")
+            try:
+                chain = graph_chain(self.graph)
+            except RuntimeError as e:
+                self.stages, self.stages_fault = None, str(e)
+            else:
+                self.stages, self.stages_fault = stage_map.resolve(chain)
 
     def _body(self) -> None:
         s = pytree.tree_unflatten(self.bufs, self.spec)
-        new, y = self.step(s, self.feed.draws(self.t))
+        with span("scan.draws"):
+            d = self.feed.draws(self.t)
+        new, y = self.step(s, d)
         leaves, spec = pytree.tree_flatten(new)
         if spec != self.spec or _shapes(leaves) != self.shapes:
             raise ValueError("the step changed the state's structure, shapes or dtypes")
-        held = {b.untyped_storage().data_ptr() for b in self.bufs if b.numel()}
-        dst, src = [], []
-        for buf, x in zip(self.bufs, leaves):
-            if x is buf:
-                continue
-            if x.numel() and x.untyped_storage().data_ptr() in held:
-                x = x.clone()  # a view of a buffer that this copy-back may overwrite
-            dst.append(buf)
-            src.append(x)
-        _copy(dst, src)
-        if self.ring is None:
-            self.ring = y.new_zeros((RING, *y.shape))
-        self.ring.index_put_(((self.t % RING).long().view(1),), y.unsqueeze(0))
-        self.t.add_(1)
+        with span("scan.copyback"):
+            held = {b.untyped_storage().data_ptr() for b in self.bufs if b.numel()}
+            dst, src = [], []
+            for buf, x in zip(self.bufs, leaves):
+                if x is buf:
+                    continue
+                if x.numel() and x.untyped_storage().data_ptr() in held:
+                    x = x.clone()  # a view of a buffer that this copy-back may overwrite
+                dst.append(buf)
+                src.append(x)
+            _copy(dst, src)
+            if self.ring is None:
+                self.ring = y.new_zeros((RING, *y.shape))
+            self.ring.index_put_(((self.t % RING).long().view(1),), y.unsqueeze(0))
+            self.t.add_(1)
 
     def run(self, state, draws, num_ticks: int, first=None) -> Tuple[Any, torch.Tensor]:
         """``num_ticks`` ticks from ``state`` with ``draws``: the final state
         (copies) and the (num_ticks, *row) series. ``first`` is tick 0's
         draws of a host-filled feed, already drawn."""
-        leaves, spec = pytree.tree_flatten(state)
-        if spec != self.spec or _shapes(leaves) != self.shapes:
-            raise ValueError("state does not match the compiled tick's")
-        providers = _providers(draws)
-        _copy(self.bufs, leaves)
-        self.t.zero_()
-        self.feed.load(providers)
+        with span("scan.load"):
+            leaves, spec = pytree.tree_flatten(state)
+            if spec != self.spec or _shapes(leaves) != self.shapes:
+                raise ValueError("state does not match the compiled tick's")
+            providers = _providers(draws)
+            _copy(self.bufs, leaves)
+            self.t.zero_()
+            self.feed.load(providers)
+        with span("scan.replays"):
+            out = self._replays(draws, num_ticks, first)
+        with span("scan.unload"):
+            lo = (num_ticks - 1) - (num_ticks - 1) % RING
+            out[lo:].copy_(self.ring[: num_ticks - lo])
+            self.feed.store(providers)
+            for runs in _watchers:
+                runs.append((self, num_ticks if self.graph is not None else 0))
+            return pytree.tree_unflatten([b.clone() for b in self.bufs], self.spec), out
+
+    def _replays(self, draws, num_ticks: int, first) -> torch.Tensor:
+        """The ticks, each a replay (the body on the CPU); every full ring
+        but the last copied out. While a recording is open, the host ns
+        inside ``graph.replay()`` go to the counter ``scan.launch_ns``."""
+        tick = self._body if self.graph is None else self.graph.replay
+        timed = self.graph is not None and spans.recording_open()
+        launch_ns = 0
         out = None
         for i in range(num_ticks):
             self.feed.put(draws, i, first)
-            if self.graph is None:
-                self._body()
+            if timed:
+                t0 = time.perf_counter_ns()
+                tick()
+                launch_ns += time.perf_counter_ns() - t0
             else:
-                self.graph.replay()
+                tick()
             if out is None:
                 out = self.ring.new_empty((num_ticks, *self.ring.shape[1:]))
-            if (i + 1) % RING == 0 or i + 1 == num_ticks:
-                lo = i - i % RING
-                out[lo:i + 1].copy_(self.ring[: i + 1 - lo])
-        self.feed.store(providers)
-        for runs in _watchers:
-            runs.append((self, num_ticks if self.graph is not None else 0))
-        return pytree.tree_unflatten([b.clone() for b in self.bufs], self.spec), out
+            if (i + 1) % RING == 0 and i + 1 < num_ticks:
+                out[i + 1 - RING:i + 1].copy_(self.ring)
+        if timed:
+            spans.count("scan.launch_ns", launch_ns)
+        return out
 
 
 def _providers(draws) -> list:
@@ -327,23 +466,25 @@ def scan(step, state, draws, num_ticks: int, cache: dict | None = None,
     tick lives for this call only."""
     if num_ticks < 1:
         raise ValueError(f"scan needs at least one tick, got {num_ticks}")
-    leaves, spec = pytree.tree_flatten(state)
-    device = _canonical(leaves[0].device)
-    providers = _providers(draws)
-    stacked = isinstance(draws, BatchDraws)
-    first = None
-    if all(_samples_on(p, device) for p in providers):
-        for p in providers:
-            p.cover(num_ticks)
-        feed_key = Sampled.key(providers, stacked)
-    else:
-        first = draws.tick(0)
-        feed_key = Filled.key(first)
-    full = (key, spec, _shapes(leaves), feed_key)
-    compiled = cache.get(full) if cache is not None else None
-    if compiled is None:
-        feed = Sampled(providers, stacked) if first is None else Filled(first, device)
-        compiled = Compiled(step, state, feed)
-        if cache is not None:
-            cache[full] = compiled
-    return compiled.run(state, draws, num_ticks, first)
+    with span("scan.run"):
+        with span("scan.lookup"):
+            leaves, spec = pytree.tree_flatten(state)
+            device = _canonical(leaves[0].device)
+            providers = _providers(draws)
+            stacked = isinstance(draws, BatchDraws)
+            first = None
+            if all(_samples_on(p, device) for p in providers):
+                for p in providers:
+                    p.cover(num_ticks)
+                feed_key = Sampled.key(providers, stacked)
+            else:
+                first = draws.tick(0)
+                feed_key = Filled.key(first)
+            full = (key, spec, _shapes(leaves), feed_key)
+            compiled = cache.get(full) if cache is not None else None
+        if compiled is None:
+            feed = Sampled(providers, stacked) if first is None else Filled(first, device)
+            compiled = Compiled(step, state, feed)
+            if cache is not None:
+                cache[full] = compiled
+        return compiled.run(state, draws, num_ticks, first)
