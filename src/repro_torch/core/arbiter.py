@@ -24,6 +24,7 @@ from repro_torch.core.state import (
     SimState,
     count,
     latency_bucket,
+    scatter_sum,
     tier_counts,
 )
 
@@ -36,15 +37,9 @@ def _free_atoms_at(
     """Return freed node bitmap words: free |= alloc for each masked probe.
 
     Held allocations are disjoint, so an int32 add of their bit patterns is
-    their OR. Rows that are unmasked or hold no node go to a spare row that
-    is cut off (the JAX package's index -1 wraps onto its spare row too).
+    their OR. Rows that are unmasked or hold no node add nothing.
     """
-    N = free.shape[0]
-    upd = torch.where(mask[:, None], alloc, 0)
-    tgt = torch.where(mask & (node >= 0), node, N).long()
-    acc = upd.new_zeros((N + 1, free.shape[1]), dtype=free.dtype)
-    acc.index_add_(0, tgt, upd)
-    return free | acc[:-1]
+    return free | scatter_sum(free.shape[0], node, mask & (node >= 0), alloc)
 
 
 def elect(st: torch.Tensor, node: torch.Tensor, ev: torch.Tensor, throttled: torch.Tensor):
@@ -304,12 +299,11 @@ def pending_stage(cfg: LaminarConfig, s: SimState) -> SimState:
     lat_ms = (s.t - s.arrival).to(torch.float32) * cfg.dt_ms
     bucket = latency_bucket(lat_ms)
     started = start_now.to(torch.int32)
-    B = m.lat_hist.shape[0]
-    hist = m.lat_hist.clone().index_add_(
-        0, torch.where(start_now, bucket, 0).long(), started
-    )
-    flat = torch.where(start_now, s.tier * B + bucket, 0).long()
-    hist_tier = m.lat_hist_tier.reshape(-1).clone().index_add_(0, flat, started)
+    T, B = m.lat_hist_tier.shape
+    hist = m.lat_hist + scatter_sum(B, bucket, start_now, started)
+    hist_tier = m.lat_hist_tier + scatter_sum(
+        T * B, s.tier * B + bucket, start_now, started
+    ).reshape(T, B)
     m = m._replace(
         started=m.started + count(start_now),
         started_f=m.started_f + count(start_now & ~s.contig),
@@ -318,7 +312,7 @@ def pending_stage(cfg: LaminarConfig, s: SimState) -> SimState:
         reserve_expired=m.reserve_expired + count(prim_exp),
         squat_expired=m.squat_expired + count(squat_exp),
         lat_hist=hist,
-        lat_hist_tier=hist_tier.reshape(m.lat_hist_tier.shape),
+        lat_hist_tier=hist_tier,
     )
     return s._replace(
         st=st,

@@ -40,6 +40,7 @@ from repro_torch.core.state import (
     SUSPENDED,
     SimState,
     count,
+    scatter_sum,
     tier_counts,
 )
 from repro_torch.workloads.disruption import disruption_step
@@ -58,23 +59,16 @@ def disrupted_capacity(
 ) -> torch.Tensor:
     """Post-disruption free words: zero down nodes, restore recovered ones.
 
-    The held atoms per node are an integer ``index_add_`` of the int32 bit
-    patterns of the live allocations: they are disjoint per node, so the sum
-    is their OR, and integer addition gives the same bits in any order (and
-    the same bits as the reference's uint32 adds) on any device.
+    The held atoms per node are an integer scatter-add
+    (``state.scatter_sum``) of the int32 bit patterns of the live
+    allocations: they are disjoint per node, so the sum is their OR, and
+    integer addition gives the same bits in any order (and the same bits as
+    the reference's uint32 adds) on any device.
     """
-    N, W = free.shape
-    acc = alloc.new_zeros((N + 1, W), dtype=free.dtype)
-    acc.index_add_(
-        0, torch.where(alloc_node >= 0, alloc_node, N).long(),
-        torch.where(alloc_node[:, None] >= 0, alloc, 0),
-    )
+    N = free.shape[0]
+    held = scatter_sum(N, alloc_node, alloc_node >= 0, alloc)
     if alloc2 is not None:
-        acc.index_add_(
-            0, torch.where(node2 >= 0, node2, N).long(),
-            torch.where(node2[:, None] >= 0, alloc2, 0),
-        )
-    held = acc[:N]
+        held = held + scatter_sum(N, node2, node2 >= 0, alloc2)
     free = torch.where(recover[:, None], free0 & ~held, free)
     return torch.where(up[:, None], free, 0)
 

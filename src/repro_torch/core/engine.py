@@ -34,8 +34,9 @@ Airlock transitions), ``tick.completions``, ``tick.disruption``,
 ``tick.admission`` (arrivals, probe movement, TEG dispatch, DA addressing),
 ``tick.arbitration`` (the rounds) and ``tick.pending`` (pending stage,
 absolute timeout, the tick counter, the series row); each holds a span a
-call of the list above, and each hot-path entry one of its own
-(``hotpath.<entry>``). Every operation of the tick lies inside one stage.
+call of the list above, each hot-path entry one of its own
+(``hotpath.<entry>``) and each integer scatter-add one
+(``state.scatter_sum``). Every operation of the tick lies inside one stage.
 ``engine.init`` spans the making of an initial state.
 
 The engine keeps its compiled ticks in ``_compiled``, as the reference keeps

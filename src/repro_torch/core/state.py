@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core import floatops
 from repro_torch.core.config import NUM_TIERS, LaminarConfig
+from repro_torch.core.spans import span
 
 # ---------------------------------------------------------------------------
 # probe (DA) state machine codes
@@ -122,11 +123,30 @@ def count(mask: torch.Tensor) -> torch.Tensor:
     return torch.sum(mask, dtype=torch.int32)
 
 
+def scatter_sum(
+    rows: int, tgt: torch.Tensor, valid: torch.Tensor, upd: torch.Tensor
+) -> torch.Tensor:
+    """Integer scatter-add: ``out[tgt[i]] += upd[i]`` for each valid slot i,
+    ``out`` of ``(rows, *upd.shape[1:])`` zeros; ``tgt`` is read only where
+    ``valid``, and must lie in ``[0, rows)`` there.
+
+    Slot i that is not valid adds into a spare row of its own, ``rows + i``,
+    and the spare rows are cut off. So no two dropped slots share an address
+    of the scatter's atomics, and each row receives only the slots that add
+    into it: one spare row shared by all of them would serialise their adds
+    on that address (on an H100, ~50 us for 65 536 slots against ~7). Integer
+    adds give the same bits in any order, on any device, and a sum of
+    disjoint bit patterns is their OR.
+    """
+    with span("state.scatter_sum"):
+        spare = torch.arange(rows, rows + tgt.shape[0], device=tgt.device)
+        out = upd.new_zeros((rows + tgt.shape[0],) + tuple(upd.shape[1:]))
+        return out.index_add_(0, torch.where(valid, tgt, spare), upd)[:rows]
+
+
 def tier_counts(tier: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Count masked probes per tier -> (NUM_TIERS,) i32 scatter-add."""
-    tgt = torch.where(mask, tier, NUM_TIERS).long()
-    out = tgt.new_zeros(NUM_TIERS + 1, dtype=torch.int32)
-    return out.index_add_(0, tgt, mask.to(torch.int32))[:NUM_TIERS]
+    return scatter_sum(NUM_TIERS, tier, mask, mask.to(torch.int32))
 
 
 HIST_BUCKETS = 64

@@ -17,7 +17,7 @@ import torch
 from repro_torch.core import bitmap
 from repro_torch.core.config import LaminarConfig
 from repro_torch.core.draws import Draws
-from repro_torch.core.state import QUEUED, SimState
+from repro_torch.core.state import QUEUED, SimState, scatter_sum
 
 
 class NodeView(NamedTuple):
@@ -32,9 +32,7 @@ class NodeView(NamedTuple):
 def node_heat(cfg: LaminarConfig, s: SimState) -> torch.Tensor:
     """Heat = count of pending DAs in each node's arbitration queue."""
     queued = s.st == QUEUED
-    tgt = torch.where(queued, s.node, cfg.num_nodes).long()  # OOB -> dropped
-    h = s.st.new_zeros(cfg.num_nodes + 1)
-    return h.index_add_(0, tgt, queued.to(torch.int32))[:-1]
+    return scatter_sum(cfg.num_nodes, s.node, queued, queued.to(torch.int32))
 
 
 def build_view(cfg: LaminarConfig, s: SimState) -> NodeView:

@@ -142,6 +142,13 @@ def test_one_tick_holds_each_stage_once_in_order(case):
                     "hotpath.bitmap_fit_rounds"}
                    | ({"hotpath.survival_scan"} if case != "memory-off" else set()))
     assert "tick.admission/da.address/hotpath.utility_topk_address" in paths
+    # every scatter-add of the tick runs under one span, named in the stage table
+    scatter = {p.rsplit("/", 1)[0] for p in paths if p.endswith("/state.scatter_sum")}
+    assert scatter == ({"tick.completions/arbiter.completions", "tick.dissemination/zhaf.build_view",
+                        "tick.pending/arbiter.pending_stage", "tick.pending/arbiter.timeouts"}
+                       | ({"tick.survival/airlock.airlock_transitions"}
+                          if case != "memory-off" else set())
+                       | ({"tick.disruption/disrupt.apply"} if case == "storm" else set()))
 
 
 def _fingerprints():

@@ -7,7 +7,9 @@
     exactly equal on random bit planes;
   * ``state_from_numpy`` / ``state_to_numpy``: a lossless round trip of a
     JAX state;
-  * the engine's device rule: CUDA by default, raising without it.
+  * the engine's device rule: CUDA by default, raising without it;
+  * ``scatter_sum``: the spare-row sum bit for bit, and no hot row in any
+    scatter-add of a tick.
 """
 
 from __future__ import annotations
@@ -20,16 +22,18 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import jax_state_to_numpy, port_config
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import bitmap as jbitmap
 from repro.core import config as jconfig
 from repro.core import state as jstate
 from repro.workloads import SCENARIOS as J_SCENARIOS
+from repro_torch.analysis import trace_audit
 from repro_torch.core import bitmap as tbitmap
 from repro_torch.core import config as tconfig
 from repro_torch.core import state as tstate
 from repro_torch.core.draws import ArrayDraws, TorchDraws
-from repro_torch.core.engine import LaminarEngine
+from repro_torch.core.engine import LaminarEngine, make_step
 from repro_torch.workloads import SCENARIOS as T_SCENARIOS
 
 T = torch.from_numpy
@@ -228,6 +232,83 @@ def test_tier_counts():
         tstate.tier_counts(T(tier), T(mask)).numpy(),
         np.asarray(jstate.tier_counts(jnp.asarray(tier), jnp.asarray(mask))),
     )
+
+
+def _spare_row_sum(rows, tgt, valid, upd):
+    """The one-spare-row scatter-add: every dropped slot adds a zero into
+    row ``rows``, which is cut off."""
+    keep = valid.reshape(valid.shape + (1,) * (upd.dim() - 1))
+    acc = upd.new_zeros((rows + 1,) + tuple(upd.shape[1:]))
+    acc.index_add_(0, torch.where(valid, tgt, rows).long(), torch.where(keep, upd, 0))
+    return acc[:rows]
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["per_seed", "vmap"])
+@pytest.mark.parametrize("rows", [5, 64], ids=["narrow", "node_wide"])
+@pytest.mark.parametrize("words", [1, 2])
+def test_scatter_sum_equals_the_spare_row(words, rows, batched):
+    """``scatter_sum`` (a spare row of its own for each dropped slot) gives
+    the spare-row sum bit for bit: random int32 bit patterns, one- and
+    two-word rows, 5 and 64 output rows, masks, nodes of -1 and masked rows
+    whose node is -1; under ``torch.func.vmap`` over 3 seeds it equals the
+    per-seed calls."""
+    gen = torch.Generator().manual_seed(100 * words + rows)
+    B, P = 3, 512
+    bits = torch.randint(-(2**31), 2**31, (B, P, words), generator=gen,
+                         dtype=torch.int64).to(torch.int32)
+    if words == 1:
+        bits = bits[..., 0]
+    node = torch.randint(-1, rows, (B, P), generator=gen, dtype=torch.int32)
+    mask = torch.rand((B, P), generator=gen) < 0.6
+    valid = mask & (node >= 0)
+    assert (mask & (node < 0)).any() and (~mask & (node >= 0)).any()
+    want = torch.stack([_spare_row_sum(rows, node[i], valid[i], bits[i]) for i in range(B)])
+    per_seed = torch.stack([tstate.scatter_sum(rows, node[i], valid[i], bits[i])
+                            for i in range(B)])
+    got = per_seed
+    if batched:
+        got = torch.func.vmap(lambda t, v, u: tstate.scatter_sum(rows, t, v, u))(node, valid, bits)
+        assert torch.equal(got, per_seed)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+class _ZeroRowsAtOneIndex(TorchDispatchMode):
+    """For each ``index_add_`` dispatched while active: the rows it adds
+    into, its slots, and the most slots whose update is all zeros that it
+    sends to one index."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket in (torch.ops.aten.index_add_, torch.ops.aten.index_add):
+            out, _, index, src = args[:4]
+            zero = (src.reshape(src.shape[0], -1) == 0).all(dim=1)
+            hits = torch.bincount(index[zero], minlength=out.shape[0])
+            self.calls.append((out.shape[0], index.shape[0], int(hits.max())))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("scenario", ["stationary", "storm"])
+def test_no_scatter_add_of_the_tick_has_a_hot_row(scenario):
+    """No ``index_add_`` of a tick sends more slots of zeros to one index
+    than ceil(P / R), R the rows it adds into: on the card such slots
+    serialise their atomics on that address. One tick with real values
+    (after 40 ticks) at the trace audit's geometry, 64 nodes and 256 slots.
+    The spare-row formulation fails this: its one spare row receives almost
+    every slot of most calls."""
+    cfg = dataclasses.replace(trace_audit.audit_config(), scenario=T_SCENARIOS[scenario])
+    eng = LaminarEngine(cfg, device="cpu")
+    s, lam = eng.init(0)
+    draws = eng.draws(lam, s.zstart.shape[0], 0)
+    s, _ = eng.simulate(s, draws, 40)
+    with _ZeroRowsAtOneIndex() as rec:
+        make_step(cfg)(s, draws.tick(40))
+    assert len(rec.calls) >= 14
+    hot = [(R, P, most) for R, P, most in rec.calls if most > -(-P // R)]
+    assert hot == []
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
