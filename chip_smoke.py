@@ -2772,37 +2772,47 @@ def phase12a(dev):
 
     graphs.update(phase12a_sharded(dev))
 
-    # lockstep seeds 0-3
-    cfg = exp5_config(True, full=True, ticks=BATCH_TICKS)
-    eng = LaminarEngine(cfg, device=dev)
+    # lockstep seeds 0-3, Airlock on and off (the kill branch under vmap)
     B, T = len(BATCH_SEEDS), BATCH_TICKS
-    sb, lam = eng.init_batch(BATCH_SEEDS)
+    for airlock in (True, False):
+        arm = "airlock" if airlock else "kernel-oom"
+        cfg = exp5_config(airlock, full=True, ticks=T)
+        eng = LaminarEngine(cfg, device=dev)
+        sb, lam = eng.init_batch(BATCH_SEEDS)
 
-    def batch_draws():
-        return BatchDraws([TorchDraws(cfg, lam, sb.zstart.shape[1], seed=sd, device=dev)
-                           for sd in BATCH_SEEDS])
+        def batch_draws():
+            return BatchDraws([TorchDraws(cfg, lam, sb.zstart.shape[1], seed=sd, device=dev)
+                               for sd in BATCH_SEEDS])
 
-    draws = batch_draws()
-    with watching() as runs:
-        (final, ts), launches, syncs, _, _ = counted(lambda: eng.simulate_batch(sb, draws, T),
-                                                     lockstep=True)
-    efinal, ets = eager_run(lockstep_step(cfg), sb, batch_draws(), T)
-    ets = ets.movedim(0, 1)
-    check(torch.equal(ts, ets), "[12 (a), lockstep] series differ")
-    for i, sd in enumerate(BATCH_SEEDS):
-        got = eng._summary(seed_state(final, i), ts[i].cpu().numpy(), lam, sd)
-        want = eng._summary(seed_state(efinal, i), ets[i].cpu().numpy(), lam, sd)
-        diff = int_differences(want, got) + state_differences(seed_state(efinal, i),
-                                                              seed_state(final, i))
-        check(not diff, f"[12 (a), lockstep seed {sd}] captured and eager differ in {diff}")
-    want = dict.fromkeys(launches, 0)
-    want.update(dict.fromkeys(BATCHED.values(), T))
-    check(launches == want and syncs == 0, f"[12 (a), lockstep] launches {launches}, "
-          f"{syncs} syncs")
-    graphs["lockstep, B = 4"] = graph_census(runs[0][0].graph)
-    print(f"phase 12 (a) [lockstep, seeds {BATCH_SEEDS}]: {T} ticks: captured == eager bit for "
-          f"bit, seed by seed; launches {dict((k, v) for k, v in launches.items() if v)}, "
-          f"{syncs} host syncs")
+        draws = batch_draws()
+        with watching() as runs:
+            (final, ts), launches, syncs, _, _ = counted(
+                lambda: eng.simulate_batch(sb, draws, T), lockstep=True)
+        efinal, ets = eager_run(lockstep_step(cfg), sb, batch_draws(), T)
+        ets = ets.movedim(0, 1)
+        check(torch.equal(ts, ets), f"[12 (a), lockstep Exp5, {arm}] series differ")
+        outs = []
+        for i, sd in enumerate(BATCH_SEEDS):
+            got = eng._summary(seed_state(final, i), ts[i].cpu().numpy(), lam, sd)
+            want = eng._summary(seed_state(efinal, i), ets[i].cpu().numpy(), lam, sd)
+            diff = int_differences(want, got) + state_differences(seed_state(efinal, i),
+                                                                  seed_state(final, i))
+            check(not diff, f"[12 (a), lockstep Exp5, {arm}, seed {sd}] captured and eager "
+                  f"differ in {diff}")
+            outs.append(got)
+        want = dict.fromkeys(launches, 0)
+        want.update(dict.fromkeys(BATCHED.values(), T))
+        check(launches == want and syncs == 0, f"[12 (a), lockstep Exp5, {arm}] launches "
+              f"{launches}, {syncs} syncs")
+        kills = [o["oom_kill_l"] + o["oom_kill_f"] for o in outs]
+        suspended = [o["suspended_cnt"] for o in outs]
+        if not airlock:
+            check(min(kills) > 0 and max(suspended) == 0,
+                  f"[12 (a), lockstep Exp5, {arm}] kills {kills}, suspended {suspended}")
+        graphs[f"lockstep Exp5, {arm}, B = {B}"] = graph_census(runs[0][0].graph)
+        print(f"phase 12 (a) [lockstep Exp5, {arm}, seeds {BATCH_SEEDS}]: {T} ticks, kills "
+              f"{kills} suspended {suspended}: captured == eager bit for bit, seed by seed; "
+              f"launches {dict((k, v) for k, v in launches.items() if v)}, {syncs} host syncs")
 
     # the baselines at Exp1's geometry
     bcfg, ecfg = BaselineConfig(), exp1_config()

@@ -115,10 +115,12 @@ def _tick_case(case):
         cfg = dataclasses.replace(cfg, scenario=SCENARIOS["storm"])
     elif case == "memory-off":
         cfg = dataclasses.replace(cfg, airlock=False, memory=MemoryConfig(enabled=False))
+    elif case == "kernel-oom":
+        cfg = dataclasses.replace(cfg, airlock=False)
     return cfg
 
 
-@pytest.mark.parametrize("case", ["flat", "lockstep", "storm", "memory-off"])
+@pytest.mark.parametrize("case", ["flat", "lockstep", "storm", "memory-off", "kernel-oom"])
 def test_one_tick_holds_each_stage_once_in_order(case):
     cfg = _tick_case(case)
     eng = LaminarEngine(cfg, device="cpu")
@@ -142,13 +144,16 @@ def test_one_tick_holds_each_stage_once_in_order(case):
                     "hotpath.bitmap_fit_rounds"}
                    | ({"hotpath.survival_scan"} if case != "memory-off" else set()))
     assert "tick.admission/da.address/hotpath.utility_topk_address" in paths
-    # every scatter-add of the tick runs under one span, named in the stage table
+    # every scatter-add of the tick runs under one span, named in the stage table;
+    # with Airlock off the kill branch's two lie under runtime control
     scatter = {p.rsplit("/", 1)[0] for p in paths if p.endswith("/state.scatter_sum")}
+    survival = {"memory-off": set(), "kernel-oom": {"tick.survival/airlock.runtime_control"}}
     assert scatter == ({"tick.completions/arbiter.completions", "tick.dissemination/zhaf.build_view",
                         "tick.pending/arbiter.pending_stage", "tick.pending/arbiter.timeouts"}
-                       | ({"tick.survival/airlock.airlock_transitions"}
-                          if case != "memory-off" else set())
+                       | survival.get(case, {"tick.survival/airlock.airlock_transitions"})
                        | ({"tick.disruption/disrupt.apply"} if case == "storm" else set()))
+    if case == "kernel-oom":
+        assert paths.count("tick.survival/airlock.runtime_control/state.scatter_sum") == 2
 
 
 def _fingerprints():
