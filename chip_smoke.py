@@ -48,7 +48,12 @@ and no result line:
      node -1, empty zones, migrating probes that Fast-Fail, bounces into
      another zone, stale reports, no projection, K = 5), every output
      bit-equal on every input, a mismatched slot printed with its score
-     gap;
+     gap; ``node_view`` (the tick's true node view in one launch) on the
+     words of the flat engine's own tick at Exp5 and Exp7, timed against
+     its plain version (the unpack, sum and max-run chain it replaced), and
+     at its corners (``view_edge_cases``: all free, none free, runs across
+     atoms 31/32 and to the top atom, alternating atoms, bits past 48 and
+     80 atoms), bit-equal;
   2b. every launch under its checked plan: each kernel's compiled attributes
      (``<name>_attrs``: static shared memory, registers, maxThreadsPerBlock)
      against every plan of phase 2's shapes (static shared memory as
@@ -71,8 +76,8 @@ and no result line:
      65 536 probe slots, memory dynamics on), Airlock off then on, 800
      ticks each, through ``simulate`` (the compiled run: the tick captured
      once as a CUDA graph and replayed); check the launch counts (one
-     ``bitmap_fit_rounds``, one ``utility_topk_address`` and one
-     ``zone_aggregate_members`` a tick; no one-round ``bitmap_fit`` and no
+     ``node_view``, one ``bitmap_fit_rounds``, one ``utility_topk_address``
+     and one ``zone_aggregate_members`` a tick; no one-round ``bitmap_fit`` and no
      tile ``utility_topk`` or ``zone_aggregate``), the task-conservation
      identity and the host syncs;
   4. run 64-node configs on the CPU (plain versions) and on the card
@@ -212,8 +217,8 @@ and no result line:
      cluster_survival (Airlock off and on, 2400 ticks each): the printed
      text equals each module's ``report``, every printed number finite,
      task conservation, L-task OOM kills 0 with Airlock on, and in each
-     run's captured graph the tick kernels (all four with memory on, the
-     three others with it off), their launches its kernel nodes times its
+     run's captured graph the tick kernels (all five with memory on, the
+     four others with it off), their launches its kernel nodes times its
      replays; the serve example at its defaults (its stats line); the
      train example at ``TRAIN_EXAMPLE_STEPS`` steps (cut from 200) into a
      temporary folder (finite losses, its lines); the engine smoke (two runs
@@ -282,6 +287,7 @@ REPLACES = {
     "zone_aggregate": "src/repro/kernels/zone_aggregate/kernel.py:47",
     "zone_aggregate_members": "src/repro/kernels/zone_aggregate/kernel.py:47",  # redesigned
     "survival_scan": "src/repro/kernels/survival_scan/kernel.py:241",
+    "node_view": "none (src/repro/core/zhaf.py:49, plain jnp)",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["bitmap_fit_blocked"] = "src/repro_torch/csrc/bitmap_fit.cu"  # same kernel
@@ -292,7 +298,7 @@ SOURCES["zone_aggregate_members"] = "src/repro_torch/csrc/zone_aggregate.cu"  # 
 # the entries whose outputs must equal the plain version's bit for bit, the
 # floats included (the others' float outputs: rtol 1e-5)
 EXACT = ("survival_scan", "utility_topk_address", "survival_scan_batched",
-         "utility_topk_address_batched")
+         "utility_topk_address_batched", "node_view", "node_view_batched")
 # phase 11: the lockstep engine at Exp5 (benchmarks/common.py run_seeds runs
 # four seeds a batch)
 BATCH_SEEDS = [0, 1, 2, 3]
@@ -524,6 +530,15 @@ def survival_work(args):
     return P * (7 * 4 + 1) + N * 4 + 4 + N * 4 + 4 * P, P * 40 + N * 10
 
 
+def view_work(args):
+    """(bytes, operations) of node_view, fixed by its shapes: every word read
+    once, the two counts of each row written once; about twenty integer
+    operations a word."""
+    words = args[0]
+    rows = words.numel() // words.shape[-1]
+    return 4 * words.numel() + 8 * rows, 20 * words.numel()
+
+
 def work(name, case, want):
     """(bytes, operations) a kernel entry must move and do on a case: from
     the case where its shapes fix them, else from the data."""
@@ -537,6 +552,8 @@ def work(name, case, want):
         return rounds_blocked_work(case[0], case[1], want)
     if name == "utility_topk_address":
         return address_work(case[0], case[1], want)
+    if name == "node_view":
+        return view_work(case[0])
     return members_work(case[0], case[1])
 
 
@@ -638,6 +655,7 @@ def phase2(dev, geometries):
         bitmap_fit_rounds_blocked_ref,
         bitmap_fit_rounds_ref,
     )
+    from repro_torch.kernels.node_view import node_view_ref
     from repro_torch.kernels.survival_scan import survival_scan_ref
     from repro_torch.kernel_bench import address_edge_cases, address_inputs, address_kw
     from repro_torch.kernels.utility_topk import utility_topk_address_ref, utility_topk_ref
@@ -650,7 +668,7 @@ def phase2(dev, geometries):
             "utility_topk_address": utility_topk_address_ref,
             "zone_aggregate": zone_aggregate_ref,
             "zone_aggregate_members": zone_aggregate_members_ref,
-            "survival_scan": survival_scan_ref}
+            "survival_scan": survival_scan_ref, "node_view": node_view_ref}
     # ragged small shape first: tails that are no multiple of a block
     ragged = kernel_cases(N=37, P=1029, K=8, Z=3, M=13, W=2, seed=1)
     member, mask = densify_zones(np.array([0, 13, 20], np.int32), np.array([13, 7, 10], np.int32))
@@ -665,6 +683,9 @@ def phase2(dev, geometries):
     ragged["utility_topk_address"] = (address_inputs(37, 1029, 8, 3, seed=1, addressing=0.3),
                                       address_kw(), None, None)
     ragged["zone_aggregate_members"] = members_case(member, mask, seed=1, t=40)
+    from repro_torch.kernel_bench import view_edge_cases, view_inputs
+
+    ragged["node_view"] = (*view_inputs(37, 2, 61, seed=1), None, None)
     checked = {"ragged": {}}
     for name, case in ragged.items():
         checked["ragged"][name] = (case, check_kernel(name, WRAPPERS[name], refs[name], case, dev)[1])
@@ -729,11 +750,18 @@ def phase2(dev, geometries):
         checked[f"address {cname}"] = {"utility_topk_address": (case, want)}
     print(f"phase 2: utility_topk_address edge cases ({', '.join(address_edge_cases())}): "
           "bit-equal to the plain version on every output")
+    for cname, (args, kw) in view_edge_cases().items():
+        case = (args, kw, None, None)
+        want = check_kernel("node_view", WRAPPERS["node_view"], node_view_ref, case, dev)[1]
+        checked[f"view {cname}"] = {"node_view": (case, want)}
+    print(f"phase 2: node_view edge cases ({', '.join(view_edge_cases())}): bit-equal to the "
+          "plain version")
     rows = {}
     from repro_torch.core.state import ADDRESSING
     from repro_torch.profile_tick import print_traffic, rounds_traffic, tick_calls
 
-    recorded = ("bitmap_fit_rounds", "utility_topk_address", "zone_aggregate_members")
+    recorded = ("bitmap_fit_rounds", "utility_topk_address", "zone_aggregate_members",
+                "node_view")
     for seed, (label, (geometry, zones, (cfg, tick))) in enumerate(geometries.items(), start=2):
         cases = kernel_cases(**geometry, seed=seed)
         cases["bitmap_fit_blocked"] = blocked_case(*zones, W=geometry["W"], seed=seed)
@@ -887,6 +915,7 @@ def phase2b(dev, checked):
     from repro_torch.kernels.block_copy import block_copy, block_copy_ref
     from repro_torch.kernels.block_copy import ops as copy_ops
     from repro_torch.kernels.block_copy import plan as copy_plan
+    from repro_torch.kernels.node_view import plan as view_plan
     from repro_torch.kernels.survival_scan import ops as surv_ops
     from repro_torch.kernels.survival_scan import plan as surv_plan
     from repro_torch.kernels.utility_topk import plan as topk_plan
@@ -894,7 +923,7 @@ def phase2b(dev, checked):
 
     # -- compiled attributes against every plan ------------------------------
     attrs = {}
-    for mod in (bitmap_plan, topk_plan, agg_plan, surv_plan, copy_plan):
+    for mod in (bitmap_plan, topk_plan, agg_plan, surv_plan, copy_plan, view_plan):
         name = mod.__name__.split(".")[-2]  # the package, named as its source
         for k, kernel in enumerate(mod.KERNELS):
             attrs[kernel] = a = _build.attrs(name, k)
@@ -1149,16 +1178,17 @@ def drive(eng, s, draws, ticks):
 def want_launches(cfg, ticks, sharded):
     """The flat tick runs its rounds as one bitmap_fit_rounds, the sharded
     tick as one bitmap_fit_rounds_blocked; the one-round bitmap_fit and
-    bitmap_fit_blocked on none. Both ticks address with one
-    utility_topk_address and refresh with one zone_aggregate_members; the
-    tile entries utility_topk and zone_aggregate run on none."""
+    bitmap_fit_blocked on none. Both ticks build the node view with one
+    node_view, address with one utility_topk_address and refresh with one
+    zone_aggregate_members; the tile entries utility_topk and zone_aggregate
+    run on none."""
     from repro_torch.kernels import BATCHED
 
     return {"bitmap_fit": 0, "bitmap_fit_blocked": 0,
             "bitmap_fit_rounds": 0 if sharded else ticks,
             "bitmap_fit_rounds_blocked": ticks if sharded else 0, "utility_topk": 0,
             "utility_topk_address": ticks, "zone_aggregate": 0, "zone_aggregate_members": ticks,
-            "survival_scan": ticks if cfg.memory.enabled else 0,
+            "survival_scan": ticks if cfg.memory.enabled else 0, "node_view": ticks,
             **dict.fromkeys(BATCHED.values(), 0)}
 
 
@@ -2544,6 +2574,7 @@ def phase11c(dev, rows, launches):
     from repro_torch.kernels import BATCHED, WRAPPERS
     from repro_torch.kernels.bitmap_fit import bitmap_fit_rounds_batched_ref
     from repro_torch.kernels.bitmap_fit import ops as bitmap_ops
+    from repro_torch.kernels.node_view import node_view_batched_ref
     from repro_torch.kernels.survival_scan import ops as surv_ops
     from repro_torch.kernels.survival_scan import survival_scan_batched_ref
     from repro_torch.kernels.utility_topk import utility_topk_address_batched_ref
@@ -2558,7 +2589,8 @@ def phase11c(dev, rows, launches):
     refs = {"bitmap_fit_rounds_batched": bitmap_fit_rounds_batched_ref,
             "utility_topk_address_batched": utility_topk_address_batched_ref,
             "zone_aggregate_members_batched": zone_aggregate_members_batched_ref,
-            "survival_scan_batched": survival_scan_batched_ref}
+            "survival_scan_batched": survival_scan_batched_ref,
+            "node_view_batched": node_view_batched_ref}
     cfg = exp5_config(True, full=True)
     calls = batch_tick_calls(cfg, BATCH_SEEDS, WARMUP_TICKS, 1, tuple(refs), device=dev)
     per = {}
@@ -2951,7 +2983,7 @@ def phase12b(graphs):
             sharded = tag.startswith("sharded")
             rounds = "bitmap_fit_rounds_blocked" if sharded else "bitmap_fit_rounds"
             want = {rounds: 1, "utility_topk_address": 1, "zone_aggregate_members": 1,
-                    "survival_scan": 1}
+                    "survival_scan": 1, "node_view": 1}
         check(entries == want, f"[12 (b), {tag}] hand-written kernel nodes {entries} != {want}")
         check(c["host_memcpy"] == 0, f"[12 (b), {tag}] {c['host_memcpy']} memcpy nodes touch "
               f"host memory")
@@ -3083,7 +3115,7 @@ SCRIPTS = {
 }
 TRAIN_EXAMPLE_STEPS = 20  # cut from the example's 200 for the script's time limit
 TICK_KERNELS = ("bitmap_fit_rounds", "utility_topk_address", "zone_aggregate_members",
-                "survival_scan")
+                "survival_scan", "node_view")
 NON_FINITE = re.compile(r"(?<![\w.])[-+]?(nan|inf)(?![\w.])", re.IGNORECASE)
 
 
@@ -3142,7 +3174,7 @@ def script_run(name: str, argv, card: str):
 
 def check_tick_launches(name, per_run, ticks, memory):
     """Each compiled run launched the tick kernels once a tick:
-    survival_scan only with memory on, the other three always."""
+    survival_scan only with memory on, the other four always."""
     for i, launches in enumerate(per_run):
         for entry in TICK_KERNELS:
             want = ticks if memory or entry != "survival_scan" else 0

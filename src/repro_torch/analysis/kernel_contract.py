@@ -22,7 +22,7 @@ cell), and checks, per launch and operand:
   * LC304 — the plan's outputs have the shapes and dtypes of the ``_ref``
     twin's outputs on the CPU.
 
-The four batched entries of the lockstep tick are checked at ``SEEDS``
+The five batched entries of the lockstep tick are checked at ``SEEDS``
 seeds: their operands are one seed's, so coverage and bounds are those of
 the unbatched plan, and their outputs carry the seed axis.
 
@@ -252,6 +252,7 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
         bitmap_fit_rounds_blocked_ref,
         bitmap_fit_rounds_ref,
     )
+    from repro_torch.kernels.node_view import node_view_batched_ref, node_view_ref
     from repro_torch.kernels.survival_scan import survival_scan_batched_ref, survival_scan_ref
     from repro_torch.kernels.utility_topk import (
         utility_topk_address_batched_ref,
@@ -315,6 +316,8 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
         ("zone_aggregate_members_batched", seeds(members), dict(every=20),
          zone_aggregate_members_batched_ref),
         ("survival_scan_batched", seeds(cols), surv_kw, survival_scan_batched_ref),
+        ("node_view", (z((N, W), i32),), dict(atoms=A), node_view_ref),
+        ("node_view_batched", seeds((z((N, W), i32),)), dict(atoms=A), node_view_batched_ref),
     ]
 
 

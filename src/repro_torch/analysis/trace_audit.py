@@ -407,6 +407,7 @@ def _hotpath_cases(cfg: LaminarConfig, s: Any):
         ("zone_aggregate_members", hotpath.zone_aggregate_members,
          (s.rep_S, s.rep_H, s.zmember, s.zmask, s.t, s.zS, s.zH)),
         ("survival_scan", hotpath.survival_scan, (cfg, s)),
+        ("node_view", hotpath.node_view, (cfg, s.free)),
         ("survival_scan[kernel OOM]", hotpath.survival_scan,
          (dataclasses.replace(cfg, airlock=False), s)),
     ]

@@ -1,6 +1,6 @@
 """Hot-path kernel dispatch, a port of ``repro.core.hotpath``.
 
-The four measured control-plane operations go through this module:
+The five measured control-plane operations go through this module:
 bitmap feasibility (``arbiter``: ``bitmap_fit_rounds``, every arbitration
 round of the flat tick in one launch; ``bitmap_fit_rounds_blocked``, the
 same on a rank's zone block of the sharded engine; ``bitmap_fit`` and
@@ -8,18 +8,20 @@ same on a rank's zone block of the sharded engine; ``bitmap_fit`` and
 scoring + candidate argmax (``da``: ``utility_topk_address``, the whole
 addressing step in one launch; ``utility_topk`` on scored tiles), zone
 aggregation (``teg``: ``zone_aggregate_members``, the whole refresh in one
-launch; ``zone_aggregate`` on gathered tiles) and the fused Airlock
-survival scan (``engine``). Each forwards to its kernel package, whose
+launch; ``zone_aggregate`` on gathered tiles), the fused Airlock
+survival scan (``engine``) and the true node view (``zhaf.build_view``:
+``node_view``, each node's free atoms and longest free run from its words
+in one launch). Each forwards to its kernel package, whose
 wrapper dispatches by device: a CUDA tensor launches the hand-written
 Hopper kernel (or the wrapper raises), a CPU tensor takes the plain
 PyTorch version. There is no configuration switch and no fallback from
 one to the other.
 
-The four entries the flat tick calls go through their custom ops
+The five entries the flat tick calls go through their custom ops
 (``repro_torch::<entry>``, ``kernels.batching``): outside ``vmap`` the op
 is the wrapper; under the lockstep engine's ``torch.func.vmap`` over a seed
 axis it is ONE call of the entry's batched twin (one launch for all seeds
-on CUDA, the plain version seed by seed on the CPU). Each of the four is a
+on CUDA, the plain version seed by seed on the CPU). Each of the five is a
 span, ``hotpath.<entry>`` (``core.spans``).
 """
 
@@ -31,6 +33,7 @@ from repro_torch.core import state as _state
 from repro_torch.core.config import LaminarConfig
 from repro_torch.core.spans import span
 from repro_torch.kernels.bitmap_fit import ops as _bitmap_ops
+from repro_torch.kernels.node_view import ops as _view_ops
 from repro_torch.kernels.survival_scan import ops as _surv_ops
 from repro_torch.kernels.survival_scan import ref as _surv_ref
 from repro_torch.kernels.utility_topk import ops as _topk_ops
@@ -41,6 +44,7 @@ __all__ = [
     "bitmap_fit_blocked",
     "bitmap_fit_rounds",
     "bitmap_fit_rounds_blocked",
+    "node_view",
     "survival_scan",
     "utility_topk",
     "utility_topk_address",
@@ -103,6 +107,14 @@ def bitmap_fit_rounds_blocked(cfg: LaminarConfig, s, throttled: torch.Tensor,
         s.st, s.node, s.ev, s.mass, s.contig, s.free, throttled, member, mask, local,
         rounds=cfg.arb_rounds, atoms=cfg.atoms_per_node, policy=cfg.alloc_policy,
     )
+
+
+def node_view(cfg: LaminarConfig, words: torch.Tensor):
+    """Each row's free atoms and longest run of free atoms, float32
+    ``(rows,)``, of the ``(rows, W)`` words (``cfg.atoms_per_node`` atoms a
+    row): the true node view's ``s_true`` and ``run_true``."""
+    with span("hotpath.node_view"):
+        return _view_ops.node_view_op(words, atoms=cfg.atoms_per_node)
 
 
 def utility_topk(

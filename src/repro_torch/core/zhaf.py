@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import bitmap
+from repro_torch.core import hotpath
 from repro_torch.core.config import LaminarConfig
 from repro_torch.core.draws import Draws
 from repro_torch.core.state import QUEUED, SimState, scatter_sum
@@ -23,7 +23,7 @@ from repro_torch.core.state import QUEUED, SimState, scatter_sum
 class NodeView(NamedTuple):
     """True node state, computed once per tick and shared by all subsystems."""
 
-    bits: torch.Tensor | None  # (N, A) free-atom bit plane; None in mesh mode
+    bits: torch.Tensor | None  # the JAX package's (N, A) bit plane; None here: no stage reads it
     s_true: torch.Tensor  # (N,) free atoms
     h_true: torch.Tensor  # (N,) pending DA count (Heat)
     run_true: torch.Tensor  # (N,) longest contiguous free run
@@ -36,11 +36,11 @@ def node_heat(cfg: LaminarConfig, s: SimState) -> torch.Tensor:
 
 
 def build_view(cfg: LaminarConfig, s: SimState) -> NodeView:
-    bits = bitmap.unpack_bits(s.free, cfg.atoms_per_node)
-    s_true = torch.sum(bits, dim=-1).to(torch.float32)
-    run_true = bitmap.max_run(bits).to(torch.float32)
+    """The free atoms and longest free run of each node from its words, one
+    ``node_view`` launch, and its Heat."""
+    s_true, run_true = hotpath.node_view(cfg, s.free)
     h_true = node_heat(cfg, s).to(torch.float32)
-    return NodeView(bits, s_true, h_true, run_true)
+    return NodeView(None, s_true, h_true, run_true)
 
 
 def report(cfg: LaminarConfig, s: SimState, d: Draws, view: NodeView) -> SimState:

@@ -412,9 +412,69 @@ def members_inputs(N: int, Z: int, seed: int = 0, t: int | None = 40,
                    *(torch.from_numpy(rng.uniform(0, 64, Z).astype(np.float32)) for _ in "SH"))
 
 
+def pack_rows(bits: np.ndarray) -> torch.Tensor:
+    """(n, 32 W) bool rows -> (n, W) int32 words, bit k of word w atom 32 w + k."""
+    n, A = bits.shape
+    pos = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    words = (bits.reshape(n, A // 32, 32).astype(np.uint64) * pos).sum(-1)
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32))
+
+
+def view_inputs(N: int, W: int = 2, atoms: int | None = None, seed: int = 0) -> tuple:
+    """``node_view`` inputs (CPU tensors) and keywords at one shape: rows of
+    every free density from a few free atoms to almost all (so runs of every
+    length, across word boundaries too), a tenth of the rows all free and a
+    tenth none; ``atoms`` (default ``32 W``) atoms a row, the bits past
+    them random."""
+    rng = np.random.default_rng(seed)
+    atoms = 32 * W if atoms is None else atoms
+    bits = rng.uniform(size=(N, 32 * W)) < rng.uniform(0.05, 0.99, (N, 1))
+    kind = rng.uniform(size=N)
+    bits[kind < 0.1] = True
+    bits[(kind >= 0.1) & (kind < 0.2)] = False
+    bits[:, atoms:] = rng.uniform(size=(N, 32 * W - atoms)) < 0.5
+    return (pack_rows(bits),), dict(atoms=atoms)
+
+
+def view_edge_cases(seed: int = 0) -> dict:
+    """``node_view`` inputs (CPU tensors) at its corners, by name: every atom
+    free, none free, one run across atoms 31 and 32, a run that ends at the
+    top atom, alternating atoms, random words, and 48 or 80 atoms in 2 or 3
+    words with random bits past them."""
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def rows(n, W):
+        return np.zeros((n, 32 * W), bool)
+
+    out["all_free"] = (~rows(5, 2), 64)
+    out["none_free"] = (rows(5, 2), 64)
+    b = rows(32, 2)
+    for i in range(32):  # [31 - i, 33 + i % 3): across the word boundary
+        b[i, 31 - i: 33 + i % 3] = True
+    out["across_31_32"] = (b, 64)
+    b = rows(64, 2)
+    for i in range(64):  # [i, 64) with a hole below it
+        b[i, i:] = True
+        b[i, : max(i - 1, 0)] = rng.uniform(size=max(i - 1, 0)) < 0.5
+    out["to_the_top"] = (b, 64)
+    b = rows(2, 2)
+    b[0, 0::2] = b[1, 1::2] = True
+    out["alternating"] = (b, 64)
+    out["random"] = (rng.uniform(size=(300, 64)) < 0.5, 64)
+    b = rng.uniform(size=(64, 64)) < 0.5
+    b[:32, 16:48] = True  # runs reaching atom 47 and the garbage past it
+    b[:, 48:] = rng.uniform(size=(64, 16)) < 0.9
+    out["garbage_past_48"] = (b, 48)
+    b = rng.uniform(size=(64, 96)) < 0.7
+    b[:16] = True
+    out["three_words_80"] = (b, 80)
+    return {name: ((pack_rows(b),), dict(atoms=a)) for name, (b, a) in out.items()}
+
+
 def batched_inputs(B: int, N: int = 37, P: int = 1029, K: int = 8, Z: int = 3, W: int = 2,
                    seed: int = 0, airlock: bool = True) -> dict:
-    """The four batched entries' inputs (CPU tensors with a leading axis of
+    """The five batched entries' inputs (CPU tensors with a leading axis of
     B seeds, seed ``b`` drawn from ``seed + b``), at one shape: entry ->
     (args, kw). The ticks differ by seed (40, 41, ...: a refresh tick of
     ``every = 20`` and others)."""
@@ -435,6 +495,7 @@ def batched_inputs(B: int, N: int = 37, P: int = 1029, K: int = 8, Z: int = 3, W
             for b in range(B)]),
         "survival_scan_batched": stack([(inputs(N, P, seed + b, "cpu"), surv_kw)
                                         for b in range(B)]),
+        "node_view_batched": stack([view_inputs(N, W, seed=seed + b) for b in range(B)]),
     }
 
 
@@ -621,6 +682,7 @@ TICK_KERNELS = {
     "utility_topk_address_kernel": ("utility_topk_address", "utility_topk_address_batched"),
     "zone_aggregate_kernel": ("zone_aggregate_members", "zone_aggregate_members_batched"),
     "survival_cluster_kernel": ("survival_scan", "survival_scan_batched"),
+    "node_view_kernel": ("node_view", "node_view_batched"),
 }
 # the other hand-written kernels: on no tick
 OTHER_KERNELS = ("bitmap_fit_kernel", "utility_topk_kernel", "block_copy_kernel")

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the four control-plane hot spots.
+"""Hand-written Hopper kernels for the control-plane hot spots.
 
 Each package ships ``ref.py`` (the plain PyTorch version, a port of the JAX
 package's ``ref.py``), ``plan.py`` (the launch plan: grid, block, shared
@@ -17,13 +17,16 @@ launches in ``<wrapper>.launches``.
   * ``zone_aggregate``— per-zone mean slack / total heat (and
     ``zone_aggregate_members``, the whole TEG refresh in one launch)
   * ``survival_scan`` — fused Airlock survival decision
+  * ``node_view``     — each node's free atoms and longest free run from its
+    packed words: the tick's true node view (replaces no TPU kernel; the
+    JAX package builds the view in plain jnp)
   * ``block_copy``    — a float32 block copy under any plan: the port of the
     static analyzer's known-bad fixture kernels, on no main path
 
-The four entries of the flat tick (``bitmap_fit_rounds``,
-``utility_topk_address``, ``zone_aggregate_members``, ``survival_scan``)
-each have a ``<entry>_batched`` twin over a leading seed axis, one launch
-for all seeds, and a custom op ``repro_torch::<entry>`` that
+The five entries of the flat tick (``bitmap_fit_rounds``,
+``utility_topk_address``, ``zone_aggregate_members``, ``survival_scan``,
+``node_view``) each have a ``<entry>_batched`` twin over a leading seed
+axis, one launch for all seeds, and a custom op ``repro_torch::<entry>`` that
 ``torch.func.vmap`` maps onto the twin (``kernels.batching``): the
 lockstep engine's tick. The twin launches the entry's own kernel with a
 seed axis in its grid, under the entry's own plan builder and launcher
@@ -36,6 +39,8 @@ wrapper calls (``launch(plan, outs, *args, **kw)``).
 
 from repro_torch.kernels.bitmap_fit import ops as bitmap_fit
 from repro_torch.kernels.bitmap_fit import plan as _bitmap_plan
+from repro_torch.kernels.node_view import ops as node_view
+from repro_torch.kernels.node_view import plan as _view_plan
 from repro_torch.kernels.survival_scan import ops as survival_scan
 from repro_torch.kernels.survival_scan import plan as _surv_plan
 from repro_torch.kernels.utility_topk import ops as utility_topk
@@ -53,10 +58,12 @@ WRAPPERS = {
     "zone_aggregate": zone_aggregate.zone_aggregate,
     "zone_aggregate_members": zone_aggregate.zone_aggregate_members,
     "survival_scan": survival_scan.survival_scan,
+    "node_view": node_view.node_view,
     "bitmap_fit_rounds_batched": bitmap_fit.bitmap_fit_rounds_batched,
     "utility_topk_address_batched": utility_topk.utility_topk_address_batched,
     "zone_aggregate_members_batched": zone_aggregate.zone_aggregate_members_batched,
     "survival_scan_batched": survival_scan.survival_scan_batched,
+    "node_view_batched": node_view.node_view_batched,
 }
 PLANS = {
     "bitmap_fit": _bitmap_plan.for_call,
@@ -68,10 +75,12 @@ PLANS = {
     "zone_aggregate": _agg_plan.for_call,
     "zone_aggregate_members": _agg_plan.for_members_call,
     "survival_scan": _surv_plan.for_call,
+    "node_view": _view_plan.for_call,
     "bitmap_fit_rounds_batched": _bitmap_plan.for_rounds_call,
     "utility_topk_address_batched": _topk_plan.for_address_call,
     "zone_aggregate_members_batched": _agg_plan.for_members_call,
     "survival_scan_batched": _surv_plan.for_call,
+    "node_view_batched": _view_plan.for_call,
 }
 LAUNCHERS = {
     "bitmap_fit": bitmap_fit.launch,
@@ -83,13 +92,15 @@ LAUNCHERS = {
     "zone_aggregate": zone_aggregate.launch,
     "zone_aggregate_members": zone_aggregate.launch_members,
     "survival_scan": survival_scan.launch,
+    "node_view": node_view.launch,
     "bitmap_fit_rounds_batched": bitmap_fit.launch_rounds,
     "utility_topk_address_batched": utility_topk.launch_address,
     "zone_aggregate_members_batched": zone_aggregate.launch_members,
     "survival_scan_batched": survival_scan.launch,
+    "node_view_batched": node_view.launch,
 }
 # each flat-tick entry's batched twin (its custom op's batching rule)
 BATCHED = {name[: -len("_batched")]: name for name in WRAPPERS if name.endswith("_batched")}
 
-__all__ = ["BATCHED", "LAUNCHERS", "PLANS", "WRAPPERS", "bitmap_fit", "survival_scan", "utility_topk",
-           "zone_aggregate"]
+__all__ = ["BATCHED", "LAUNCHERS", "PLANS", "WRAPPERS", "bitmap_fit", "node_view", "survival_scan",
+           "utility_topk", "zone_aggregate"]

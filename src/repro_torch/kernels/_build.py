@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NAMES = ("bitmap_fit", "utility_topk", "zone_aggregate", "survival_scan", "block_copy")
+NAMES = ("bitmap_fit", "utility_topk", "zone_aggregate", "survival_scan", "block_copy",
+         "node_view")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

@@ -1,9 +1,9 @@
-"""The seed axis of the tick's four kernels, under ``torch.func.vmap``.
+"""The seed axis of the tick's five kernels, under ``torch.func.vmap``.
 
 The lockstep engine (``core.engine``: ``simulate_batch``) runs the tick
 under ``torch.func.vmap`` over a leading seed axis, as the JAX package's
 ``run_batch`` runs ``jax.vmap`` over its scan. ``vmap`` has no rule for a
-launch through ``ctypes``, so each of the four entries the flat tick calls
+launch through ``ctypes``, so each of the five entries the flat tick calls
 is a ``torch.library.custom_op`` (``repro_torch::<entry>``):
 
   * its kernel, on the CPU and on CUDA, is the entry's wrapper, which takes

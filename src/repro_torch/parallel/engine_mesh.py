@@ -6,10 +6,11 @@ and arbitration are in-zone or node-local), so the zone axis is the shard
 dimension. Each rank of a process group runs the same tick on its own
 device:
 
-  sharded     the O(N * A) node-bitmap pipeline (bit-plane unpack, max-run
-              scans, the arbitration rounds' election, feasibility and atom
-              allocation): each rank computes its block of ``ceil(Z / D)``
-              padded zone rows (``MeshPlane``), the rounds in one launch of
+  sharded     the O(N * A) node-bitmap pipeline (free counts and longest
+              free runs, the arbitration rounds' election, feasibility and
+              atom allocation): each rank computes its block of
+              ``ceil(Z / D)`` padded zone rows (``MeshPlane``), the view in
+              one launch of ``node_view``, the rounds in one of
               ``bitmap_fit_rounds_blocked`` and the zone sums in one of
               ``zone_aggregate_members``.
 
@@ -50,7 +51,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import arbiter, bitmap, hotpath, zhaf
+from repro_torch.core import arbiter, hotpath, zhaf
 from repro_torch.core.config import LaminarConfig
 from repro_torch.core.engine import TS_FIELDS, LaminarEngine, make_step
 from repro_torch.core.scan import scan
@@ -147,11 +148,10 @@ class MeshPlane:
 
     def build_view(self, cfg: LaminarConfig, s: SimState) -> zhaf.NodeView:
         """Blocked view build: the true free atoms and longest free run of
-        the local rows, gathered (a NodeView with ``bits=None``)."""
+        the local rows (one ``node_view`` launch, padding slots' words
+        zeroed), gathered (a NodeView with ``bits=None``)."""
         words_l = torch.where(self.valid_w, s.free[self.mem_l], 0).reshape(self.Zb * self.M, -1)
-        bits_l = bitmap.unpack_bits(words_l, cfg.atoms_per_node)
-        s_true_l = torch.sum(bits_l, dim=-1).to(torch.float32)
-        run_l = bitmap.max_run(bits_l).to(torch.float32)
+        s_true_l, run_l = hotpath.node_view(cfg, words_l)
         s_true = self._to_flat(s_true_l.reshape(self.Zb, self.M))
         run_true = self._to_flat(run_l.reshape(self.Zb, self.M))
         h_true = zhaf.node_heat(cfg, s).to(torch.float32)

@@ -52,7 +52,7 @@ EXP7_TICKS = 100  # bench_exp7_scale.py NUM_TICKS
 # the port's hand-written kernels, as the profiler names them
 HAND_WRITTEN = ("bitmap_fit_rounds_kernel", "bitmap_fit_rounds_blocked_kernel",
                 "bitmap_fit_kernel", "utility_topk_address_kernel", "utility_topk_kernel",
-                "zone_aggregate_kernel", "survival_cluster_kernel")
+                "zone_aggregate_kernel", "survival_cluster_kernel", "node_view_kernel")
 
 
 def exp5_config(airlock: bool, full: bool = True, ticks: int = 2400) -> LaminarConfig:

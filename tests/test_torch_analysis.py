@@ -203,6 +203,7 @@ def test_tick_set_covers_the_hot_path():
         ("arbiter.py", "_admissions"),
         ("hotpath.py", "utility_topk_address"),
         ("hotpath.py", "zone_aggregate_members"),
+        ("hotpath.py", "node_view"),
         ("ops.py", "launch"),
     ]:
         assert expect in traced, expect
@@ -219,9 +220,10 @@ def test_trace_records_every_hot_path_entry():
     kernels = [op.name for op in ops if op.name.startswith("kernel.")]
     # one launch each: the flat tick's arbitration rounds are one
     # bitmap_fit_rounds, its addressing step one utility_topk_address, its
-    # TEG refresh one zone_aggregate_members
-    assert sorted(kernels) == ["kernel.bitmap_fit_rounds", "kernel.survival_scan",
-                               "kernel.utility_topk_address", "kernel.zone_aggregate_members"]
+    # TEG refresh one zone_aggregate_members, its true node view one node_view
+    assert sorted(kernels) == ["kernel.bitmap_fit_rounds", "kernel.node_view",
+                               "kernel.survival_scan", "kernel.utility_topk_address",
+                               "kernel.zone_aggregate_members"]
     assert not any(op.sync for op in ops)
 
 

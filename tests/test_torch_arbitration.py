@@ -45,7 +45,7 @@ from _torch_parity import jax_staged_tick, jax_state_to_numpy, port_config
 from repro.core import LaminarConfig, LaminarEngine, MemoryConfig
 from repro.core import arbiter as jax_arbiter
 from repro.core import zhaf as jax_zhaf
-from repro_torch.core import arbiter, bitmap, zhaf
+from repro_torch.core import arbiter, bitmap
 from repro_torch.core import state as tstate
 from repro_torch.core.state import state_from_numpy, state_to_numpy
 from repro_torch.kernel_bench import (
@@ -168,7 +168,7 @@ def test_rounds_equal_sequential_rounds_at_corners(corners, name):
     _, cfg, s, _ = _case_state(args, kw, seed=len(name))
     throttled = args[6]
     seq = s
-    bits = zhaf.build_view(cfg, s).bits
+    bits = bitmap.unpack_bits(s.free, cfg.atoms_per_node)
     for _ in range(cfg.arb_rounds):
         seq, bits = arbiter.arbitrate(cfg, seq, throttled, bits)
     _assert_states_equal(arbiter.arbitrate_rounds(cfg, s, throttled), seq)
@@ -176,7 +176,7 @@ def test_rounds_equal_sequential_rounds_at_corners(corners, name):
     # round by round: the winners, feasibility and words of each call
     winner, feas, alloc, won, admit = bitmap_fit_rounds(*args, **kw)  # the CPU route
     cur = s._replace(migrating=torch.zeros_like(s.migrating))
-    bits = zhaf.build_view(cfg, cur).bits
+    bits = bitmap.unpack_bits(cur.free, cfg.atoms_per_node)
     for r in range(cfg.arb_rounds):
         elected, wslot = arbiter.elect(cur.st, cur.node, cur.ev, throttled)
         nxt, bits = arbiter.arbitrate(cfg, cur, throttled, bits)

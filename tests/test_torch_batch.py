@@ -38,6 +38,8 @@ from repro_torch.kernel_bench import batched_inputs
 from repro_torch.kernels import BATCHED, WRAPPERS
 from repro_torch.kernels.bitmap_fit import bitmap_fit_rounds_batched, bitmap_fit_rounds_batched_ref
 from repro_torch.kernels.bitmap_fit.ops import bitmap_fit_rounds_op
+from repro_torch.kernels.node_view import node_view_batched, node_view_batched_ref
+from repro_torch.kernels.node_view.ops import node_view_op
 from repro_torch.kernels.survival_scan import survival_scan_batched, survival_scan_batched_ref
 from repro_torch.kernels.survival_scan.ops import survival_scan_op
 from repro_torch.kernels.utility_topk import (
@@ -201,12 +203,14 @@ BATCHED_REFS = {
     "utility_topk_address_batched": utility_topk_address_batched_ref,
     "zone_aggregate_members_batched": zone_aggregate_members_batched_ref,
     "survival_scan_batched": survival_scan_batched_ref,
+    "node_view_batched": node_view_batched_ref,
 }
 OPS = {
     "bitmap_fit_rounds": bitmap_fit_rounds_op,
     "utility_topk_address": utility_topk_address_op,
     "zone_aggregate_members": zone_aggregate_members_op,
     "survival_scan": survival_scan_op,
+    "node_view": node_view_op,
 }
 
 
@@ -266,6 +270,7 @@ def test_batched_wrappers_count_no_cpu_launch():
     assert survival_scan_batched is WRAPPERS["survival_scan_batched"]
     assert utility_topk_address_batched is WRAPPERS["utility_topk_address_batched"]
     assert zone_aggregate_members_batched is WRAPPERS["zone_aggregate_members_batched"]
+    assert node_view_batched is WRAPPERS["node_view_batched"]
 
 
 def test_address_accumulators_are_a_region_a_stream_and_capture():

@@ -474,7 +474,7 @@ def test_flat_tick_launches_bitmap_fit_rounds_once(dev):
     draws = eng.draws(lam, s.zstart.shape[0], 0)
     _, launches = _run_launches(lambda: eng.simulate(s, draws, 30))
     assert launches == {"bitmap_fit_rounds": 30, "utility_topk_address": 30,
-                        "zone_aggregate_members": 30, "survival_scan": 30}
+                        "zone_aggregate_members": 30, "survival_scan": 30, "node_view": 30}
 
 
 @pytest.fixture
@@ -506,7 +506,7 @@ def test_sharded_tick_launches_bitmap_fit_rounds_blocked_once(dev, nccl1):
     mesh = ZoneShardedEngine(cfg, device=dev)
     got, launches = _run_launches(lambda: mesh.run(seed=0, num_ticks=30))
     assert launches == {"bitmap_fit_rounds_blocked": 30, "utility_topk_address": 30,
-                        "zone_aggregate_members": 30, "survival_scan": 30}
+                        "zone_aggregate_members": 30, "survival_scan": 30, "node_view": 30}
     want = LaminarEngine(cfg, device=dev).run(seed=0, num_ticks=30)
     for f in want["timeseries"]:
         np.testing.assert_array_equal(got["timeseries"][f], want["timeseries"][f], err_msg=f)
@@ -600,12 +600,13 @@ def test_compiled_attributes_match_plans(dev):
     from repro_torch.kernels import PLANS, _build
     from repro_torch.kernels.bitmap_fit import plan as bp
     from repro_torch.kernels.block_copy import plan as cp
+    from repro_torch.kernels.node_view import plan as vp
     from repro_torch.kernels.survival_scan import plan as sp
     from repro_torch.kernels.utility_topk import plan as tp
     from repro_torch.kernels.zone_aggregate import plan as ap
 
     attrs = {}
-    for mod in (bp, tp, ap, sp, cp):
+    for mod in (bp, tp, ap, sp, cp, vp):
         for k, kernel in enumerate(mod.KERNELS):
             attrs[kernel] = _build.attrs(mod.__name__.split(".")[-2], k)
     plans = [PLANS[name](*args, **kw) for geom in GEOMETRIES.values()
@@ -877,11 +878,11 @@ def test_train_cli_runs_on_the_card(dev, capsys, tmp_path):
 # ---------------------------------------------------------------------------
 
 BATCHED_ENTRIES = ("bitmap_fit_rounds_batched", "utility_topk_address_batched",
-                   "zone_aggregate_members_batched", "survival_scan_batched")
+                   "zone_aggregate_members_batched", "survival_scan_batched", "node_view_batched")
 # the entries whose float outputs the card rounds as the CPU does (the
 # others: the summation order of zone_aggregate, rtol 1e-5)
 BATCHED_EXACT = ("survival_scan_batched", "utility_topk_address_batched",
-                 "bitmap_fit_rounds_batched")
+                 "bitmap_fit_rounds_batched", "node_view_batched")
 
 
 def _batched_case(name, shape, airlock=True):
@@ -1174,7 +1175,7 @@ def test_captured_sharded_run_equals_make_step_by_hand(dev, nccl1, airlock):
     assert replays == 300
     assert tick_entries(census["names"], lockstep=False) == {
         "bitmap_fit_rounds_blocked": 1, "utility_topk_address": 1,
-        "zone_aggregate_members": 1, "survival_scan": 1}
+        "zone_aggregate_members": 1, "survival_scan": 1, "node_view": 1}
     assert census["host_memcpy"] == 0
 
 
@@ -1387,8 +1388,9 @@ def test_captured_mesh_step_equals_eager(dev, nccl1):
 
 def test_quickstart_example_launches_the_tick_kernels(dev, capsys):
     """``examples/torch_quickstart.py`` at its full 2000 ticks on the card:
-    its captured tick launches bitmap_fit_rounds, utility_topk_address and
-    zone_aggregate_members once a tick (memory is off: no survival_scan),
+    its captured tick launches bitmap_fit_rounds, utility_topk_address,
+    zone_aggregate_members and node_view once a tick (memory is off: no
+    survival_scan),
     and it prints its six lines."""
     import importlib.util
     from pathlib import Path
@@ -1399,7 +1401,8 @@ def test_quickstart_example_launches_the_tick_kernels(dev, capsys):
     spec.loader.exec_module(quickstart)
     out, launches = _run_launches(lambda: quickstart.main([]))
     ticks = quickstart.CFG.num_ticks
-    for entry in ("bitmap_fit_rounds", "utility_topk_address", "zone_aggregate_members"):
+    for entry in ("bitmap_fit_rounds", "utility_topk_address", "zone_aggregate_members",
+                  "node_view"):
         assert launches.get(entry) == ticks, launches
     assert launches.get("survival_scan", 0) == 0, launches
     assert out["started"] > 0 and len(capsys.readouterr().out.splitlines()) == 6

@@ -141,9 +141,10 @@ def test_one_tick_holds_each_stage_once_in_order(case):
     paths = _paths(rec)
     hot = {p.rsplit("/", 1)[-1] for p in paths if "hotpath." in p}
     assert hot == ({"hotpath.zone_aggregate_members", "hotpath.utility_topk_address",
-                    "hotpath.bitmap_fit_rounds"}
+                    "hotpath.bitmap_fit_rounds", "hotpath.node_view"}
                    | ({"hotpath.survival_scan"} if case != "memory-off" else set()))
     assert "tick.admission/da.address/hotpath.utility_topk_address" in paths
+    assert "tick.dissemination/zhaf.build_view/hotpath.node_view" in paths
     # every scatter-add of the tick runs under one span, named in the stage table;
     # with Airlock off the kill branch's two lie under runtime control
     scatter = {p.rsplit("/", 1)[0] for p in paths if p.endswith("/state.scatter_sum")}

@@ -115,7 +115,11 @@ def test_stage_matches_jax(staged, name):
         k: (zhaf.NodeView(*(_t(v) for v in val)) if k == "view" else _t(val))
         for k, val in extra.items()
     }
-    got = dict(_flatten(_port(tc, name, ts, d, ex)))
+    out = _port(tc, name, ts, d, ex)
+    if name == "build_view":  # the port's view holds no bit plane: no stage reads it
+        assert out.bits is None
+        out, want = out[1:], want[1:]
+    got = dict(_flatten(out))
     want = dict(_flatten(want))
     assert set(got) == set(want)
     for path, w in want.items():
