@@ -170,18 +170,20 @@ and no result line:
      launch counter reads 0 after it;
   11. the lockstep engine (``LaminarEngine.init_batch`` / ``run_batch``:
      the flat tick under ``torch.func.vmap``, each hot-path kernel one
-     launch of its batched entry for all seeds): (a) Exp5 at 5000 nodes /
-     65 536 slots, Airlock on, seeds 0 to 3, 200 ticks: the lockstep run on
-     the card equals the four sequential runs on the card (every integer
+     launch of its entry with the seed axis for all seeds): (a) Exp5 at
+     5000 nodes / 65 536 slots, Airlock on, seeds 0 to 3, 200 ticks: the
+     lockstep run on the card equals the four sequential runs on the card
+     (every integer
      metric and timeseries, seed by seed, from the same ``init_batch`` slice
-     and generators), each batched entry launched once a tick (the
-     unbatched ones never), 0 host syncs in the ticks; (b) the lockstep run
-     on the card equals the lockstep run on the CPU at phase 4's 64-node
-     geometry on one CPU generator's draws; (c) each batched entry on the
+     and generators), each entry's launch counter up by 200, once a tick,
+     not once a seed; 0 host syncs in the ticks; (b) the lockstep run on the
+     card equals the lockstep run on the CPU at phase 4's 64-node geometry
+     on one CPU generator's draws; (c) each entry with the seed axis on the
      inputs of the lockstep tick 200 (four seeds' states and draws) against
      its plain version seed by seed, with phase 2's exactness, its device
-     ms beside the bound (the seeds' bytes), under its plan in guard bands
-     as phase 2b, and the clusters the card holds at once; (d) seed-ticks/s
+     ms beside the bound (the seeds' bytes) in its table row, under its plan
+     in guard bands as phase 2b, and the clusters the card holds at once;
+     (d) seed-ticks/s
      of lockstep B = 1, 4, 8 and of sequential B = 4, and one profiled
      batched tick at B = 8 (aten ops, device kernels, device busy, host ms);
   12. the compiled run (``core.scan``: ``simulate``, ``simulate_batch`` and
@@ -199,7 +201,7 @@ and no result line:
      compiled tick each, 0 host syncs in 20 replays;
      (b) each captured tick's graph: its hand-written kernel nodes (named
      by ``cuFuncGetName``) hold each entry as often as a tick launches it,
-     the batched entries in the lockstep graph, the blocked rounds in the
+     once for all seeds in the lockstep graph, the blocked rounds in the
      sharded graph (its NCCL kernel nodes counted apart), the baselines'
      none; no
      memcpy node touches host memory; the runs make 0 host syncs; (c)
@@ -233,9 +235,10 @@ Every launch counter is set to 0 just before each run of phases 3, 5, 6, 7,
 captured graph's hand-written kernel nodes (``kernel_bench.graph_census``,
 named by ``cuFuncGetName``) times its replays: its wrappers run only at the
 warm-up and the capture; the zone-sharded run is compiled too (phases 5, 6,
-12). The table's ``launches`` sums the runs of phases 3, 5 and
-6 and, for the batched entries, phase 11 (a)'s lockstep run (0 for the
-three fixture rows, whose ``smoke_launches`` counts phase 2b's own).
+12). The table's ``launches`` sums the runs of phases 3, 5 and 6 and phase
+11 (a)'s lockstep run (0 for the three fixture rows, whose
+``smoke_launches`` counts phase 2b's own); an entry's ``seed_axis`` holds
+phase 11 (c)'s call with the seed axis.
 """
 
 from __future__ import annotations
@@ -289,16 +292,9 @@ REPLACES = {
     "survival_scan": "src/repro/kernels/survival_scan/kernel.py:241",
     "node_view": "none (src/repro/core/zhaf.py:49, plain jnp)",
 }
-SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
-SOURCES["bitmap_fit_blocked"] = "src/repro_torch/csrc/bitmap_fit.cu"  # same kernel
-SOURCES["bitmap_fit_rounds"] = "src/repro_torch/csrc/bitmap_fit.cu"  # same source
-SOURCES["bitmap_fit_rounds_blocked"] = "src/repro_torch/csrc/bitmap_fit.cu"  # same body
-SOURCES["utility_topk_address"] = "src/repro_torch/csrc/utility_topk.cu"  # same source
-SOURCES["zone_aggregate_members"] = "src/repro_torch/csrc/zone_aggregate.cu"  # same kernel
 # the entries whose outputs must equal the plain version's bit for bit, the
 # floats included (the others' float outputs: rtol 1e-5)
-EXACT = ("survival_scan", "utility_topk_address", "survival_scan_batched",
-         "utility_topk_address_batched", "node_view", "node_view_batched")
+EXACT = ("survival_scan", "utility_topk_address", "node_view")
 # phase 11: the lockstep engine at Exp5 (benchmarks/common.py run_seeds runs
 # four seeds a batch)
 BATCH_SEEDS = [0, 1, 2, 3]
@@ -333,6 +329,14 @@ def check(cond, msg):
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
+
+
+def wrappers() -> dict:
+    """Every hand-written entry's wrapper by name (``kernels.ENTRIES``);
+    each counts its launches on itself."""
+    from repro_torch.kernels import ENTRIES
+
+    return {name: e.wrapper for name, e in ENTRIES.items()}
 
 
 def kernel_cases(N, P, K, Z, M, W, seed):
@@ -634,7 +638,7 @@ def check_kernel(name, wrapper, ref, case, dev):
     args, kw = case[0], case[1]
     got = [g.cpu() for g in as_tuple(wrapper(*to_dev(args, dev), **kw))]  # waits
     want = as_tuple(ref(*args, **kw))
-    if name == "utility_topk_address":
+    if name == "utility_topk_address" and args[0].dim() == 1:  # one seed's columns
         address_mismatches(args, kw, got, want)
     return compare(name, got, want), want
 
@@ -648,7 +652,7 @@ def phase2(dev, geometries):
     engine's tick ``tick`` gives it. The table's row of a kernel is timed at
     the first geometry, the one of the most launches (phases 3 and 6)."""
     from repro_torch.core.state import densify_zones
-    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels import ENTRIES
     from repro_torch.kernels.bitmap_fit import (
         bitmap_fit_blocked_ref,
         bitmap_fit_ref,
@@ -661,6 +665,7 @@ def phase2(dev, geometries):
     from repro_torch.kernels.utility_topk import utility_topk_address_ref, utility_topk_ref
     from repro_torch.kernels.zone_aggregate import zone_aggregate_members_ref, zone_aggregate_ref
 
+    wrapper = wrappers()
     refs = {"bitmap_fit": bitmap_fit_ref, "bitmap_fit_blocked": bitmap_fit_blocked_ref,
             "bitmap_fit_rounds": bitmap_fit_rounds_ref,
             "bitmap_fit_rounds_blocked": bitmap_fit_rounds_blocked_ref,
@@ -688,7 +693,8 @@ def phase2(dev, geometries):
     ragged["node_view"] = (*view_inputs(37, 2, 61, seed=1), None, None)
     checked = {"ragged": {}}
     for name, case in ragged.items():
-        checked["ragged"][name] = (case, check_kernel(name, WRAPPERS[name], refs[name], case, dev)[1])
+        checked["ragged"][name] = (case,
+                                   check_kernel(name, wrapper[name], refs[name], case, dev)[1])
     print("phase 2: ragged shapes (N=37, P=1029, Z=3, M=13; blocked Z=3, M=13 with "
           "zeroed padding slots; the blocked rounds on the second of two ranks' zone rows "
           "of up to 13 nodes) equal to the plain versions")
@@ -701,7 +707,7 @@ def phase2(dev, geometries):
             kw = dict(airlock=airlock, residual=0.3, watermark=0.9 if airlock else 1.0, safe=0.8,
                       t_susp=80, t_surv=240)
             case = (args, kw, 0, 0)
-            want = check_kernel("survival_scan", WRAPPERS["survival_scan"], survival_scan_ref,
+            want = check_kernel("survival_scan", wrapper["survival_scan"], survival_scan_ref,
                                 case, dev)[1]
             checked[f"{cname}, airlock {'on' if airlock else 'off'}"] = {
                 "survival_scan": (case, want)}
@@ -716,7 +722,7 @@ def phase2(dev, geometries):
 
     for cname, (args, kw) in rounds_edge_cases().items():
         case = (args, kw, 0, 0)
-        want = check_kernel("bitmap_fit_rounds", WRAPPERS["bitmap_fit_rounds"],
+        want = check_kernel("bitmap_fit_rounds", wrapper["bitmap_fit_rounds"],
                             bitmap_fit_rounds_ref, case, dev)[1]
         if cname == "nan":
             on_card = [w.cpu() for w in bitmap_fit_rounds_ref(*to_dev(args, dev), **kw)]
@@ -731,7 +737,7 @@ def phase2(dev, geometries):
     blocked_corners = rounds_blocked_edge_cases()
     for cname, (args, kw) in blocked_corners.items():
         case = (args, kw, 0, 0)
-        want = check_kernel("bitmap_fit_rounds_blocked", WRAPPERS["bitmap_fit_rounds_blocked"],
+        want = check_kernel("bitmap_fit_rounds_blocked", wrapper["bitmap_fit_rounds_blocked"],
                             bitmap_fit_rounds_blocked_ref, case, dev)[1]
         if cname.startswith("nan"):
             on_card = [w.cpu() for w in bitmap_fit_rounds_blocked_ref(*to_dev(args, dev), **kw)]
@@ -745,14 +751,14 @@ def phase2(dev, geometries):
     # projection, K = 5; every output bit-equal
     for cname, (args, kw) in address_edge_cases().items():
         case = (args, kw, None, None)
-        want = check_kernel("utility_topk_address", WRAPPERS["utility_topk_address"],
+        want = check_kernel("utility_topk_address", wrapper["utility_topk_address"],
                             utility_topk_address_ref, case, dev)[1]
         checked[f"address {cname}"] = {"utility_topk_address": (case, want)}
     print(f"phase 2: utility_topk_address edge cases ({', '.join(address_edge_cases())}): "
           "bit-equal to the plain version on every output")
     for cname, (args, kw) in view_edge_cases().items():
         case = (args, kw, None, None)
-        want = check_kernel("node_view", WRAPPERS["node_view"], node_view_ref, case, dev)[1]
+        want = check_kernel("node_view", wrapper["node_view"], node_view_ref, case, dev)[1]
         checked[f"view {cname}"] = {"node_view": (case, want)}
     print(f"phase 2: node_view edge cases ({', '.join(view_edge_cases())}): bit-equal to the "
           "plain version")
@@ -782,18 +788,18 @@ def phase2(dev, geometries):
         times = {}
         cfg_rounds = cases["bitmap_fit_rounds"][1]["rounds"]
         for name, case in cases.items():
-            err, want = check_kernel(name, WRAPPERS[name], refs[name], case, dev)
+            err, want = check_kernel(name, wrapper[name], refs[name], case, dev)
             checked[label][name] = (case, want)
             args = to_dev(case[0], dev)
             kw = case[1]
             nbytes, nops = work(name, case, want)
-            ms = device_ms(lambda: WRAPPERS[name](*args, **kw))
+            ms = device_ms(lambda: wrapper[name](*args, **kw))
             plain_ms = device_ms(lambda: refs[name](*args, **kw))
-            eager_ms = call_ms(lambda: WRAPPERS[name](*args, **kw))
+            eager_ms = call_ms(lambda: wrapper[name](*args, **kw))
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = nops / FP32_OPS_PER_S * 1e3
             row = dict(
-                name=name, route="cuda", source=SOURCES[name],
+                name=name, route="cuda", source=f"src/repro_torch/csrc/{ENTRIES[name].source}.cu",
                 replaces=REPLACES[name], launches=0, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None,
@@ -812,7 +818,7 @@ def phase2(dev, geometries):
               f"{cfg_rounds * times['bitmap_fit_blocked']:.6f} ms")
         # the sharded tick's call: the rank's zone rows without the select
         case = (cases["zone_aggregate_members"][0][:4], {}, None, None)
-        want = check_kernel("zone_aggregate_members", WRAPPERS["zone_aggregate_members"],
+        want = check_kernel("zone_aggregate_members", wrapper["zone_aggregate_members"],
                             zone_aggregate_members_ref, case, dev)[1]
         checked[f"{label}, no select"] = {"zone_aggregate_members": (case, want)}
         print(f"phase 2 [{label}]: zone_aggregate_members without the select (the sharded "
@@ -878,19 +884,19 @@ def guard_bands(dev, label, per):
     launched through its launch function and plan into outputs (and
     scratch) that sit in sentinel-filled buffers with guard bands: every
     output fully written (LC301 on the card), no band touched (LC302), equal
-    to the plain version. A batched plan's outputs each have a band of
-    their own."""
-    from repro_torch.kernels import LAUNCHERS, PLANS
+    to the plain version. A plan with a seed axis gives each output a band
+    of its own."""
+    from repro_torch.kernels import ENTRIES
 
     for name, (case, want) in per.items():
         args, kw = to_dev(case[0], dev), case[1]
-        plan = PLANS[name](*args, **kw)
+        plan = ENTRIES[name].plan(*args, **kw)
         views = [guarded(o.shape, o.dtype, dev) for o in plan.outputs]
         extra = {}
         if plan.scratch_words:  # survival_scan and the rounds
             scratch, sbuf = guarded((plan.scratch_words,), torch.int32, dev)
             extra["scratch"] = scratch
-        LAUNCHERS[name](plan, [v for v, _ in views], *args, **kw, **extra)
+        ENTRIES[name].launch(plan, [v for v, _ in views], *args, **kw, **extra)
         torch.cuda.synchronize()
         for (v, buf), o in zip(views, plan.outputs):
             left, touched = sentinel_hits(buf, o.dtype)
@@ -908,30 +914,27 @@ def phase2b(dev, checked):
     """Attributes against plans, guard bands around every entry's outputs,
     and the block_copy kernel under the good plan and the three bad ones.
     Returns the table rows of the three fixture kernels."""
+    import importlib
+
     from repro_torch.analysis.kernel_contract import PER_BLOCK, audit_launch_plan
-    from repro_torch.kernels import PLANS, _build
+    from repro_torch.kernels import ENTRIES, SOURCES, _build
     from repro_torch.kernels.bitmap_fit import ops as bitmap_ops
-    from repro_torch.kernels.bitmap_fit import plan as bitmap_plan
     from repro_torch.kernels.block_copy import block_copy, block_copy_ref
     from repro_torch.kernels.block_copy import ops as copy_ops
     from repro_torch.kernels.block_copy import plan as copy_plan
-    from repro_torch.kernels.node_view import plan as view_plan
     from repro_torch.kernels.survival_scan import ops as surv_ops
-    from repro_torch.kernels.survival_scan import plan as surv_plan
-    from repro_torch.kernels.utility_topk import plan as topk_plan
-    from repro_torch.kernels.zone_aggregate import plan as agg_plan
 
     # -- compiled attributes against every plan ------------------------------
     attrs = {}
-    for mod in (bitmap_plan, topk_plan, agg_plan, surv_plan, copy_plan, view_plan):
-        name = mod.__name__.split(".")[-2]  # the package, named as its source
+    for name in SOURCES:  # each package, named as its source
+        mod = importlib.import_module(f"repro_torch.kernels.{name}.plan")
         for k, kernel in enumerate(mod.KERNELS):
             attrs[kernel] = a = _build.attrs(name, k)
             print(f"phase 2b: {name}.cu {kernel}: {a['registers']} registers/thread, "
                   f"{a['static_smem']} B static shared memory, max {a['max_threads']} "
                   f"threads/block")
     fixture_plans = load_fixture_plans()
-    plans = [PLANS[name](*case[0], **case[1])
+    plans = [ENTRIES[name].plan(*case[0], **case[1])
              for per in checked.values() for name, (case, _) in per.items()]
     plans += [copy_plan.good_plan(1024, 128)] + [p for p, _ in fixture_plans.values()]
     n_launch = 0
@@ -959,7 +962,7 @@ def phase2b(dev, checked):
             continue
         case = per["survival_scan"][0]
         P, N = case[0][0].shape[0], case[0][8].shape[0]
-        plan = PLANS["survival_scan"](*case[0], **case[1])
+        plan = ENTRIES["survival_scan"].plan(*case[0], **case[1])
         (L,) = plan.launches
         check(L.grid == L.cluster and L.cluster_nonportable == (L.cluster > 8),
               f"survival_scan at P={P}, N={N}: grid {L.grid}, cluster {L.cluster}")
@@ -980,7 +983,7 @@ def phase2b(dev, checked):
         if "bitmap_fit_rounds" not in per:
             continue
         args, kw = per["bitmap_fit_rounds"][0][:2]
-        plan = PLANS["bitmap_fit_rounds"](*args, **kw)
+        plan = ENTRIES["bitmap_fit_rounds"].plan(*args, **kw)
         (L,) = plan.launches
         N, W = args[5].shape
         check(L.grid == L.cluster and L.cluster_nonportable == (L.cluster > 8)
@@ -996,7 +999,7 @@ def phase2b(dev, checked):
         if "bitmap_fit_rounds_blocked" not in per:
             continue
         args, kw = per["bitmap_fit_rounds_blocked"][0][:2]
-        plan = PLANS["bitmap_fit_rounds_blocked"](*args, **kw)
+        plan = ENTRIES["bitmap_fit_rounds_blocked"].plan(*args, **kw)
         (L,) = plan.launches
         n, W = args[7].numel(), args[5].shape[1]
         check(L.grid == L.cluster and L.cluster_nonportable == (L.cluster > 8)
@@ -1107,22 +1110,20 @@ def conservation(out):
     return out["started"] == accounted and out["arrived"] >= out["started"]
 
 
-def graph_launches(runs, lockstep: bool) -> dict:
+def graph_launches(runs) -> dict:
     """The hand-written launches of compiled runs (``core.scan.watching``'s
     ``(compiled, replays)`` pairs): each graph's hand-written kernel nodes,
-    by entry (``kernel_bench.tick_entries``; the batched entries in a
-    ``lockstep`` graph), times its replays."""
+    by entry (``kernel_bench.tick_entries``), times its replays."""
     from repro_torch.kernel_bench import graph_census, tick_entries
-    from repro_torch.kernels import WRAPPERS
 
-    launches = dict.fromkeys(WRAPPERS, 0)
+    launches = dict.fromkeys(wrappers(), 0)
     for compiled, replays in runs:
-        for entry, n in tick_entries(graph_census(compiled.graph)["names"], lockstep).items():
+        for entry, n in tick_entries(graph_census(compiled.graph)["names"]).items():
             launches[entry] = launches.get(entry, 0) + n * replays
     return launches
 
 
-def counted(run, lockstep=False):
+def counted(run):
     """``run()`` as one main-path run: every launch counter set to 0 just
     before, read just after. Returns (its result, launches, host syncs
     inside it, seconds to its end on the device, all_gather calls). The
@@ -1130,12 +1131,11 @@ def counted(run, lockstep=False):
     nodes times its replays (:func:`graph_launches`), of an eager run (the
     sharded engine's) the wrappers' counts."""
     from repro_torch.core.scan import watching
-    from repro_torch.kernels import WRAPPERS
-    from repro_torch.kernels.block_copy import block_copy
     from repro_torch.profile_tick import counting_gathers
 
     torch.cuda.synchronize()
-    for w in (*WRAPPERS.values(), block_copy):
+    counters = wrappers()
+    for w in counters.values():
         w.launches = 0
     with warnings.catch_warnings(record=True) as caught, counting_gathers() as gathers, \
             watching() as runs:
@@ -1149,10 +1149,9 @@ def counted(run, lockstep=False):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if runs:
-        launches = graph_launches(runs, lockstep)
+        launches = graph_launches(runs)
     else:
-        launches = {name: w.launches for name, w in WRAPPERS.items()}
-    check(block_copy.launches == 0, f"block_copy launched {block_copy.launches} times on a main path")
+        launches = {name: w.launches for name, w in counters.items()}
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     for w in syncs[:3]:
         print(f"  sync: {w.message} ({w.filename}:{w.lineno})")
@@ -1181,15 +1180,13 @@ def want_launches(cfg, ticks, sharded):
     bitmap_fit_blocked on none. Both ticks build the node view with one
     node_view, address with one utility_topk_address and refresh with one
     zone_aggregate_members; the tile entries utility_topk and zone_aggregate
-    run on none."""
-    from repro_torch.kernels import BATCHED
-
+    and the fixtures' block_copy run on none."""
     return {"bitmap_fit": 0, "bitmap_fit_blocked": 0,
             "bitmap_fit_rounds": 0 if sharded else ticks,
             "bitmap_fit_rounds_blocked": ticks if sharded else 0, "utility_topk": 0,
             "utility_topk_address": ticks, "zone_aggregate": 0, "zone_aggregate_members": ticks,
             "survival_scan": ticks if cfg.memory.enabled else 0, "node_view": ticks,
-            **dict.fromkeys(BATCHED.values(), 0)}
+            "block_copy": 0}
 
 
 # the sharded tick's all_gathers: s_true, run_true, the rounds, zS, zH. A
@@ -1440,7 +1437,6 @@ def baseline_drive(name, cfg, bcfg, capacity, ticks, device, generator_device=No
     from repro_torch.core.baselines import common as C
     from repro_torch.core.baselines import flux_like, ray_like, slurm_like
     from repro_torch.core.baselines.draws import TorchBaselineDraws
-    from repro_torch.kernels import WRAPPERS
 
     mod = {"slurm": slurm_like, "ray": ray_like, "flux": flux_like}[name]
     s, lam = mod.init(cfg, 0, capacity, device)
@@ -1448,7 +1444,8 @@ def baseline_drive(name, cfg, bcfg, capacity, ticks, device, generator_device=No
     step = mod.make_step(cfg, bcfg)
     cuda = torch.device(device).type == "cuda"
     count_syncs = cuda and generator_device in (None, device)
-    for w in WRAPPERS.values():
+    counters = wrappers()
+    for w in counters.values():
         w.launches = 0
     if cuda:
         torch.cuda.synchronize()
@@ -1465,7 +1462,7 @@ def baseline_drive(name, cfg, bcfg, capacity, ticks, device, generator_device=No
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = sum(w.launches for w in WRAPPERS.values())
+    launches = sum(w.launches for w in counters.values())
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     for w in syncs[:3]:
         print(f"  sync: {w.message} ({w.filename}:{w.lineno})")
@@ -1745,7 +1742,7 @@ def decode_profile(cfg, params, dev, decode, B=2, steps=5):
     finished = (time.perf_counter() - t0) / DECODE_REPLAYS
     w = window(advance, DECODE_REPLAYS)
     c = graph_census(graph)
-    hand = tick_entries(c["names"], lockstep=False)
+    hand = tick_entries(c["names"])
     check(not hand, f"the decode graph holds hand-written kernel nodes {hand}")
     busy = "not measured" if w["busy_ms"] is None else \
         f"{w['busy_ms']:.3f} ms = {w['busy_ms'] / w['wall_ms']:.1%} of the profiled wall"
@@ -1896,11 +1893,9 @@ def phase8(dev):
     serve driver, (b) CUDA against CPU at 2 layers, (d) MoE at full layer
     width. Every launch counter is set to 0 before and must read 0 after."""
     from repro_torch.configs import get
-    from repro_torch.kernels import WRAPPERS
-    from repro_torch.kernels.block_copy import block_copy
     from repro_torch.models import blocks, lm
 
-    counters = {**WRAPPERS, "block_copy": block_copy}
+    counters = wrappers()
     for w in counters.values():
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2256,7 +2251,7 @@ def phase9d(dev, base):
     prof = profile_step(lambda: step(params, state, b)[2]["loss"].item(),
                         f"phase 9 (d): profiled replayed train step ({cfg.n_layers} layers)")
     census = graph_census(step.graph)
-    hand = tick_entries(census["names"], lockstep=False)
+    hand = tick_entries(census["names"])
     print(f"phase 9 (d): a replay {finished * 1e3:.2f} ms to its end, host enqueue "
           f"{enqueue * 1e3:.3f} ms (batch copy and replay); device busy {prof['busy']:.1%} "
           f"of the profiled wall (eager, 9 (a): {base['profile']['busy']:.1%} of "
@@ -2272,10 +2267,7 @@ def phase9d(dev, base):
 def phase9(dev):
     """The training path and the new families on the card; every launch
     counter is set to 0 before and must read 0 after."""
-    from repro_torch.kernels import WRAPPERS
-    from repro_torch.kernels.block_copy import block_copy
-
-    counters = {**WRAPPERS, "block_copy": block_copy}
+    counters = wrappers()
     for w in counters.values():
         w.launches = 0
     (ROOT / "build").mkdir(exist_ok=True)
@@ -2442,10 +2434,7 @@ def phase10b(proc, base):
 def phase10(dev, base):
     """The mesh-aware trainer and the dry-run / roofline; every launch
     counter is set to 0 before and must read 0 after."""
-    from repro_torch.kernels import WRAPPERS
-    from repro_torch.kernels.block_copy import block_copy
-
-    counters = {**WRAPPERS, "block_copy": block_copy}
+    counters = wrappers()
     for w in counters.values():
         w.launches = 0
     proc = start_dryrun()
@@ -2498,18 +2487,17 @@ def phase11a(dev, totals):
     """Lockstep against sequential on the card, the launches and syncs;
     returns (the lockstep launches, lockstep and sequential seed-ticks/s)."""
     from repro_torch.core.engine import LaminarEngine, seed_state
-    from repro_torch.kernels import BATCHED
+    from repro_torch.kernels import LOCKSTEP
     from repro_torch.profile_tick import exp5_config
 
     cfg = exp5_config(True, full=True, ticks=BATCH_TICKS)
     eng = LaminarEngine(cfg, device=dev)
     B, T = len(BATCH_SEEDS), BATCH_TICKS
     sb, draws, lam = lockstep(eng, BATCH_SEEDS)
-    (final, ts), launches, syncs, wall, _ = counted(
-        lambda: eng.simulate_batch(sb, draws, T), lockstep=True)
+    (final, ts), launches, syncs, wall, _ = counted(lambda: eng.simulate_batch(sb, draws, T))
     check(ts.shape == (B, T, 11), f"[lockstep] timeseries shape {tuple(ts.shape)}")
     want = {name: 0 for name in launches}
-    want.update(dict.fromkeys(BATCHED.values(), T))
+    want.update(dict.fromkeys(LOCKSTEP, T))
     check(launches == want, f"[lockstep] launch counts {launches} != {want}")
     check(syncs == 0, f"[lockstep] {syncs} host syncs inside the ticks")
     add(totals, launches)
@@ -2526,8 +2514,7 @@ def phase11a(dev, totals):
         (f, t_i), l_i, sy_i, w_i, _ = counted(
             lambda: eng.simulate(seed_state(sb0, i), draws, T))
         seq_wall += w_i
-        check(sy_i == 0 and l_i["survival_scan"] == T
-              and all(l_i[name] == 0 for name in BATCHED.values()),
+        check(sy_i == 0 and l_i == want_launches(cfg, T, sharded=False),
               f"[sequential seed {sd}] launches {l_i}, {sy_i} syncs")
         seq = eng._summary(f, t_i.cpu().numpy(), lam, sd)
         diff = int_differences(seq, outs[i])
@@ -2537,8 +2524,8 @@ def phase11a(dev, totals):
           f"on, seeds {BATCH_SEEDS}, {T} ticks: lockstep == sequential on the card on every "
           f"integer metric, lat_hist and timeseries, seed by seed (started "
           f"{[o['started'] for o in outs]}, suspended {[o['suspended_cnt'] for o in outs]}); "
-          f"lockstep launches {dict((k, v) for k, v in launches.items() if v)} (each batched "
-          f"entry once a tick, no unbatched entry), {syncs} host syncs in the ticks; "
+          f"lockstep launches {dict((k, v) for k, v in launches.items() if v)} (each entry "
+          f"once a tick for all {B} seeds), {syncs} host syncs in the ticks; "
           f"from init: {lock_tps:.1f} seed-ticks/s lockstep, {seq_tps:.1f} sequential")
     return launches
 
@@ -2569,16 +2556,18 @@ def phase11b(dev):
 
 
 def phase11c(dev, rows, launches):
-    """Each batched entry on the lockstep tick 200's inputs against its
-    plain version seed by seed, timed, in guard bands; its table row."""
-    from repro_torch.kernels import BATCHED, WRAPPERS
-    from repro_torch.kernels.bitmap_fit import bitmap_fit_rounds_batched_ref
+    """Each entry of the lockstep tick given the seed axis, on the lockstep
+    tick 200's inputs, against its plain version seed by seed, timed, in
+    guard bands; the timings go into the entry's table row."""
+    from repro_torch.kernels import ENTRIES, LOCKSTEP
+    from repro_torch.kernels.batching import per_seed
+    from repro_torch.kernels.bitmap_fit import bitmap_fit_rounds_ref
     from repro_torch.kernels.bitmap_fit import ops as bitmap_ops
-    from repro_torch.kernels.node_view import node_view_batched_ref
+    from repro_torch.kernels.node_view import node_view_ref
     from repro_torch.kernels.survival_scan import ops as surv_ops
-    from repro_torch.kernels.survival_scan import survival_scan_batched_ref
-    from repro_torch.kernels.utility_topk import utility_topk_address_batched_ref
-    from repro_torch.kernels.zone_aggregate import zone_aggregate_members_batched_ref
+    from repro_torch.kernels.survival_scan import survival_scan_ref
+    from repro_torch.kernels.utility_topk import utility_topk_address_ref
+    from repro_torch.kernels.zone_aggregate import zone_aggregate_members_ref
     from repro_torch.profile_tick import (
         WARMUP_TICKS,
         batch_tick_calls,
@@ -2586,55 +2575,53 @@ def phase11c(dev, rows, launches):
         per_seed_calls,
     )
 
-    refs = {"bitmap_fit_rounds_batched": bitmap_fit_rounds_batched_ref,
-            "utility_topk_address_batched": utility_topk_address_batched_ref,
-            "zone_aggregate_members_batched": zone_aggregate_members_batched_ref,
-            "survival_scan_batched": survival_scan_batched_ref,
-            "node_view_batched": node_view_batched_ref}
+    refs = {name: per_seed(ref) for name, ref in (
+        ("bitmap_fit_rounds", bitmap_fit_rounds_ref),
+        ("utility_topk_address", utility_topk_address_ref),
+        ("zone_aggregate_members", zone_aggregate_members_ref),
+        ("survival_scan", survival_scan_ref), ("node_view", node_view_ref))}
     cfg = exp5_config(True, full=True)
-    calls = batch_tick_calls(cfg, BATCH_SEEDS, WARMUP_TICKS, 1, tuple(refs), device=dev)
+    B = len(BATCH_SEEDS)
+    calls = batch_tick_calls(cfg, BATCH_SEEDS, WARMUP_TICKS, 1, LOCKSTEP, device=dev)
     per = {}
-    for entry, name in BATCHED.items():
+    for name in LOCKSTEP:
+        wrapper = ENTRIES[name].wrapper
         ((args, kw, _),) = calls[name]
         case = (tuple(a.cpu() for a in args), kw, None, None)
-        err, want = check_kernel(name, WRAPPERS[name], refs[name], case, dev)
+        err, want = check_kernel(name, wrapper, refs[name], case, dev)
         per[name] = (case, want)
         seeds = per_seed_calls([(case[0], kw, want)])
-        work_s = [work(entry, (a, k, None, None), w) for a, k, w in seeds]
+        work_s = [work(name, (a, k, None, None), w) for a, k, w in seeds]
         nbytes, nops = sum(w[0] for w in work_s), sum(w[1] for w in work_s)
         dargs = to_dev(case[0], dev)
-        ms = device_ms(lambda: WRAPPERS[name](*dargs, **kw))
+        ms = device_ms(lambda: wrapper(*dargs, **kw))
         plain_ms = device_ms(lambda: refs[name](*dargs, **kw))
-        one_ms = device_ms(lambda: [WRAPPERS[entry](*(a[i] for a in dargs), **kw)
-                                    for i in range(len(BATCH_SEEDS))])
+        one_ms = device_ms(lambda: [wrapper(*(a[i] for a in dargs), **kw) for i in range(B)])
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / FP32_OPS_PER_S * 1e3
-        rows[name] = dict(
-            name=name, route="cuda", source=SOURCES[entry], replaces=REPLACES[entry],
-            launches=launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else
-            "operations", library_ms=None,
+        rows[name]["seed_axis"] = axis = dict(
+            seeds=B, launches=launches[name], max_abs_err=err, ms=ms, per_seed_ms=one_ms,
+            plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         )
-        print(f"phase 11 (c): {name} (B = {len(BATCH_SEEDS)}, lockstep tick {WARMUP_TICKS}): "
-              f"equal to the plain version seed by seed (max abs err {err:.3g}); device time: "
-              f"one batched launch {ms:.6f} ms, {len(BATCH_SEEDS)} unbatched launches "
-              f"{one_ms:.6f} ms, plain {plain_ms:.6f} ms, bound {rows[name]['bound_ms']:.7f} ms "
-              f"({rows[name]['bound_by']})")
+        print(f"phase 11 (c): {name} (B = {B}, lockstep tick {WARMUP_TICKS}): equal to the "
+              f"plain version seed by seed (max abs err {err:.3g}); device time: one launch "
+              f"with the seed axis {ms:.6f} ms, {B} launches without {one_ms:.6f} ms, plain "
+              f"{plain_ms:.6f} ms, bound {axis['bound_ms']:.7f} ms ({axis['bound_by']})")
     guard_bands(dev, "lockstep tick", per)
     # each seed's scratch as the sources lay it out
-    from repro_torch.kernels import PLANS, _build
+    from repro_torch.kernels import _build
     from repro_torch.kernels.bitmap_fit import plan as bitmap_plan
     from repro_torch.kernels.survival_scan import plan as surv_plan
 
-    B, P, N = len(BATCH_SEEDS), cfg.probe_capacity, cfg.num_nodes
+    P, N = cfg.probe_capacity, cfg.num_nodes
     stride = _build.load("survival_scan", {"survival_scan_scratch_stride": [ctypes.c_int] * 2}
                          ).survival_scan_scratch_stride(P, N)
     keys = _build.load("bitmap_fit", {"bitmap_fit_rounds_scratch_words": [ctypes.c_int] * 2}
                        ).bitmap_fit_rounds_scratch_words(N, cfg.arb_rounds)
-    for name, words in (("survival_scan_batched", B * stride),
-                        ("bitmap_fit_rounds_batched", B * keys)):
+    for name, words in (("survival_scan", B * stride), ("bitmap_fit_rounds", B * keys)):
         case = per[name][0]
-        got = PLANS[name](*case[0], **case[1]).scratch_words
+        got = ENTRIES[name].plan(*case[0], **case[1]).scratch_words
         check(got == words, f"{name}: plan scratch {got} words, the source lays out {words}")
 
     resident = {
@@ -2643,9 +2630,9 @@ def phase11c(dev, rows, launches):
         "bitmap_fit_rounds": bitmap_ops.rounds_cluster_occupancy(bitmap_plan.rounds_plan(
             cfg.probe_capacity, cfg.num_nodes, cfg.atoms_per_node // 32, cfg.arb_rounds,
             cfg.atoms_per_node))["clusters"]}
-    print(f"phase 11 (c): every batched entry's outputs fully written under its plan, guard "
-          f"bands untouched, scratch strides as the sources'; 16-CTA clusters the card holds "
-          f"at once (a batch past them runs in waves): {resident}")
+    print(f"phase 11 (c): every entry's outputs with the seed axis fully written under its "
+          f"plan, guard bands untouched, scratch strides as the sources'; 16-CTA clusters the "
+          f"card holds at once (a batch past them runs in waves): {resident}")
 
 
 def phase11d(dev):
@@ -2759,7 +2746,7 @@ def phase12a(dev):
     from repro_torch.core.engine import LaminarEngine, make_step, seed_state, summarize
     from repro_torch.core.scan import watching
     from repro_torch.kernel_bench import graph_census
-    from repro_torch.kernels import BATCHED
+    from repro_torch.kernels import LOCKSTEP
     from repro_torch.profile_tick import exp5_config
     from repro_torch.workloads import SCENARIOS
 
@@ -2819,7 +2806,7 @@ def phase12a(dev):
         draws = batch_draws()
         with watching() as runs:
             (final, ts), launches, syncs, _, _ = counted(
-                lambda: eng.simulate_batch(sb, draws, T), lockstep=True)
+                lambda: eng.simulate_batch(sb, draws, T))
         efinal, ets = eager_run(lockstep_step(cfg), sb, batch_draws(), T)
         ets = ets.movedim(0, 1)
         check(torch.equal(ts, ets), f"[12 (a), lockstep Exp5, {arm}] series differ")
@@ -2833,7 +2820,7 @@ def phase12a(dev):
                   f"differ in {diff}")
             outs.append(got)
         want = dict.fromkeys(launches, 0)
-        want.update(dict.fromkeys(BATCHED.values(), T))
+        want.update(dict.fromkeys(LOCKSTEP, T))
         check(launches == want and syncs == 0, f"[12 (a), lockstep Exp5, {arm}] launches "
               f"{launches}, {syncs} syncs")
         kills = [o["oom_kill_l"] + o["oom_kill_f"] for o in outs]
@@ -2967,18 +2954,14 @@ def phase12a_sharded(dev):
 
 
 def phase12b(graphs):
-    """Each captured tick's graph: its hand-written kernel nodes, host
-    memcpy nodes."""
+    """Each captured tick's graph: its hand-written kernel nodes (a lockstep
+    tick's: each entry once for all seeds), host memcpy nodes."""
     from repro_torch.kernel_bench import tick_entries
-    from repro_torch.kernels import BATCHED
 
     for tag, c in graphs.items():
-        lockstep = tag.startswith("lockstep")
-        entries = tick_entries(c["names"], lockstep)
+        entries = tick_entries(c["names"])
         if tag in ("slurm", "ray", "flux"):
             want = {}
-        elif lockstep:
-            want = dict.fromkeys(BATCHED.values(), 1)
         else:
             sharded = tag.startswith("sharded")
             rounds = "bitmap_fit_rounds_blocked" if sharded else "bitmap_fit_rounds"
@@ -3114,8 +3097,6 @@ SCRIPTS = {
     "smoke_models": "scripts/torch_smoke_models.py",
 }
 TRAIN_EXAMPLE_STEPS = 20  # cut from the example's 200 for the script's time limit
-TICK_KERNELS = ("bitmap_fit_rounds", "utility_topk_address", "zone_aggregate_members",
-                "survival_scan", "node_view")
 NON_FINITE = re.compile(r"(?<![\w.])[-+]?(nan|inf)(?![\w.])", re.IGNORECASE)
 
 
@@ -3147,11 +3128,11 @@ def script_run(name: str, argv, card: str):
     time). The text is echoed, and checked to hold no NaN or infinity."""
     from repro_torch.core.scan import watching
     from repro_torch.kernel_bench import graph_census, tick_entries
-    from repro_torch.kernels import WRAPPERS
 
     mod = load_script(name)
     torch.cuda.synchronize()
-    for w in WRAPPERS.values():
+    counters = wrappers()
+    for w in counters.values():
         w.launches = 0
     text = io.StringIO()
     with watching() as runs, contextlib.redirect_stdout(text):
@@ -3162,10 +3143,9 @@ def script_run(name: str, argv, card: str):
     text = text.getvalue()
     for line in text.splitlines():
         print(f"  | {line}")
-    per_run = [{e: n * replays for e, n in tick_entries(graph_census(c.graph)["names"],
-                                                          False).items()}
+    per_run = [{e: n * replays for e, n in tick_entries(graph_census(c.graph)["names"]).items()}
                for c, replays in runs]
-    eager = {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+    eager = {k: w.launches for k, w in counters.items() if w.launches}
     print(f"phase 13 [{name}]: {wall:.2f} s wall, {len(runs)} compiled runs, eager launches "
           f"(warm-ups and captures) {eager} ({card})")
     check(not NON_FINITE.search(text), f"[{name}] printed a NaN or an infinity")
@@ -3173,10 +3153,12 @@ def script_run(name: str, argv, card: str):
 
 
 def check_tick_launches(name, per_run, ticks, memory):
-    """Each compiled run launched the tick kernels once a tick:
+    """Each compiled run launched the flat tick's kernels once a tick:
     survival_scan only with memory on, the other four always."""
+    from repro_torch.kernels import LOCKSTEP
+
     for i, launches in enumerate(per_run):
-        for entry in TICK_KERNELS:
+        for entry in LOCKSTEP:
             want = ticks if memory or entry != "survival_scan" else 0
             check(launches.get(entry, 0) == want,
                   f"[{name}] run {i}: {entry} launched {launches.get(entry, 0)} times, "
@@ -3266,7 +3248,7 @@ def main() -> int:
     import torch.distributed as dist
 
     from repro_torch.core.state import init_numpy
-    from repro_torch.kernels import WRAPPERS, _build
+    from repro_torch.kernels import _build
     from repro_torch.profile_tick import WARMUP_TICKS, exp5_config, exp7_config
 
     dev = torch.device("cuda:0")
@@ -3304,7 +3286,7 @@ def main() -> int:
             t1 = time.perf_counter()
             rows.update(phase2b(dev, checked))
             print(f"phase 2b: {time.perf_counter() - t1:.1f} s wall")
-            totals = {name: 0 for name in WRAPPERS}
+            totals = dict.fromkeys(wrappers(), 0)
             gloo = dist.new_group(ranks=[0], backend="gloo")
             done = {}
             for k, run in ((3, lambda: phase3(dev, totals)), (4, lambda: phase4(dev, gloo)),
@@ -3316,8 +3298,8 @@ def main() -> int:
                 t1 = time.perf_counter()
                 done[k] = run()
                 print(f"phase {k}: {time.perf_counter() - t1:.1f} s wall")
-            for name, n in totals.items():
-                rows[name]["launches"] = n  # the fixture rows keep 0: on no main path
+            for name, row in rows.items():  # the fixture rows: 0, on no main path
+                row["launches"] = totals.get(name, 0)
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1

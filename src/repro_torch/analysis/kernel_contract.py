@@ -22,9 +22,10 @@ cell), and checks, per launch and operand:
   * LC304 — the plan's outputs have the shapes and dtypes of the ``_ref``
     twin's outputs on the CPU.
 
-The five batched entries of the lockstep tick are checked at ``SEEDS``
-seeds: their operands are one seed's, so coverage and bounds are those of
-the unbatched plan, and their outputs carry the seed axis.
+The lockstep tick's five entries are checked at ``SEEDS`` seeds too (their
+arguments with a leading seed axis): their operands are one seed's, so
+coverage and bounds are those of the plan without it, and their outputs
+carry the seed axis.
 
 Nothing is launched: plans are plain data, and the ``_ref`` twins run on
 ``meta`` tensors (shapes only). ``audit_launch_plan`` checks one plan, the
@@ -39,7 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.analysis.findings import Finding
-from repro_torch.kernels import PLANS
+from repro_torch.kernels import ENTRIES
 from repro_torch.kernels.block_copy.ref import block_copy_ref
 from repro_torch.kernels.launch_plan import Launch, LaunchPlan, Operand
 
@@ -74,7 +75,8 @@ RAGGED_GEOM = dict(N=1500, W=2, A=64, P=1000, K=5, Z=5, M=33)
 EXP5_GEOM = dict(N=5000, W=2, A=64, P=65536, K=8, Z=20, M=301)
 EXP7_GEOM = dict(N=65536, W=2, A=64, P=131072, K=8, Z=253, M=307)
 GEOMETRIES = {"prod": PROD_GEOM, "ragged": RAGGED_GEOM, "exp5": EXP5_GEOM, "exp7": EXP7_GEOM}
-SEEDS = 3  # the batched entries' seed count here (benchmarks/common.py run_seeds runs 4)
+# the seed axis of the lockstep tick's entries here (benchmarks/common.py run_seeds runs 4)
+SEEDS = 3
 MAX_GRID_Y = 65535
 MAX_GRID_X = 2**31 - 1
 
@@ -244,26 +246,19 @@ def compare_output_avals(
 
 def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]]:
     """(entry, args, kwargs, ref_fn) for every hot-path entry at ``geom``, on
-    ``meta`` tensors."""
+    ``meta`` tensors; the lockstep tick's entries also with a seed axis
+    (``ref_fn`` then the plain version seed by seed)."""
+    from repro_torch.kernels.batching import per_seed
     from repro_torch.kernels.bitmap_fit import (
         bitmap_fit_blocked_ref,
         bitmap_fit_ref,
-        bitmap_fit_rounds_batched_ref,
         bitmap_fit_rounds_blocked_ref,
         bitmap_fit_rounds_ref,
     )
-    from repro_torch.kernels.node_view import node_view_batched_ref, node_view_ref
-    from repro_torch.kernels.survival_scan import survival_scan_batched_ref, survival_scan_ref
-    from repro_torch.kernels.utility_topk import (
-        utility_topk_address_batched_ref,
-        utility_topk_address_ref,
-        utility_topk_ref,
-    )
-    from repro_torch.kernels.zone_aggregate import (
-        zone_aggregate_members_batched_ref,
-        zone_aggregate_members_ref,
-        zone_aggregate_ref,
-    )
+    from repro_torch.kernels.node_view import node_view_ref
+    from repro_torch.kernels.survival_scan import survival_scan_ref
+    from repro_torch.kernels.utility_topk import utility_topk_address_ref, utility_topk_ref
+    from repro_torch.kernels.zone_aggregate import zone_aggregate_members_ref, zone_aggregate_ref
 
     N, W, A, P, K, Z, M = (geom[k] for k in ("N", "W", "A", "P", "K", "Z", "M"))
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
@@ -282,7 +277,7 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
     address_kw = dict(gamma=1.0, sigma=0.5, stay_margin=1.0, eval_cost=3.0, bounce_cost=6.0,
                       fastfail_floor=1.0, projection=True, tau=10.0, dt_ms=0.5,
                       degrade_after_ms=50.0, degrade_halflife_ms=50.0)
-    def seeds(args):  # the batched entries' arguments: SEEDS seeds of each
+    def seeds(args):  # the arguments with a seed axis: SEEDS seeds of each
         return tuple(a.expand((SEEDS,) + a.shape) if isinstance(a, torch.Tensor) else a
                      for a in args)
 
@@ -309,15 +304,14 @@ def kernel_suite(geom: Dict[str, int]) -> List[Tuple[str, tuple, dict, Callable]
         ("zone_aggregate_members", members, dict(every=20), zone_aggregate_members_ref),
         ("survival_scan", cols, surv_kw, survival_scan_ref),
         ("survival_scan", cols, dict(surv_kw, airlock=False), survival_scan_ref),
-        ("bitmap_fit_rounds_batched", seeds(rounds), dict(rounds=3, atoms=A, policy="best"),
-         bitmap_fit_rounds_batched_ref),
-        ("utility_topk_address_batched", seeds(address), address_kw,
-         utility_topk_address_batched_ref),
-        ("zone_aggregate_members_batched", seeds(members), dict(every=20),
-         zone_aggregate_members_batched_ref),
-        ("survival_scan_batched", seeds(cols), surv_kw, survival_scan_batched_ref),
+        ("bitmap_fit_rounds", seeds(rounds), dict(rounds=3, atoms=A, policy="best"),
+         per_seed(bitmap_fit_rounds_ref)),
+        ("utility_topk_address", seeds(address), address_kw, per_seed(utility_topk_address_ref)),
+        ("zone_aggregate_members", seeds(members), dict(every=20),
+         per_seed(zone_aggregate_members_ref)),
+        ("survival_scan", seeds(cols), surv_kw, per_seed(survival_scan_ref)),
         ("node_view", (z((N, W), i32),), dict(atoms=A), node_view_ref),
-        ("node_view_batched", seeds((z((N, W), i32),)), dict(atoms=A), node_view_batched_ref),
+        ("node_view", seeds((z((N, W), i32),)), dict(atoms=A), per_seed(node_view_ref)),
     ]
 
 
@@ -330,9 +324,10 @@ def run_kernel_contract(
     findings: List[Finding] = []
     for geom_name, geom in GEOMETRIES.items():
         for name, args, kw, ref_fn in kernel_suite(geom):
-            ctx = f"{name}[{geom_name}{'' if kw.get('airlock', True) else ', airlock off'}]"
+            plan = ENTRIES[name].plan(*args, **kw)
+            ctx = (f"{name}[{geom_name}{'' if kw.get('airlock', True) else ', airlock off'}"
+                   f"{f', {plan.seeds} seeds' if plan.seeds else ''}]")
             log(f"kernel: {ctx}")
-            plan = PLANS[name](*args, **kw)
             if not plan.launches:
                 raise RuntimeError(f"{ctx}: the plan records no launch")
             findings.extend(check_plan(plan, budget_bytes, context=ctx))

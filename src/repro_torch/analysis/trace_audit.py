@@ -3,8 +3,8 @@
 Records, with a ``TorchDispatchMode``, every aten op of one tick of
 ``engine.make_step`` and of the making of that tick's draws
 (``TorchDraws.tick``), because a CUDA graph of the tick would capture both.
-The hot-path entries (``kernels.WRAPPERS``, the batched ones too) are
-stubbed while the audit runs: each builds the launch plan its wrapper would
+The hand-written entries (``kernels.ENTRIES``) are stubbed while the
+audit runs: each builds the launch plan its wrapper would
 build, is recorded as one ``kernel.<entry>`` op, and returns zeros of its
 plan's outputs, the counterpart of
 ``jax.eval_shape`` over ``pallas_call``. The audit so sees the tick as it
@@ -50,7 +50,7 @@ from repro_torch.analysis.findings import Finding
 from repro_torch.core import engine, hotpath, zhaf
 from repro_torch.core.config import BaselineConfig, LaminarConfig, MemoryConfig, WorkloadConfig
 from repro_torch.core.draws import TorchDraws
-from repro_torch.kernels import PLANS, WRAPPERS
+from repro_torch.kernels import ENTRIES
 from repro_torch.parallel.engine_mesh import zone_block
 from repro_torch.workloads.scenario import (
     KINDS,
@@ -199,7 +199,7 @@ class OpRecorder(TorchDispatchMode):
 
 @contextlib.contextmanager
 def stub_hotpath(recorder: Optional[OpRecorder] = None):
-    """Replace the hot-path wrappers by their plans' outputs (zeros).
+    """Replace the entries' wrappers by their plans' outputs (zeros).
 
     ``core.hotpath`` looks each wrapper up on its ops module at call time,
     so patching the module attribute reaches every call site."""
@@ -207,7 +207,7 @@ def stub_hotpath(recorder: Optional[OpRecorder] = None):
 
     def make(entry: str):
         def stub(*args, **kw):
-            plan = PLANS[entry](*args, **kw)
+            plan = ENTRIES[entry].plan(*args, **kw)
             dev = next(_tensors(args)).device
             ctx = recorder.paused() if recorder is not None else contextlib.nullcontext()
             with ctx:
@@ -219,8 +219,8 @@ def stub_hotpath(recorder: Optional[OpRecorder] = None):
         return stub
 
     try:
-        for entry, fn in WRAPPERS.items():
-            mod = importlib.import_module(fn.__module__)
+        for entry, e in ENTRIES.items():
+            mod = importlib.import_module(e.wrapper.__module__)
             patched.append((mod, entry, getattr(mod, entry)))
             setattr(mod, entry, make(entry))
         yield

@@ -20,8 +20,8 @@ one to the other.
 The five entries the flat tick calls go through their custom ops
 (``repro_torch::<entry>``, ``kernels.batching``): outside ``vmap`` the op
 is the wrapper; under the lockstep engine's ``torch.func.vmap`` over a seed
-axis it is ONE call of the entry's batched twin (one launch for all seeds
-on CUDA, the plain version seed by seed on the CPU). Each of the five is a
+axis it is ONE call of the same wrapper with the seed axis (one launch for
+all seeds on CUDA, the plain version seed by seed on the CPU). Each of the five is a
 span, ``hotpath.<entry>`` (``core.spans``).
 """
 

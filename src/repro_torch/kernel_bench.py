@@ -1,8 +1,9 @@
-"""Device time of ``survival_scan`` on the card, by launch, and against an
-earlier design built from another source; or of ``bitmap_fit_rounds``; or
-of ``utility_topk_address`` and ``zone_aggregate_members``.
+"""Device time of ``survival_scan`` on the card, by launch; or of
+``bitmap_fit_rounds``; or of ``utility_topk_address`` and
+``zone_aggregate_members``; or of the lockstep tick's entries with a seed
+axis.
 
-    python -m repro_torch.kernel_bench [--parent PATH] [--phases] [--out FILE]
+    python -m repro_torch.kernel_bench [--phases] [--out FILE]
     python -m repro_torch.kernel_bench --rounds [--parent PATH] [--out FILE]
     python -m repro_torch.kernel_bench --rounds --sharded [--out FILE]
     python -m repro_torch.kernel_bench --address [--parent PATH] [--out FILE]
@@ -17,11 +18,6 @@ on and off, with the inputs phase 2 draws (seeded numpy):
     graph and replayed, median of 5 replays; inputs warm in L2), and the
     device time of each of its kernels (``torch.profiler`` over 50 eager
     calls: the sum of each kernel's own device durations per call);
-  * with ``--parent PATH``, the earlier nine-launch design
-    (``survival_scan.cu`` of that age, whose launcher takes nine grids and
-    blocks and eight scratch offsets) built from PATH with the port's nvcc
-    flags, checked equal to the port's outputs, timed the same way, in the
-    order parent, port, port, parent;
   * with ``--phases``, the port's source built again with
     ``-DSURVIVAL_SCAN_PHASES``: the SM cycles each phase of the cluster
     kernel takes (the most over its 16 CTAs), between the stamps thread 0 of
@@ -66,15 +62,13 @@ the addressing entry, such as an older one, is timed on the tile alone).
 Its inputs and corner cases (``address_inputs``, ``address_edge_cases``)
 live here too.
 
-With ``--batch B``, the four batched entries of the lockstep tick
-(``bitmap_fit_rounds_batched``, ``utility_topk_address_batched``,
-``zone_aggregate_members_batched``, ``survival_scan_batched``) on the
-inputs the lockstep tick of B seeds gives them at Exp5 (Airlock on, tick
-200, seeds 0 to B - 1): the graph-replay device ms of one batched launch,
-checked equal to the B seeds' unbatched calls, against B launches of the
-unbatched entry, of the port and, with ``--parent DIR`` (a directory
-holding the four sources of an earlier tree, e.g. its ``csrc``), of that
-build, in the order parent, port, port, parent.
+With ``--batch B``, the five entries of the lockstep tick
+(``kernels.LOCKSTEP``) on the inputs the lockstep tick of B seeds gives
+them at Exp5 (Airlock on, tick 200, seeds 0 to B - 1): the graph-replay
+device ms of one call with the seed axis, checked equal to the B seeds'
+calls without one, against those B launches, of the port and, with
+``--parent DIR`` (a directory holding the sources of an earlier tree, e.g.
+its ``csrc``), of that build, in the order parent, port, port, parent.
 
 Prints one line per measurement, the card's name and power limit, and writes
 the numbers as JSON to ``--out`` (default ``build/kernel_bench.json``).
@@ -96,14 +90,12 @@ import torch
 from repro_torch import profile_tick
 from repro_torch.core.state import QUEUED
 from repro_torch.kernels import _build
-from repro_torch.kernels.launch_plan import cdiv
 from repro_torch.kernels.survival_scan import ops as surv_ops
 from repro_torch.kernels.survival_scan import plan as surv_plan
 from repro_torch.kernels.utility_topk.ref import address_view
 
 GEOMETRIES = {"Exp5": (5000, 65536), "Exp7": (65536, 131072)}  # (N, P)
 KW = dict(residual=0.3, watermark=0.9, safe=0.8, t_susp=80, t_surv=240)
-PARENT_THREADS, PARENT_SCAN_THREADS = 256, 1024  # kThreads, kScanThreads of that source
 
 
 def inputs(N: int, P: int, seed: int, dev):
@@ -474,9 +466,10 @@ def view_edge_cases(seed: int = 0) -> dict:
 
 def batched_inputs(B: int, N: int = 37, P: int = 1029, K: int = 8, Z: int = 3, W: int = 2,
                    seed: int = 0, airlock: bool = True) -> dict:
-    """The five batched entries' inputs (CPU tensors with a leading axis of
-    B seeds, seed ``b`` drawn from ``seed + b``), at one shape: entry ->
-    (args, kw). The ticks differ by seed (40, 41, ...: a refresh tick of
+    """The inputs of the lockstep tick's five entries with a seed axis (CPU
+    tensors with a leading axis of B seeds, seed ``b`` drawn from
+    ``seed + b``), at one shape: entry -> (args, kw). The ticks differ by
+    seed (40, 41, ...: a refresh tick of
     ``every = 20`` and others)."""
     def stack(cases):
         cols = zip(*(args for args, _ in cases))
@@ -485,17 +478,16 @@ def batched_inputs(B: int, N: int = 37, P: int = 1029, K: int = 8, Z: int = 3, W
 
     surv_kw = dict(KW, airlock=airlock, watermark=0.9 if airlock else 1.0)
     return {
-        "bitmap_fit_rounds_batched": stack([rounds_inputs(N, P, W, seed=seed + b, queued=0.2)
-                                            for b in range(B)]),
-        "utility_topk_address_batched": stack([
+        "bitmap_fit_rounds": stack([rounds_inputs(N, P, W, seed=seed + b, queued=0.2)
+                                    for b in range(B)]),
+        "utility_topk_address": stack([
             (address_inputs(N, P, K, Z, seed=seed + b, addressing=0.3, t=400 + b), address_kw())
             for b in range(B)]),
-        "zone_aggregate_members_batched": stack([
+        "zone_aggregate_members": stack([
             (members_inputs(N, Z, seed=seed + b, t=40 + b, zones_seed=seed), dict(every=20))
             for b in range(B)]),
-        "survival_scan_batched": stack([(inputs(N, P, seed + b, "cpu"), surv_kw)
-                                        for b in range(B)]),
-        "node_view_batched": stack([view_inputs(N, W, seed=seed + b) for b in range(B)]),
+        "survival_scan": stack([(inputs(N, P, seed + b, "cpu"), surv_kw) for b in range(B)]),
+        "node_view": stack([view_inputs(N, W, seed=seed + b) for b in range(B)]),
     }
 
 
@@ -673,34 +665,18 @@ def graph_census(graph: torch.cuda.CUDAGraph) -> dict:
     return out
 
 
-# each hot-path kernel (its function name) -> its entry, unbatched and batched
-# (the sharded tick's blocked rounds have no batched entry: its seeds run one
-# after another)
-TICK_KERNELS = {
-    "bitmap_fit_rounds_kernel": ("bitmap_fit_rounds", "bitmap_fit_rounds_batched"),
-    "bitmap_fit_rounds_blocked_kernel": ("bitmap_fit_rounds_blocked", "bitmap_fit_rounds_blocked"),
-    "utility_topk_address_kernel": ("utility_topk_address", "utility_topk_address_batched"),
-    "zone_aggregate_kernel": ("zone_aggregate_members", "zone_aggregate_members_batched"),
-    "survival_cluster_kernel": ("survival_scan", "survival_scan_batched"),
-    "node_view_kernel": ("node_view", "node_view_batched"),
-}
-# the other hand-written kernels: on no tick
-OTHER_KERNELS = ("bitmap_fit_kernel", "utility_topk_kernel", "block_copy_kernel")
-
-
-def tick_entries(names, lockstep: bool) -> dict:
+def tick_entries(names) -> dict:
     """The hand-written entries that kernel nodes ``names`` (a graph's)
-    launch: a hot-path kernel is its lockstep entry in a lockstep tick's
-    graph, its flat (or sharded) entry in a flat (or sharded) one; NCCL's
-    kernels are none (``graph_census`` counts them); another hand-written
-    kernel counts under its own name (on no tick: a check against the
-    tick's entries fails on it)."""
+    launch, by entry (``kernels.entry_of``: a kernel a tick launches counts
+    under that tick's entry, with or without a seed axis; another
+    hand-written kernel under its own name, so that a check against the
+    tick's entries fails on it); NCCL's kernels are none (``graph_census``
+    counts them)."""
+    from repro_torch.kernels import entry_of
+
     out: dict = {}
-    for name in names:
-        entry = next((pair[lockstep] for k, pair in TICK_KERNELS.items() if k in name),
-                     next((k for k in OTHER_KERNELS if k in name), None))
-        if entry is not None:
-            out[entry] = out.get(entry, 0) + 1
+    for entry in filter(None, map(entry_of, names)):
+        out[entry] = out.get(entry, 0) + 1
     return out
 
 
@@ -790,38 +766,6 @@ class Phases:
         _build.check(self.lib.survival_scan_phases(buf), "survival_scan_phases")
         stamps = np.array(list(buf), dtype=np.int64).reshape(16, 8)
         return [int(x) for x in np.diff(stamps, axis=1).max(axis=0)]
-
-
-class Parent:
-    """The earlier nine-launch design, built from ``path``."""
-
-    def __init__(self, path: Path):
-        self.lib = build_lib(path, "parent")
-        P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.lib.survival_scan_launch.argtypes = (
-            [P_] * 16 + [I_, I_, I_, F_, F_, F_, I_, I_, P_, P_, P_, I_, P_])
-        self.lib.survival_scan_launch.restype = I_
-
-    def call(self, args, airlock: bool):
-        st, base = args[0], args[8]
-        P, N = st.shape[0], base.shape[0]
-        dev = st.device
-        outs = [torch.empty(N, dtype=torch.float32, device=dev)] + [
-            torch.empty(P, dtype=torch.bool, device=dev) for _ in range(4)]
-        words = 6 * N + 1 + 2 * P
-        scratch = torch.empty(words, dtype=torch.int32, device=dev)
-        nb, pb = cdiv(N, PARENT_THREADS), cdiv(P, PARENT_THREADS)
-        grids = (ctypes.c_int * 9)(nb, pb, 1, pb, nb, pb if airlock else 0, pb, pb, pb)
-        blocks = (ctypes.c_int * 9)(*([PARENT_THREADS] * 2 + [PARENT_SCAN_THREADS]
-                                      + [PARENT_THREADS] * 6))
-        carve = (ctypes.c_int * 8)(0, N, 2 * N, 3 * N + 1, 4 * N + 1, 5 * N + 1, 6 * N + 1,
-                                   6 * N + 1 + P)
-        err = self.lib.survival_scan_launch(
-            *(_build.ptr(x) for x in (*args, *outs, scratch)), P, N, int(airlock),
-            KW["residual"], KW["watermark"], KW["safe"], KW["t_susp"], KW["t_surv"],
-            grids, blocks, carve, words, _build.stream(st))
-        _build.check(err, "survival_scan (parent)")
-        return outs
 
 
 def port_call(args, airlock: bool):
@@ -1060,29 +1004,24 @@ def address_bench(dev, parent_path: Path | None = None) -> list:
     return rows
 
 
-BATCH_ENTRIES = {  # the flat tick's entries: their sources
-    "bitmap_fit_rounds": "bitmap_fit", "utility_topk_address": "utility_topk",
-    "zone_aggregate_members": "zone_aggregate", "survival_scan": "survival_scan"}
-
-
 def batch_bench(dev, B: int, parent_dir: Path | None = None) -> list:
     """The rows of ``--batch B`` (see the module docstring)."""
     import importlib
 
-    from repro_torch.kernels import BATCHED, LAUNCHERS, PLANS, WRAPPERS
+    from repro_torch.kernels import ENTRIES, LOCKSTEP
 
     cfg = profile_tick.exp5_config(True)
     calls = profile_tick.batch_tick_calls(cfg, list(range(B)), profile_tick.WARMUP_TICKS, 1,
-                                          [BATCHED[e] for e in BATCH_ENTRIES], device=dev)
+                                          LOCKSTEP, device=dev)
     rows = []
-    for entry, source in BATCH_ENTRIES.items():
-        name = BATCHED[entry]
-        ((args, kw, outs),) = calls[name]
-        per = profile_tick.per_seed_calls(calls[name])
+    for entry in LOCKSTEP:
+        e, source = ENTRIES[entry], ENTRIES[entry].source
+        ((args, kw, outs),) = calls[entry]
+        per = profile_tick.per_seed_calls(calls[entry])
         libs = {"port": None}
         if parent_dir is not None:
             libs["parent"] = lib = build_lib(parent_dir / f"{source}.cu", f"parent_{source}")
-            sig = importlib.import_module(f"repro_torch.kernels.{source}.ops")._SIG
+            sig = importlib.import_module(e.wrapper.__module__)._SIG
             for fn in sig:
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = sig[fn]
@@ -1092,9 +1031,9 @@ def batch_bench(dev, B: int, parent_dir: Path | None = None) -> list:
             def run():
                 got = []
                 for a, k, _ in per:
-                    plan = PLANS[entry](*a, **k)
+                    plan = e.plan(*a, **k)
                     o = plan.new_outputs(dev)
-                    LAUNCHERS[entry](plan, o, *a, **k, lib=lib)
+                    e.launch(plan, o, *a, **k, lib=lib)
                     got.append(o)
                 return got
             return run
@@ -1103,16 +1042,16 @@ def batch_bench(dev, B: int, parent_dir: Path | None = None) -> list:
             for i, got in enumerate(unbatched(lib)()):
                 check = all(torch.equal(g, o[i]) for g, o in zip(got, outs))
                 if not check:
-                    print(f"batch B={B} [{entry}]: seed {i}: the {label} build's unbatched "
-                          "launch differs from the batched one")
+                    print(f"batch B={B} [{entry}]: seed {i}: the {label} build's launch "
+                          "without a seed axis differs from the one with it")
                     return []
         order = ["parent", "port", "port", "parent"] if parent_dir is not None else ["port"]
         times = [(label, graph_ms(unbatched(libs[label]))) for label in order]
-        batched_ms = graph_ms(lambda: WRAPPERS[name](*args, **kw))
-        rows.append(dict(entry=name, seeds=B, tick=profile_tick.WARMUP_TICKS,
+        batched_ms = graph_ms(lambda: e.wrapper(*args, **kw))
+        rows.append(dict(entry=entry, seeds=B, tick=profile_tick.WARMUP_TICKS,
                          batched_ms=batched_ms, unbatched_ms=times))
-        print(f"batch B={B} [{entry}]: one batched launch {batched_ms:.6f} ms (device, graph "
-              f"replay); {B} unbatched launches, in order: "
+        print(f"batch B={B} [{entry}]: one launch with the seed axis {batched_ms:.6f} ms "
+              f"(device, graph replay); {B} launches without, in order: "
               + ", ".join(f"{label} {t:.6f}" for label, t in times)
               + " ms; outputs equal seed by seed", flush=True)
     return rows
@@ -1121,8 +1060,8 @@ def batch_bench(dev, B: int, parent_dir: Path | None = None) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
-                    help="survival_scan.cu of the nine-launch design (with --rounds: "
-                         "another bitmap_fit.cu; with --address: another utility_topk.cu)")
+                    help="with --rounds: another bitmap_fit.cu; with --address: another "
+                         "utility_topk.cu; with --batch: a directory of another tree's sources")
     ap.add_argument("--rounds", action="store_true", help="bitmap_fit_rounds instead")
     ap.add_argument("--sharded", action="store_true",
                     help="with --rounds: bitmap_fit_rounds_blocked on the sharded tick's inputs")
@@ -1131,10 +1070,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", action="store_true",
                     help="cycles by phase of the cluster kernel (an instrumented build)")
     ap.add_argument("--batch", type=int, default=0, metavar="B",
-                    help="the four batched entries at B seeds (--parent: a directory of "
-                         "the earlier sources)")
+                    help="the lockstep tick's five entries at B seeds")
     ap.add_argument("--out", type=Path, default=Path("build/kernel_bench.json"))
     args = ap.parse_args(argv)
+    if args.parent is not None and not (args.rounds or args.address or args.batch):
+        ap.error("--parent goes with --rounds, --address or --batch")
     if not torch.cuda.is_available():
         print("kernel_bench: CUDA is not available", file=sys.stderr)
         return 2
@@ -1166,7 +1106,6 @@ def main(argv=None) -> int:
     if args.address:
         return write(args.out, card, address_bench(dev, args.parent))
     _build.build(["survival_scan"])
-    parent = Parent(args.parent) if args.parent else None
     phases = Phases() if args.phases else None
     rows = []
     for seed, (label, (N, P)) in enumerate(GEOMETRIES.items(), start=2):
@@ -1174,30 +1113,12 @@ def main(argv=None) -> int:
         for airlock in (True, False):
             tag = f"{label} N={N} P={P} {'airlock' if airlock else 'kernel-oom'}"
             row = dict(geometry=label, N=N, P=P, airlock=airlock)
-            designs = [("port", lambda: port_call(a, airlock))]
-            if parent is not None:
-                designs.append(("parent", lambda: parent.call(a, airlock)))
-                want, got = parent.call(a, airlock), port_call(a, airlock)
-                differ = {o: int((x != y).sum()) for o, x, y in
-                          zip(("pressure", "victim", "resume", "react", "expire"), want, got)
-                          if not torch.equal(x, y)}
-                same = not differ
-                row["equal_to_parent"] = same
-                print(f"{tag}: " + ("port == parent on every output" if same else
-                                    f"port and parent differ, entries per output: {differ}"))
-                if not same:
-                    return 1
-            for name, fn in designs:
-                row[f"{name}_kernels_ms"] = k = per_kernel_ms(fn)
-                print(f"{tag}: {name} per-kernel device ms per call (profiler, eager): "
-                      + ", ".join(f"{kk} {v:.6f}" for kk, v in k.items())
-                      + f"; sum {sum(k.values()):.6f}")
-            order = ["parent", "port", "port", "parent"] if parent is not None else ["port"]
-            fns = dict(designs)
-            times = [(name, graph_ms(fns[name])) for name in order]
-            row["graph_ms"] = times
-            print(f"{tag}: graph-replay device ms per call, in order: "
-                  + ", ".join(f"{n} {t:.6f}" for n, t in times))
+            row["port_kernels_ms"] = k = per_kernel_ms(lambda: port_call(a, airlock))
+            print(f"{tag}: port per-kernel device ms per call (profiler, eager): "
+                  + ", ".join(f"{kk} {v:.6f}" for kk, v in k.items())
+                  + f"; sum {sum(k.values()):.6f}")
+            row["graph_ms"] = times = [("port", graph_ms(lambda: port_call(a, airlock)))]
+            print(f"{tag}: graph-replay device ms per call: port {times[0][1]:.6f}")
             if phases is not None:
                 row["phase_cycles"] = c = dict(zip(PHASES, phases.cycles(a, airlock)))
                 row["phases_build_ms"] = graph_ms(lambda: phases.call(a, airlock))

@@ -7,8 +7,8 @@ the flags change (the file name carries their hash). ``--fmad=false`` keeps
 every multiply and add separately rounded, as PyTorch's own elementwise
 kernels round them; ``--use_fast_math`` is never used.
 
-Libraries go to ``build/kernels/`` at the root of the checkout. Nothing here
-runs when the module is imported.
+Libraries go to ``build/kernels/`` at the root of the checkout. Nothing is
+compiled when the module is imported.
 """
 
 from __future__ import annotations
@@ -26,8 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NAMES = ("bitmap_fit", "utility_topk", "zone_aggregate", "survival_scan", "block_copy",
-         "node_view")
+NAMES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))  # every source
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

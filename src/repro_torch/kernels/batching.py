@@ -10,14 +10,16 @@ is a ``torch.library.custom_op`` (``repro_torch::<entry>``):
     the plain version for a CPU tensor and launches the hand-written kernel
     for a CUDA one;
   * its fake (meta) kernel gives the outputs' shapes;
-  * its batching rule (``register_vmap``) calls the entry's batched wrapper
-    ONCE for all seeds: on CUDA one launch of the batched kernel, whose grid
-    has a seed axis (as ``vmap`` over a ``pallas_call`` adds a grid axis),
-    on the CPU the plain version seed by seed (:func:`per_seed`).
+  * its batching rule (``register_vmap``) calls the same wrapper ONCE for
+    all seeds, every tensor with the seed axis first: the entry's plan then
+    has a seed axis (``LaunchPlan.seeds``), so on CUDA it is one launch of
+    the kernel with a seed axis in its grid (as ``vmap`` over a
+    ``pallas_call`` adds a grid axis), on the CPU the plain version seed by
+    seed (:func:`per_seed`).
 
-Outside ``vmap`` the op is the wrapper, so the unbatched tick and its launch
-counts are as before. Nothing here runs when the module is imported but the
-registrations.
+Outside ``vmap`` the op is the wrapper on one seed's tensors. Either way the
+wrapper's launch counter rises by one a call. Nothing here runs when the
+module is imported but the registrations.
 """
 
 from __future__ import annotations
@@ -27,12 +29,12 @@ from typing import Callable, Sequence
 
 import torch
 
-__all__ = ["per_seed", "register_batching", "seeds_first"]
+__all__ = ["dispatch", "per_seed", "register_batching", "seeds_first"]
 
 
 def seeds_first(batch: int, in_dims: Sequence, args: Sequence) -> list:
-    """``args`` with the seed axis first and contiguous, as a batched entry
-    takes them: a mapped tensor has its axis moved to 0; a tensor ``vmap``
+    """``args`` with the seed axis first and contiguous, as an entry takes
+    them: a mapped tensor has its axis moved to 0; a tensor ``vmap``
     does not map (every seed's the same) is broadcast to ``batch`` rows, a
     copy; ``None`` and non-tensors are kept. ``in_dims`` may be shorter
     than ``args`` (trailing ``None`` arguments)."""
@@ -49,8 +51,8 @@ def seeds_first(batch: int, in_dims: Sequence, args: Sequence) -> list:
 
 
 def per_seed(fn: Callable) -> Callable:
-    """The plain version of a batched entry: the unbatched plain version
-    ``fn`` applied seed by seed (the leading axis of every tensor argument),
+    """The plain version of a call with a seed axis: the plain version ``fn``
+    applied seed by seed (the leading axis of every tensor argument),
     its outputs stacked along a new leading axis."""
 
     def batched(*args, **kw):
@@ -66,12 +68,27 @@ def per_seed(fn: Callable) -> Callable:
     return batched
 
 
-def register_batching(op, batched: Callable) -> None:
+def dispatch(wrapper: Callable, plan, launch: Callable, ref: Callable, *args, **kw):
+    """One call of an entry whose ``plan`` (its plan builder's, for these
+    ``args``) says whether they carry a leading seed axis. CUDA tensors:
+    ``launch(plan, outs, *args, **kw)`` into new outputs, counted on
+    ``wrapper.launches``; a plan's one output is returned alone, several as
+    a tuple. CPU tensors: the plain version ``ref``, seed by seed
+    (:func:`per_seed`) when the plan has a seed axis."""
+    if not args[0].is_cuda:
+        return (per_seed(ref) if plan.seeds else ref)(*args, **kw)
+    outs = plan.new_outputs(args[0].device)
+    launch(plan, outs, *args, **kw)
+    wrapper.launches += 1
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def register_batching(op, wrapper: Callable) -> None:
     """Give the custom op ``op`` its batching rule: every tensor argument
-    with the seed axis first (:func:`seeds_first`), then ONE call of
-    ``batched`` (the entry's batched wrapper, looked up on its module at
-    each call, as a recording patch replaces it), its outputs mapped at 0."""
-    module, name = sys.modules[batched.__module__], batched.__name__
+    with the seed axis first (:func:`seeds_first`), then ONE call of the
+    entry's ``wrapper`` (looked up on its module at each call, as a
+    recording patch replaces it), its outputs mapped at 0."""
+    module, name = sys.modules[wrapper.__module__], wrapper.__name__
 
     def rule(info, in_dims, *args, **kw):
         outs = getattr(module, name)(*seeds_first(info.batch_size, in_dims, args), **kw)

@@ -7,13 +7,13 @@ launch ``bitmap_fit_kernel``; ``bitmap_fit_rounds`` launches
 ``bitmap_fit_rounds_kernel``, every arbitration round of a tick in one
 cluster launch, and ``bitmap_fit_rounds_blocked`` launches
 ``bitmap_fit_rounds_blocked_kernel``, the same rounds on one rank's zone
-block (the zone-sharded tick's). ``bitmap_fit_rounds_batched`` runs the
-flat rounds of B seeds in one launch (one cluster a seed), and
-``bitmap_fit_rounds_op`` is the custom op the tick calls: the flat wrapper,
-with the batched one as its batching rule under ``torch.func.vmap``
-(``kernels.batching``). Each wrapper counts its own launches, so a run can
-tell which entry it went through. Grid and block come from the entry's
-launch plan (``plan.py``).
+block (the zone-sharded tick's). Given a leading seed axis,
+``bitmap_fit_rounds`` runs the flat rounds of B seeds in one launch (one
+cluster a seed), and ``bitmap_fit_rounds_op`` is the custom op the tick
+calls: the flat wrapper, called once with the seed axis as its batching
+rule under ``torch.func.vmap`` (``kernels.batching``). Each wrapper counts
+its own launches, so a run can tell which entry it went through. Grid and
+block come from the entry's launch plan (``plan.py``).
 """
 
 from __future__ import annotations
@@ -25,19 +25,17 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.batching import register_batching
+from repro_torch.kernels.batching import dispatch, register_batching
 from repro_torch.kernels.bitmap_fit import plan as _plan
 from repro_torch.kernels.bitmap_fit.ref import (
     bitmap_fit_blocked_ref,
     bitmap_fit_ref,
-    bitmap_fit_rounds_batched_ref,
     bitmap_fit_rounds_blocked_ref,
     bitmap_fit_rounds_ref,
 )
 from repro_torch.kernels.launch_plan import LaunchPlan
 
-__all__ = ["bitmap_fit", "bitmap_fit_blocked", "bitmap_fit_rounds", "bitmap_fit_rounds_batched",
-           "bitmap_fit_rounds_blocked"]
+__all__ = ["bitmap_fit", "bitmap_fit_blocked", "bitmap_fit_rounds", "bitmap_fit_rounds_blocked"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,13 +76,8 @@ def bitmap_fit(
     ``words`` (N, W) int32 bit patterns, ``mass`` (N,) int32, ``contig``
     (N,) bool. CPU tensors take :func:`bitmap_fit_ref`.
     """
-    if not words.is_cuda:
-        return bitmap_fit_ref(words, mass, contig)
-    plan = _plan.for_call(words, mass, contig)
-    outs = plan.new_outputs(words.device)
-    launch(plan, outs, words, mass, contig)
-    bitmap_fit.launches += 1
-    return outs[0]
+    return dispatch(bitmap_fit, _plan.for_call(words, mass, contig), launch, bitmap_fit_ref,
+                    words, mass, contig)
 
 
 def bitmap_fit_blocked(
@@ -97,13 +90,8 @@ def bitmap_fit_blocked(
     slot gets whatever its words imply; the caller masks it. CPU tensors
     take :func:`bitmap_fit_blocked_ref`.
     """
-    if not words.is_cuda:
-        return bitmap_fit_blocked_ref(words, mass, contig)
-    plan = _plan.for_blocked_call(words, mass, contig)
-    outs = plan.new_outputs(words.device)
-    launch(plan, outs, words, mass, contig)
-    bitmap_fit_blocked.launches += 1
-    return outs[0]
+    return dispatch(bitmap_fit_blocked, _plan.for_blocked_call(words, mass, contig), launch,
+                    bitmap_fit_blocked_ref, words, mass, contig)
 
 
 def _rounds_operands(plan: LaunchPlan, outs, scratch, st, node, ev, mass, contig, words,
@@ -196,37 +184,15 @@ def bitmap_fit_rounds(
 
     Columns (P,): ``st``, ``node``, ``mass`` int32, ``ev`` float32,
     ``contig`` bool; ``words`` (N, W) int32 bit patterns, ``throttled`` (N,)
-    bool; ``policy`` ``"best"`` or ``"first"``. CPU tensors take
-    :func:`bitmap_fit_rounds_ref`.
+    bool; ``policy`` ``"best"`` or ``"first"``. With a leading seed axis on
+    every tensor (columns (B, P), ``words`` (B, N, W), ``throttled`` (B, N))
+    the outputs have it too: one launch of B clusters. CPU tensors take
+    :func:`bitmap_fit_rounds_ref`, seed by seed.
     """
     args = (st, node, ev, mass, contig, words, throttled)
     kw = dict(rounds=rounds, atoms=atoms, policy=policy)
-    if not st.is_cuda:
-        return bitmap_fit_rounds_ref(*args, **kw)
-    plan = _plan.for_rounds_call(*args, **kw)
-    outs = plan.new_outputs(st.device)
-    launch_rounds(plan, outs, *args, **kw)
-    bitmap_fit_rounds.launches += 1
-    return tuple(outs)
-
-
-def bitmap_fit_rounds_batched(
-    st, node, ev, mass, contig, words, throttled, *, rounds: int, atoms: int, policy: str
-):
-    """:func:`bitmap_fit_rounds` of B seeds at once: columns (B, P),
-    ``words`` (B, N, W), ``throttled`` (B, N); the outputs with a leading
-    seed axis. A CUDA tensor launches the batched kernel once (one cluster
-    a seed); CPU tensors take :func:`bitmap_fit_rounds_batched_ref`, the
-    plain version seed by seed."""
-    args = (st, node, ev, mass, contig, words, throttled)
-    kw = dict(rounds=rounds, atoms=atoms, policy=policy)
-    if not st.is_cuda:
-        return bitmap_fit_rounds_batched_ref(*args, **kw)
-    plan = _plan.for_rounds_call(*args, **kw)
-    outs = plan.new_outputs(st.device)
-    launch_rounds(plan, outs, *args, **kw)
-    bitmap_fit_rounds_batched.launches += 1
-    return tuple(outs)
+    return dispatch(bitmap_fit_rounds, _plan.for_rounds_call(*args, **kw), launch_rounds,
+                    bitmap_fit_rounds_ref, *args, **kw)
 
 
 def bitmap_fit_rounds_blocked(
@@ -244,20 +210,14 @@ def bitmap_fit_rounds_blocked(
     """
     args = (st, node, ev, mass, contig, words, throttled, member, mask, local)
     kw = dict(rounds=rounds, atoms=atoms, policy=policy)
-    if not st.is_cuda:
-        return bitmap_fit_rounds_blocked_ref(*args, **kw)
-    plan = _plan.for_rounds_blocked_call(*args, **kw)
-    outs = plan.new_outputs(st.device)
-    launch_rounds_blocked(plan, outs, *args, **kw)
-    bitmap_fit_rounds_blocked.launches += 1
-    return tuple(outs)
+    return dispatch(bitmap_fit_rounds_blocked, _plan.for_rounds_blocked_call(*args, **kw),
+                    launch_rounds_blocked, bitmap_fit_rounds_blocked_ref, *args, **kw)
 
 
 bitmap_fit.launches = 0
 bitmap_fit_blocked.launches = 0
 bitmap_fit_rounds.launches = 0
 bitmap_fit_rounds_blocked.launches = 0
-bitmap_fit_rounds_batched.launches = 0
 
 
 @torch.library.custom_op("repro_torch::bitmap_fit_rounds", mutates_args=(),
@@ -267,7 +227,7 @@ def bitmap_fit_rounds_op(
     throttled: Tensor, *, rounds: int, atoms: int, policy: str,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """:func:`bitmap_fit_rounds` as a custom op (the wrapper, looked up at
-    each call); under ``vmap``, one :func:`bitmap_fit_rounds_batched`."""
+    each call); under ``vmap``, one call of it with the seed axis."""
     return bitmap_fit_rounds(st, node, ev, mass, contig, words, throttled, rounds=rounds,
                              atoms=atoms, policy=policy)
 
@@ -280,4 +240,4 @@ def _(st, node, ev, mass, contig, words, throttled, *, rounds, **_):
             st.new_empty((P,), dtype=torch.bool))
 
 
-register_batching(bitmap_fit_rounds_op, bitmap_fit_rounds_batched)
+register_batching(bitmap_fit_rounds_op, bitmap_fit_rounds)

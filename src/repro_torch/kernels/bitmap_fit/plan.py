@@ -110,8 +110,8 @@ def _refuse(entry: str, N: int, W: int, R: int, atoms: int, rows: str = "node") 
 def rounds_plan(P: int, N: int, W: int, R: int, atoms: int, seeds: int = 0) -> LaunchPlan:
     """The one launch of ``bitmap_fit_rounds`` at (P, N, W, R, atoms). The
     allocation policy changes what the kernel computes, not its geometry.
-    ``seeds``: 0 for one seed's call, else ``bitmap_fit_rounds_batched``'s
-    over that many seeds: cluster ``b`` on seed ``b``'s columns, words,
+    ``seeds``: 0 for one seed's call, else that of a call with a seed axis
+    of that many seeds: cluster ``b`` on seed ``b``'s columns, words,
     outputs and keys (no cluster barrier spans two seeds)."""
     if seeds:
         return batched(rounds_plan(P, N, W, R, atoms), seeds, rounds_scratch_words(N, R))
@@ -138,8 +138,8 @@ def rounds_plan(P: int, N: int, W: int, R: int, atoms: int, seeds: int = 0) -> L
 
 def for_rounds_call(st, node, ev, mass, contig, words, throttled, *, rounds: int, atoms: int,
                     **_) -> LaunchPlan:
-    """The plan of ``bitmap_fit_rounds``, or of its batched entry when every
-    argument has a leading seed axis."""
+    """The plan of ``bitmap_fit_rounds``, batched when every argument has a
+    leading seed axis."""
     return rounds_plan(st.shape[-1], *words.shape[-2:], int(rounds), int(atoms),
                        *st.shape[:-1])
 

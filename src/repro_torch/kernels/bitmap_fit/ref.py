@@ -13,7 +13,6 @@ import torch
 
 # a module import: core.arbiter reaches this module through core.hotpath
 from repro_torch.core import arbiter, bitmap
-from repro_torch.kernels.batching import per_seed
 
 
 def bitmap_fit_ref(
@@ -136,7 +135,3 @@ def bitmap_fit_rounds_blocked_ref(
         st_b, slot, ev, mass, contig, words_b, thr_b, rounds=rounds, atoms=atoms, policy=policy)
     R, W = winner.shape[0], words.shape[1]
     return winner.reshape(R, Zb, M), feas.reshape(R, Zb, M), alloc.reshape(R, Zb, M, W)
-
-
-# the plain version of the batched rounds: every tensor with a leading seed axis
-bitmap_fit_rounds_batched_ref = per_seed(bitmap_fit_rounds_ref)

@@ -13,6 +13,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.batching import dispatch
 from repro_torch.kernels.block_copy.ref import block_copy_ref
 from repro_torch.kernels.launch_plan import LaunchPlan
 
@@ -25,9 +26,10 @@ _SIG = {
 }
 
 
-def launch(plan: LaunchPlan, outs, x) -> None:
+def launch(plan: LaunchPlan, outs, x, given: LaunchPlan | None = None) -> None:
     """Launch ``plan`` from ``x`` into ``outs`` (out,), allocated by the
-    caller; the launch also sets to NaN what no block of the plan writes."""
+    caller; the launch also sets to NaN what no block of the plan writes.
+    ``given``: the wrapper's own plan argument, which is ``plan``."""
     (L,) = plan.launches
     src, dst = L.operands
     _build.expect(x, torch.float32, (src.rows,), "block_copy x")
@@ -45,12 +47,7 @@ def launch(plan: LaunchPlan, outs, x) -> None:
 def block_copy(x: torch.Tensor, plan: LaunchPlan) -> torch.Tensor:
     """``x`` (n,) float32 copied under ``plan``. CPU tensors take
     :func:`block_copy_ref`."""
-    if not x.is_cuda:
-        return block_copy_ref(x, plan)
-    (out,) = plan.new_outputs(x.device)
-    launch(plan, (out,), x)
-    block_copy.launches += 1
-    return out
+    return dispatch(block_copy, plan, launch, block_copy_ref, x, plan)
 
 
 block_copy.launches = 0

@@ -42,3 +42,8 @@ def good_plan(n: int, block_elems: int) -> LaunchPlan:
     if n % block_elems:
         raise ValueError(f"{n} elements do not tile into blocks of {block_elems}")
     return plan(n, block_elems, n // block_elems)
+
+
+def for_call(x, plan: LaunchPlan) -> LaunchPlan:
+    """The plan of ``block_copy(x, plan)``: the one it is given."""
+    return plan

@@ -19,7 +19,8 @@ Operand rows are the units a launch indexes by block: block ``b`` touches rows
 whose row comes from data (scatters by node index) are not listed; the guard
 bands of ``chip_smoke.py`` see those.
 
-A batched plan (:func:`batched`, the lockstep engine's seed axis) runs the
+A batched plan (:func:`batched`, the lockstep engine's seed axis) is the
+entry's own plan for a call whose tensors carry a leading seed axis: the
 same launches over ``seeds`` seeds at once: ``Launch.seeds`` is a second grid
 dimension, every operand's rows are one seed's (seed ``s`` addresses its own
 copy of each operand), every output has a leading seed axis, and the scratch
@@ -124,14 +125,14 @@ class LaunchPlan:
 
 
 def batched(plan: LaunchPlan, seeds: int, scratch_stride: int = 0) -> LaunchPlan:
-    """``plan`` over ``seeds`` seeds in one launch each: the entry
-    ``<entry>_batched``, every launch with ``seeds`` set, every output with a
+    """``plan`` over ``seeds`` seeds in one launch each: the same entry,
+    every launch with ``seeds`` set, every output with a
     leading seed axis, and one copy of the scratch carve-outs a seed,
     ``scratch_stride`` words apart."""
     if seeds < 1:
-        raise ValueError(f"{plan.entry}_batched: {seeds} seeds; a batch holds at least one")
+        raise ValueError(f"{plan.entry}: {seeds} seeds; a batch holds at least one")
     return LaunchPlan(
-        entry=f"{plan.entry}_batched",
+        entry=plan.entry,
         source=plan.source,
         launches=tuple(dataclasses.replace(L, seeds=seeds) for L in plan.launches),
         outputs=tuple(Output(o.name, (seeds,) + o.shape, o.dtype) for o in plan.outputs),

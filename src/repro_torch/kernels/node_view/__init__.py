@@ -1,4 +1,4 @@
-from repro_torch.kernels.node_view.ops import node_view, node_view_batched
-from repro_torch.kernels.node_view.ref import node_view_batched_ref, node_view_ref
+from repro_torch.kernels.node_view.ops import node_view
+from repro_torch.kernels.node_view.ref import node_view_ref
 
-__all__ = ["node_view", "node_view_batched", "node_view_batched_ref", "node_view_ref"]
+__all__ = ["node_view", "node_view_ref"]

@@ -1,10 +1,10 @@
 """node_view wrappers: the CUDA kernel for a CUDA tensor, else the plain version.
 
 ``node_view`` launches ``node_view_kernel`` of ``csrc/node_view.cu`` on one
-seed's ``(N, W)`` words, ``node_view_batched`` on B seeds' ``(B, N, W)``
-in one launch; each counts its own launches. ``node_view_op`` is the
-custom op the tick calls: the wrapper, with the batched one as its
-batching rule under ``torch.func.vmap`` (``kernels.batching``).
+seed's ``(N, W)`` words or on B seeds' ``(B, N, W)`` in one launch, and
+counts its launches. ``node_view_op`` is the custom op the tick calls: the
+wrapper, called once with the seed axis as its batching rule under
+``torch.func.vmap`` (``kernels.batching``).
 """
 
 from __future__ import annotations
@@ -16,12 +16,12 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.batching import register_batching
+from repro_torch.kernels.batching import dispatch, register_batching
 from repro_torch.kernels.launch_plan import LaunchPlan
 from repro_torch.kernels.node_view import plan as _plan
-from repro_torch.kernels.node_view.ref import node_view_batched_ref, node_view_ref
+from repro_torch.kernels.node_view.ref import node_view_ref
 
-__all__ = ["node_view", "node_view_batched"]
+__all__ = ["node_view"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,40 +59,20 @@ def node_view(words: torch.Tensor, *, atoms: int):
     """Each row's (free atoms (N,), longest free run (N,)), float32, of the
     ``(N, W)`` int32 words whose first ``atoms`` bits are atoms (the bits
     past them count as occupied), as :func:`node_view_ref` computes them.
+    Words ``(B, N, W)`` of B seeds give ``(B, N)`` outputs in one launch.
     CPU tensors take the plain version."""
-    if not words.is_cuda:
-        return node_view_ref(words, atoms=atoms)
-    plan = _plan.for_call(words, atoms=atoms)
-    outs = plan.new_outputs(words.device)
-    launch(plan, outs, words, atoms=atoms)
-    node_view.launches += 1
-    return tuple(outs)
+    return dispatch(node_view, _plan.for_call(words, atoms=atoms), launch, node_view_ref, words,
+                    atoms=atoms)
 
 
 node_view.launches = 0
-
-
-def node_view_batched(words: torch.Tensor, *, atoms: int):
-    """:func:`node_view` of B seeds at once: words ``(B, N, W)``, outputs
-    ``(B, N)``. A CUDA tensor launches the kernel once; CPU tensors take
-    :func:`node_view_batched_ref`."""
-    if not words.is_cuda:
-        return node_view_batched_ref(words, atoms=atoms)
-    plan = _plan.for_call(words, atoms=atoms)
-    outs = plan.new_outputs(words.device)
-    launch(plan, outs, words, atoms=atoms)
-    node_view_batched.launches += 1
-    return tuple(outs)
-
-
-node_view_batched.launches = 0
 
 
 @torch.library.custom_op("repro_torch::node_view", mutates_args=(),
                          device_types=("cpu", "cuda"))
 def node_view_op(words: Tensor, *, atoms: int) -> Tuple[Tensor, Tensor]:
     """:func:`node_view` as a custom op (the wrapper, looked up at each
-    call); under ``vmap``, one :func:`node_view_batched`."""
+    call); under ``vmap``, one call of it with the seed axis."""
     return node_view(words, atoms=atoms)
 
 
@@ -102,4 +82,4 @@ def _(words, *, atoms):
     return words.new_empty(shape, dtype=torch.float32), words.new_empty(shape, dtype=torch.float32)
 
 
-register_batching(node_view_op, node_view_batched)
+register_batching(node_view_op, node_view)

@@ -2,8 +2,8 @@
 
 ``node_view`` launches ``node_view_kernel`` over the ``(N, W)`` words,
 ``ceil(N / THREADS)`` CTAs of ``THREADS``, thread ``i`` of CTA ``b`` on row
-``THREADS * b + i``; ``node_view_batched`` the same kernel over B seeds
-(grid ``(ceil(N / THREADS), B)``).
+``THREADS * b + i``; given a leading seed axis, the same kernel over B
+seeds (grid ``(ceil(N / THREADS), B)``).
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ THREADS = 256  # kThreads of csrc/node_view.cu
 @functools.lru_cache(maxsize=None)
 def plan(N: int, W: int, atoms: int, seeds: int = 0) -> LaunchPlan:
     """One launch over N rows of W words, ``atoms`` bits of each an atom.
-    ``seeds``: 0 for one seed's call, else the batched entry's over that
-    many seeds."""
+    ``seeds``: 0 for one seed's call, else that of a call with a seed axis
+    of that many seeds."""
     if W < 1 or not 1 <= atoms <= 32 * W:
         raise ValueError(f"node_view: {atoms} atoms in {W} words of 32 bits")
     if seeds:
@@ -38,6 +38,6 @@ def plan(N: int, W: int, atoms: int, seeds: int = 0) -> LaunchPlan:
 
 
 def for_call(words, *, atoms: int) -> LaunchPlan:
-    """The plan of ``node_view``, or of its batched entry when the words
-    have a leading seed axis."""
+    """The plan of ``node_view``, batched when the words have a leading
+    seed axis."""
     return plan(*words.shape[-2:], atoms, *words.shape[:-2])

@@ -18,8 +18,3 @@ def node_view_ref(words: torch.Tensor, *, atoms: int):
     bits = bitmap.unpack_bits(words, atoms)
     s = torch.sum(bits, dim=-1).to(torch.float32)
     return s, bitmap.max_run(bits).to(torch.float32)
-
-
-# the plain version of the batched entry: the seed axis is one more leading
-# axis of the words, so one call serves every seed
-node_view_batched_ref = node_view_ref

@@ -1,5 +1,4 @@
-from repro_torch.kernels.survival_scan.ops import survival_scan, survival_scan_batched
-from repro_torch.kernels.survival_scan.ref import survival_scan_batched_ref, survival_scan_ref
+from repro_torch.kernels.survival_scan.ops import survival_scan
+from repro_torch.kernels.survival_scan.ref import survival_scan_ref
 
-__all__ = ["survival_scan", "survival_scan_batched", "survival_scan_batched_ref",
-           "survival_scan_ref"]
+__all__ = ["survival_scan", "survival_scan_ref"]

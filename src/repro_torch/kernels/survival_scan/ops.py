@@ -1,10 +1,10 @@
 """survival_scan wrappers: the CUDA kernel for a CUDA tensor, else the plain version.
 
-``survival_scan`` runs one seed's table (one cluster), ``survival_scan_batched``
-B seeds' tables in one launch (B clusters); each counts its own launches.
-``survival_scan_op`` is the custom op the tick calls (``core.hotpath``): the
-wrapper, with ``survival_scan_batched`` as its batching rule under
-``torch.func.vmap`` (``kernels.batching``).
+``survival_scan`` runs one seed's table (one cluster) or, given a leading
+seed axis, B seeds' tables in one launch (B clusters), and counts its
+launches. ``survival_scan_op`` is the custom op the tick calls
+(``core.hotpath``): the wrapper, called once with the seed axis as its
+batching rule under ``torch.func.vmap`` (``kernels.batching``).
 """
 
 from __future__ import annotations
@@ -16,12 +16,12 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.batching import register_batching
+from repro_torch.kernels.batching import dispatch, register_batching
 from repro_torch.kernels.launch_plan import LaunchPlan
 from repro_torch.kernels.survival_scan import plan as _plan
-from repro_torch.kernels.survival_scan.ref import survival_scan_batched_ref, survival_scan_ref
+from repro_torch.kernels.survival_scan.ref import survival_scan_ref
 
-__all__ = ["survival_scan", "survival_scan_batched"]
+__all__ = ["survival_scan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,73 +87,29 @@ def cluster_occupancy(plan: LaunchPlan) -> dict:
 
 
 def survival_scan(
-    st,
-    alloc_node,
-    mem,
-    ev,
-    tier,
-    migrating,
-    susp_tick,
-    surv_deadline,
-    base,
-    t,
-    *,
-    airlock: bool,
-    residual: float,
-    watermark: float,
-    safe: float,
-    t_susp: int,
-    t_surv: int,
+    st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t, *,
+    airlock: bool, residual: float, watermark: float, safe: float, t_susp: int, t_surv: int,
 ):
     """Per-tick survival decision: (pressure, victim, resume, react, expire).
 
     Columns (P,): ``st``, ``alloc_node``, ``tier``, ``susp_tick``,
     ``surv_deadline`` int32; ``mem``, ``ev`` float32; ``migrating`` bool.
     ``base`` (N,) float32; ``t`` a 0-d int32 tensor on the same device (the
-    kernel reads it there, so no host sync). CPU tensors take
-    :func:`survival_scan_ref`.
+    kernel reads it there, so no host sync). With a leading seed axis on
+    every tensor (columns (B, P), ``base`` (B, N), ``t`` (B,)) the outputs
+    have it too: one launch of B clusters. CPU tensors take
+    :func:`survival_scan_ref`, seed by seed.
     """
     kw = dict(
         airlock=airlock, residual=residual, watermark=watermark, safe=safe,
         t_susp=t_susp, t_surv=t_surv,
     )
     args = (st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t)
-    if not st.is_cuda:
-        return survival_scan_ref(*args, **kw)
-    plan = _plan.for_call(*args, **kw)
-    outs = plan.new_outputs(st.device)
-    launch(plan, outs, *args, **kw)
-    survival_scan.launches += 1
-    return tuple(outs)
+    return dispatch(survival_scan, _plan.for_call(*args, **kw), launch, survival_scan_ref,
+                    *args, **kw)
 
 
 survival_scan.launches = 0
-
-
-def survival_scan_batched(
-    st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t, *,
-    airlock: bool, residual: float, watermark: float, safe: float, t_susp: int, t_surv: int,
-):
-    """:func:`survival_scan` of B seeds at once: every column (B, P),
-    ``base`` (B, N), ``t`` (B,); the outputs with a leading seed axis. A
-    CUDA tensor launches the batched kernel once (one 16-CTA cluster a
-    seed); CPU tensors take :func:`survival_scan_batched_ref`, the plain
-    version seed by seed."""
-    kw = dict(
-        airlock=airlock, residual=residual, watermark=watermark, safe=safe,
-        t_susp=t_susp, t_surv=t_surv,
-    )
-    args = (st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t)
-    if not st.is_cuda:
-        return survival_scan_batched_ref(*args, **kw)
-    plan = _plan.for_call(*args, **kw)
-    outs = plan.new_outputs(st.device)
-    launch(plan, outs, *args, **kw)
-    survival_scan_batched.launches += 1
-    return tuple(outs)
-
-
-survival_scan_batched.launches = 0
 
 
 @torch.library.custom_op("repro_torch::survival_scan", mutates_args=(),
@@ -164,7 +120,7 @@ def survival_scan_op(
     residual: float, watermark: float, safe: float, t_susp: int, t_surv: int,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """:func:`survival_scan` as a custom op (the wrapper, looked up at each
-    call); under ``vmap``, one :func:`survival_scan_batched`."""
+    call); under ``vmap``, one call of it with the seed axis."""
     return survival_scan(
         st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t,
         airlock=airlock, residual=residual, watermark=watermark, safe=safe, t_susp=t_susp,
@@ -178,4 +134,4 @@ def _(st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, 
     return (base.new_empty(base.shape), *(st.new_empty((P,), dtype=torch.bool) for _ in range(4)))
 
 
-register_batching(survival_scan_op, survival_scan_batched)
+register_batching(survival_scan_op, survival_scan)

@@ -84,8 +84,8 @@ def scratch_layout(P: int, N: int):
 @functools.lru_cache(maxsize=None)
 def plan(P: int, N: int, airlock: bool, seeds: int = 0) -> LaunchPlan:
     """The one launch at (P, N). Airlock changes what the kernel computes,
-    not its geometry. ``seeds``: 0 for one seed's call, else
-    ``survival_scan_batched``'s over that many seeds: cluster ``b`` on seed
+    not its geometry. ``seeds``: 0 for one seed's call, else that of a call
+    with a seed axis of that many seeds: cluster ``b`` on seed
     ``b``'s columns, outputs and scratch (no cluster barrier spans two
     seeds); clusters past what the card holds at once
     (``cudaOccupancyMaxActiveClusters``) run in later waves."""
@@ -135,6 +135,6 @@ def launch_args(P: int, N: int, airlock: bool):
 
 def for_call(st, alloc_node, mem, ev, tier, migrating, susp_tick, surv_deadline, base, t,
              *, airlock: bool, **_) -> LaunchPlan:
-    """The plan of ``survival_scan``, or of its batched entry when the
-    columns have a leading seed axis."""
+    """The plan of ``survival_scan``, batched when the columns have a
+    leading seed axis."""
     return plan(st.shape[-1], base.shape[-1], bool(airlock), *st.shape[:-1])

@@ -17,8 +17,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.batching import per_seed
-
 EMPTY = 0
 RUNNING = 6
 SUSPENDED = 7
@@ -97,7 +95,3 @@ def survival_scan_ref(
     deadline = torch.where(react, t + t_surv, surv_deadline)
     expire = (mig_rc | react) & (t > deadline) & (st_rc != EMPTY) & (st_rc != RUNNING)
     return pressure, victim, resume, react, expire
-
-
-# the plain version of the batched entry: every tensor with a leading seed axis
-survival_scan_batched_ref = per_seed(survival_scan_ref)

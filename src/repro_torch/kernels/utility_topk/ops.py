@@ -3,9 +3,9 @@
 ``utility_topk`` launches ``utility_topk_kernel`` on scored ``(P, K)`` tiles
 (the TPU kernel's function); ``utility_topk_address`` launches
 ``utility_topk_address_kernel``, the whole DA addressing step over the probe
-table, and ``utility_topk_address_batched`` the same kernel over B seeds in
-one launch. Each counts its own launches. ``utility_topk_address_op`` is the
-custom op the tick calls: the wrapper, with the batched one as its batching
+table, one seed's or, given a leading seed axis, B seeds' in one launch.
+Each counts its launches. ``utility_topk_address_op`` is the custom op the
+tick calls: the wrapper, called once with the seed axis as its batching
 rule under ``torch.func.vmap`` (``kernels.batching``).
 """
 
@@ -19,16 +19,12 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.batching import register_batching
+from repro_torch.kernels.batching import dispatch, register_batching
 from repro_torch.kernels.launch_plan import LaunchPlan
 from repro_torch.kernels.utility_topk import plan as _plan
-from repro_torch.kernels.utility_topk.ref import (
-    utility_topk_address_batched_ref,
-    utility_topk_address_ref,
-    utility_topk_ref,
-)
+from repro_torch.kernels.utility_topk.ref import utility_topk_address_ref, utility_topk_ref
 
-__all__ = ["utility_topk", "utility_topk_address", "utility_topk_address_batched"]
+__all__ = ["utility_topk", "utility_topk_address"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -170,51 +166,25 @@ def utility_topk(
     ``s_pred``, ``h_pred``, ``eps`` (P, K) float32, ``feasible`` (P, K) bool.
     CPU tensors take :func:`utility_topk_ref`.
     """
-    if not s_pred.is_cuda:
-        return utility_topk_ref(s_pred, h_pred, eps, feasible, gamma)
-    plan = _plan.for_call(s_pred, h_pred, eps, feasible, gamma)
-    best, val = plan.new_outputs(s_pred.device)
-    launch(plan, (best, val), s_pred, h_pred, eps, feasible, gamma)
-    utility_topk.launches += 1
-    return best, val
+    args = (s_pred, h_pred, eps, feasible, gamma)
+    return dispatch(utility_topk, _plan.for_call(*args), launch, utility_topk_ref, *args)
 
 
 def utility_topk_address(*args, **kw):
     """One DA addressing round for every slot with ``st == ADDRESSING``:
     the new ``st``, ``node``, ``zone``, ``timer``, ``patience`` (P,) and the
     int32 counts ``(op_eval, op_bounce, fastfail)``, as
-    :func:`utility_topk_address_ref` defines them (its arguments). The
-    outputs are new tensors; no input is written. CPU tensors take the
-    plain version."""
-    if not args[0].is_cuda:
-        return utility_topk_address_ref(*args, **kw)
-    plan = _plan.for_address_call(*args, **kw)
-    outs = plan.new_outputs(args[0].device)
-    launch_address(plan, outs, *args, **kw)
-    utility_topk_address.launches += 1
-    return tuple(outs)
+    :func:`utility_topk_address_ref` defines them (its arguments). With a
+    leading seed axis on every input (the tick (B,)) the outputs have it
+    too (counts (B, 3)): one launch for all seeds. The outputs are new
+    tensors; no input is written. CPU tensors take the plain version, seed
+    by seed."""
+    return dispatch(utility_topk_address, _plan.for_address_call(*args, **kw), launch_address,
+                    utility_topk_address_ref, *args, **kw)
 
 
 utility_topk.launches = 0
 utility_topk_address.launches = 0
-
-
-def utility_topk_address_batched(*args, **kw):
-    """:func:`utility_topk_address` of B seeds at once: every input with a
-    leading seed axis (the tick (B,)), the outputs too (counts (B, 3)). A
-    CUDA tensor launches the batched kernel once; CPU tensors take
-    :func:`utility_topk_address_batched_ref`, the plain version seed by
-    seed."""
-    if not args[0].is_cuda:
-        return utility_topk_address_batched_ref(*args, **kw)
-    plan = _plan.for_address_call(*args, **kw)
-    outs = plan.new_outputs(args[0].device)
-    launch_address(plan, outs, *args, **kw)
-    utility_topk_address_batched.launches += 1
-    return tuple(outs)
-
-
-utility_topk_address_batched.launches = 0
 
 
 @torch.library.custom_op("repro_torch::utility_topk_address", mutates_args=(),
@@ -229,7 +199,7 @@ def utility_topk_address_op(
     degrade_after_ms: float, degrade_halflife_ms: float,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """:func:`utility_topk_address` as a custom op (the wrapper, looked up at
-    each call); under ``vmap``, one :func:`utility_topk_address_batched`."""
+    each call); under ``vmap``, one call of it with the seed axis."""
     return utility_topk_address(
         st, node, zone, timer, patience, migrating, mass, contig, cand_u, addr_eps, zstart,
         zcount, zone_id, rep_S, rep_H, rep_run, rep_t, dS, dH, s_true, h_true, run_true, t,
@@ -245,4 +215,4 @@ def _(st, node, zone, timer, patience, *_, **__):
             st.new_empty((3,)))
 
 
-register_batching(utility_topk_address_op, utility_topk_address_batched)
+register_batching(utility_topk_address_op, utility_topk_address)

@@ -2,8 +2,8 @@
 
 ``utility_topk`` launches ``utility_topk_kernel`` over the ``(P, K)`` tiles;
 ``utility_topk_address`` launches ``utility_topk_address_kernel`` over the
-probe columns, a warp 32 slots, and ``utility_topk_address_batched`` the
-same kernel over B seeds (grid ``(ceil(P / THREADS), B)``). The address
+probe columns, a warp 32 slots, and given a leading seed axis the same
+kernel over B seeds (grid ``(ceil(P / THREADS), B)``). The address
 kernel reads the zone and node vectors at data-dependent rows (not listed)
 and sums its three counts in an accumulator of its own
 (``ACC_POOL_WORDS``), which the last CTA of a seed moves into the
@@ -63,7 +63,7 @@ def for_call(s_pred, h_pred, eps, feasible, gamma) -> LaunchPlan:
 def address_plan(P: int, K: int, seeds: int = 0) -> LaunchPlan:
     """The one launch of ``utility_topk_address`` over P slots of K
     candidates; the counts are written whatever P. ``seeds``: 0 for one
-    seed's call, else ``utility_topk_address_batched``'s over that many
+    seed's call, else that of a call with a seed axis of that many
     seeds, block row ``blockIdx.y`` on seed ``blockIdx.y``'s columns, zones
     and nodes."""
     if seeds:
@@ -86,6 +86,6 @@ def address_plan(P: int, K: int, seeds: int = 0) -> LaunchPlan:
 
 def for_address_call(st, node, zone, timer, patience, migrating, mass, contig, cand_u,
                      addr_eps, *_, **__) -> LaunchPlan:
-    """The plan of ``utility_topk_address``, or of its batched entry when
-    the columns have a leading seed axis."""
+    """The plan of ``utility_topk_address``, batched when the columns have
+    a leading seed axis."""
     return address_plan(st.shape[-1], addr_eps.shape[-1], *st.shape[:-1])

@@ -15,7 +15,6 @@ import torch
 # module imports: core reaches this module through core.hotpath
 from repro_torch.core import state as _state
 from repro_torch.core import utility as _utility
-from repro_torch.kernels.batching import per_seed
 
 NEG = -3.0e38
 
@@ -139,8 +138,3 @@ def utility_topk_address_ref(*args, **kw):
         [_state.count(active), _state.count(bounce & ~ff), _state.count(ff)]
     )
     return st_new, node, zone, timer, patience, counts
-
-
-# the plain version of the batched addressing step: every tensor with a
-# leading seed axis (the tick a (B,) vector)
-utility_topk_address_batched_ref = per_seed(utility_topk_address_ref)

@@ -4,11 +4,11 @@ Both entries launch the one ``zone_aggregate_kernel`` of
 ``csrc/zone_aggregate.cu`` and count their own launches:
 ``zone_aggregate`` on gathered ``(Z, M)`` tiles (the TPU kernel's
 function), ``zone_aggregate_members`` on the node vectors and the zone member
-index, with the TEG refresh's select when given the tick;
-``zone_aggregate_members_batched`` the refresh of B seeds in one launch.
+index, with the TEG refresh's select when given the tick, and given a
+leading seed axis the refresh of B seeds in one launch.
 ``zone_aggregate_members_op`` is the custom op the tick calls: the wrapper,
-with the batched one as its batching rule under ``torch.func.vmap``
-(``kernels.batching``).
+called once with the seed axis as its batching rule under
+``torch.func.vmap`` (``kernels.batching``).
 """
 
 from __future__ import annotations
@@ -20,16 +20,12 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.batching import register_batching
+from repro_torch.kernels.batching import dispatch, register_batching
 from repro_torch.kernels.launch_plan import LaunchPlan
 from repro_torch.kernels.zone_aggregate import plan as _plan
-from repro_torch.kernels.zone_aggregate.ref import (
-    zone_aggregate_members_batched_ref,
-    zone_aggregate_members_ref,
-    zone_aggregate_ref,
-)
+from repro_torch.kernels.zone_aggregate.ref import zone_aggregate_members_ref, zone_aggregate_ref
 
-__all__ = ["zone_aggregate", "zone_aggregate_members", "zone_aggregate_members_batched"]
+__all__ = ["zone_aggregate", "zone_aggregate_members"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -103,13 +99,8 @@ def zone_aggregate(
 
     All three inputs (Z, M) float32. CPU tensors take :func:`zone_aggregate_ref`.
     """
-    if not s_gather.is_cuda:
-        return zone_aggregate_ref(s_gather, h_gather, mask)
-    plan = _plan.for_call(s_gather, h_gather, mask)
-    zs, zh = plan.new_outputs(s_gather.device)
-    launch(plan, (zs, zh), s_gather, h_gather, mask)
-    zone_aggregate.launches += 1
-    return zs, zh
+    return dispatch(zone_aggregate, _plan.for_call(s_gather, h_gather, mask), launch,
+                    zone_aggregate_ref, s_gather, h_gather, mask)
 
 
 def zone_aggregate_members(
@@ -129,41 +120,18 @@ def zone_aggregate_members(
     ``rep_S``, ``rep_H`` (N,) float32, ``member`` (Z, M) int32, ``mask``
     (Z, M) float32; ``t`` the tick (int32 scalar on the device) with the old
     ``zS``, ``zH`` (Z,) for the refresh select, decided in the kernel: no
-    host sync. The outputs are new tensors, never the old table. CPU tensors
-    take the plain version.
+    host sync. With a leading seed axis on every tensor (the tick (B,)) the
+    outputs are (B, Z): one launch for all seeds. The outputs are new
+    tensors, never the old table. CPU tensors take the plain version, seed
+    by seed.
     """
     args = (rep_S, rep_H, member, mask, t, zS, zH)
-    if not rep_S.is_cuda:
-        return zone_aggregate_members_ref(*args, every=every)
-    plan = _plan.for_members_call(*args)
-    outs = plan.new_outputs(rep_S.device)
-    launch_members(plan, outs, *args, every=every)
-    zone_aggregate_members.launches += 1
-    return tuple(outs)
+    return dispatch(zone_aggregate_members, _plan.for_members_call(*args), launch_members,
+                    zone_aggregate_members_ref, *args, every=every)
 
 
 zone_aggregate.launches = 0
 zone_aggregate_members.launches = 0
-
-
-def zone_aggregate_members_batched(rep_S, rep_H, member, mask, t=None, zS=None, zH=None, *,
-                                   every: int = 1):
-    """:func:`zone_aggregate_members` of B seeds at once: every input with a
-    leading seed axis (the tick (B,)), the outputs (B, Z). A CUDA tensor
-    launches the batched kernel once; CPU tensors take
-    :func:`zone_aggregate_members_batched_ref`, the plain version seed by
-    seed."""
-    args = (rep_S, rep_H, member, mask, t, zS, zH)
-    if not rep_S.is_cuda:
-        return zone_aggregate_members_batched_ref(*args, every=every)
-    plan = _plan.for_members_call(*args)
-    outs = plan.new_outputs(rep_S.device)
-    launch_members(plan, outs, *args, every=every)
-    zone_aggregate_members_batched.launches += 1
-    return tuple(outs)
-
-
-zone_aggregate_members_batched.launches = 0
 
 
 @torch.library.custom_op("repro_torch::zone_aggregate_members", mutates_args=(),
@@ -173,7 +141,7 @@ def zone_aggregate_members_op(
     zS: Optional[Tensor] = None, zH: Optional[Tensor] = None, *, every: int = 1,
 ) -> Tuple[Tensor, Tensor]:
     """:func:`zone_aggregate_members` as a custom op (the wrapper, looked up
-    at each call); under ``vmap``, one :func:`zone_aggregate_members_batched`."""
+    at each call); under ``vmap``, one call of it with the seed axis."""
     return zone_aggregate_members(rep_S, rep_H, member, mask, t, zS, zH, every=every)
 
 
@@ -183,4 +151,4 @@ def _(rep_S, rep_H, member, mask, *_, **__):
     return rep_S.new_empty((Z,)), rep_S.new_empty((Z,))
 
 
-register_batching(zone_aggregate_members_op, zone_aggregate_members_batched)
+register_batching(zone_aggregate_members_op, zone_aggregate_members)

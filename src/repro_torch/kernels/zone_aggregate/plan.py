@@ -22,8 +22,8 @@ MAX_WARPS = 32  # kMaxThreads / 32 of csrc/zone_aggregate.cu
 @functools.lru_cache(maxsize=None)
 def plan(entry: str, Z: int, M: int, seeds: int = 0) -> LaunchPlan:
     """``entry``'s one launch over Z zone rows of M slots. ``seeds``: 0 for
-    one seed's call, else the batched entry's over that many seeds: grid
-    (ceil(Z / warps), seeds), block row ``blockIdx.y`` on seed
+    one seed's call, else that of a call with a seed axis of that many
+    seeds: grid (ceil(Z / warps), seeds), block row ``blockIdx.y`` on seed
     ``blockIdx.y``'s node vectors, members and table."""
     if seeds:
         return batched(plan(entry, Z, M), seeds)
@@ -46,6 +46,6 @@ def for_call(s_gather, h_gather, mask) -> LaunchPlan:
 
 
 def for_members_call(rep_S, rep_H, member, mask, *_, **__) -> LaunchPlan:
-    """The plan of ``zone_aggregate_members``, or of its batched entry when
-    the member index has a leading seed axis."""
+    """The plan of ``zone_aggregate_members``, batched when the member
+    index has a leading seed axis."""
     return plan("zone_aggregate_members", *member.shape[-2:], *member.shape[:-2])

@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.batching import per_seed
 
 
 def zone_aggregate_ref(
@@ -43,8 +42,3 @@ def zone_aggregate_members_ref(
         return zs, zh
     due = (t % every) == 0
     return torch.where(due, zs, zS), torch.where(due, zh, zH)
-
-
-# the plain version of the batched refresh: every tensor with a leading seed
-# axis (the tick a (B,) vector)
-zone_aggregate_members_batched_ref = per_seed(zone_aggregate_members_ref)

@@ -16,8 +16,8 @@ runs the tick of the zone-sharded engine on a one-rank NCCL group instead
 of the flat tick, and also counts its ``all_gather`` calls a tick.
 ``--batch B`` runs B seeds (0 to B - 1) in lockstep instead, the flat tick
 under ``torch.func.vmap`` (``LaminarEngine.simulate_batch``): every number
-is then a batched tick's (B seed-ticks), the hand-written kernels are the
-batched entries', and the rounds traffic is a seed's. It needs a CUDA card
+is then a batched tick's (B seed-ticks), each hand-written kernel launches
+once for all seeds, and the rounds traffic is a seed's. It needs a CUDA card
 and exits non-zero without one.
 
 Beside that eager tick (``make_step`` driven by hand), every run also
@@ -44,15 +44,12 @@ import torch
 from repro_torch.core import LaminarConfig, MemoryConfig
 from repro_torch.core.draws import BatchDraws
 from repro_torch.core.engine import LaminarEngine, make_step
+from repro_torch.kernels import ENTRIES, HAND_WRITTEN
 
 WARMUP_TICKS = 200  # past the start-up transient: the probe table has filled
 WINDOW_TICKS = 20
 EXP7_NODES = 65536  # bench_exp7_scale.py --full, top cell
 EXP7_TICKS = 100  # bench_exp7_scale.py NUM_TICKS
-# the port's hand-written kernels, as the profiler names them
-HAND_WRITTEN = ("bitmap_fit_rounds_kernel", "bitmap_fit_rounds_blocked_kernel",
-                "bitmap_fit_kernel", "utility_topk_address_kernel", "utility_topk_kernel",
-                "zone_aggregate_kernel", "survival_cluster_kernel", "node_view_kernel")
 
 
 def exp5_config(airlock: bool, full: bool = True, ticks: int = 2400) -> LaminarConfig:
@@ -89,14 +86,12 @@ def exp7_config(num_nodes: int = EXP7_NODES) -> LaminarConfig:
 
 @contextmanager
 def recording(*entries: str):
-    """Record every call of the named kernel entries (``kernels.WRAPPERS``)
+    """Record every call of the named kernel entries (``kernels.ENTRIES``)
     made while the block runs, into the dict it yields: entry -> a list of
     ``(args, kw, outputs)``, ``args`` copies of the tensors the call was
     given. The wrapper is replaced on its module, where ``core.hotpath``
     looks it up at each call, and restored after."""
     import importlib
-
-    from repro_torch.kernels import WRAPPERS
 
     calls = {e: [] for e in entries}
     patched = []
@@ -117,7 +112,7 @@ def recording(*entries: str):
 
     try:
         for e in entries:
-            mod = importlib.import_module(WRAPPERS[e].__module__)
+            mod = importlib.import_module(ENTRIES[e].wrapper.__module__)
             real = getattr(mod, e)
             setattr(mod, e, recorder(mod, e, real))
             patched.append((mod, e, real))
@@ -172,8 +167,8 @@ def batch_ticker(cfg: LaminarConfig, seeds, device="cuda"):
 
 def batch_tick_calls(cfg: LaminarConfig, seeds, warmup: int, ticks: int, entries,
                      device="cuda") -> dict:
-    """The calls of the named kernel entries (:func:`recording`: the
-    batched entries) in lockstep ticks ``warmup`` to ``warmup + ticks - 1``
+    """The calls of the named kernel entries (:func:`recording`, each call
+    with the seed axis) in lockstep ticks ``warmup`` to ``warmup + ticks - 1``
     of ``seeds``."""
     advance = batch_ticker(cfg, seeds, device)
     advance(warmup)
@@ -183,7 +178,7 @@ def batch_tick_calls(cfg: LaminarConfig, seeds, warmup: int, ticks: int, entries
 
 
 def per_seed_calls(calls) -> list:
-    """Recorded batched calls as the unbatched calls of each seed."""
+    """Recorded calls with a seed axis as the calls of each seed."""
     return [(tuple(a[i] if isinstance(a, torch.Tensor) else a for a in args), kw,
              tuple(o[i] for o in outs))
             for args, kw, outs in calls for i in range(args[0].shape[0])]
@@ -359,7 +354,7 @@ def profile_batch(airlock: bool, B: int) -> int:
     sb, lam = eng.init_batch(list(range(B)))
     draws = BatchDraws([eng.draws(lam, sb.zstart.shape[1], sd) for sd in range(B)])
     print_replayed(replayed_window(eng, sb, draws, lockstep=True))
-    entry = "bitmap_fit_rounds_batched"
+    entry = "bitmap_fit_rounds"
     with recording(entry) as calls:
         advance(n)
     tick = WARMUP_TICKS + 2 * n
@@ -401,7 +396,7 @@ def replayed_window(eng, s, draws, lockstep: bool, warmup: int = WARMUP_TICKS,
     label = f"lockstep, B = {seeds}" if lockstep else (
         "sharded" if isinstance(eng, ZoneShardedEngine) else "flat")
     return dict(window(advance, n), enqueue_ms=t_enq / n * 1e3, finished_ms=t_all / n * 1e3,
-                census=census, entries=tick_entries(census["names"], lockstep),
+                census=census, entries=tick_entries(census["names"]),
                 label=label, seeds=seeds)
 
 

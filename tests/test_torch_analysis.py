@@ -351,11 +351,45 @@ def test_bitmap_fit_rounds_plan_and_limits():
 
 
 def test_plans_are_cached_by_shape():
-    from repro_torch.kernels import PLANS
+    from repro_torch.kernels import ENTRIES
 
     args = (torch.zeros(300, 2, dtype=torch.int32), torch.zeros(300, dtype=torch.int32),
             torch.zeros(300, dtype=torch.bool))
-    assert PLANS["bitmap_fit"](*args) is PLANS["bitmap_fit"](*args)
+    assert ENTRIES["bitmap_fit"].plan(*args) is ENTRIES["bitmap_fit"].plan(*args)
+
+
+def test_the_entries_are_the_one_list_of_the_kernels():
+    """``kernels.ENTRIES`` is the one list of the hand-written kernels: its
+    sources are ``csrc/*.cu`` (what the build compiles), every
+    ``__global__`` a package's ``plan.KERNELS`` declares is an entry's and
+    every entry's is its package's, each wrapper is found on its module by
+    its name (the custom op's batching rule and the recording patch look it
+    up there), and the profiler's and the graph census's lists are the
+    table's."""
+    import importlib
+
+    from repro_torch import kernel_bench, profile_tick
+    from repro_torch.kernels import ENTRIES, HAND_WRITTEN, LOCKSTEP, SOURCES, _build
+
+    assert sorted(SOURCES) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert sorted(_build.NAMES) == sorted(SOURCES)
+    declared = {(src, k.split("<")[0]) for src in SOURCES
+                for k in importlib.import_module(f"repro_torch.kernels.{src}.plan").KERNELS}
+    assert declared == {(e.source, e.kernel) for e in ENTRIES.values()}
+    for name, e in ENTRIES.items():
+        assert getattr(importlib.import_module(e.wrapper.__module__), name) is e.wrapper
+        assert isinstance(e.wrapper.launches, int)
+    assert LOCKSTEP == ("bitmap_fit_rounds", "utility_topk_address", "zone_aggregate_members",
+                        "survival_scan", "node_view")
+    assert all(ENTRIES[name].tick for name in LOCKSTEP)
+    assert profile_tick.HAND_WRITTEN == HAND_WRITTEN == tuple(dict.fromkeys(
+        e.kernel for e in ENTRIES.values()))
+    # a graph's kernel nodes, mangled as cuFuncGetName gives them, by entry
+    names = [f"_ZN12_GLOBAL__N_1{len(k)}{k}ILi1EEEvPKi" for k in HAND_WRITTEN]
+    assert kernel_bench.tick_entries(names + ["ncclDevKernel_AllGather_RING_LL"]) == {
+        "bitmap_fit_kernel": 1, "bitmap_fit_rounds": 1, "bitmap_fit_rounds_blocked": 1,
+        "utility_topk_kernel": 1, "utility_topk_address": 1, "zone_aggregate_members": 1,
+        "survival_scan": 1, "node_view": 1, "block_copy_kernel": 1}
 
 
 def test_block_copy_cpu_route_is_the_interpreter():

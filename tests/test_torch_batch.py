@@ -35,22 +35,16 @@ from repro_torch.core.engine import LaminarEngine as TorchEngine
 from repro_torch.core.engine import make_step, seed_state
 from repro_torch.core.state import state_to_numpy
 from repro_torch.kernel_bench import batched_inputs
-from repro_torch.kernels import BATCHED, WRAPPERS
-from repro_torch.kernels.bitmap_fit import bitmap_fit_rounds_batched, bitmap_fit_rounds_batched_ref
+from repro_torch.kernels import ENTRIES, LOCKSTEP
+from repro_torch.kernels.bitmap_fit import bitmap_fit_rounds
 from repro_torch.kernels.bitmap_fit.ops import bitmap_fit_rounds_op
-from repro_torch.kernels.node_view import node_view_batched, node_view_batched_ref
+from repro_torch.kernels.node_view import node_view
 from repro_torch.kernels.node_view.ops import node_view_op
-from repro_torch.kernels.survival_scan import survival_scan_batched, survival_scan_batched_ref
+from repro_torch.kernels.survival_scan import survival_scan
 from repro_torch.kernels.survival_scan.ops import survival_scan_op
-from repro_torch.kernels.utility_topk import (
-    utility_topk_address_batched,
-    utility_topk_address_batched_ref,
-)
+from repro_torch.kernels.utility_topk import utility_topk_address
 from repro_torch.kernels.utility_topk.ops import utility_topk_address_op
-from repro_torch.kernels.zone_aggregate import (
-    zone_aggregate_members_batched,
-    zone_aggregate_members_batched_ref,
-)
+from repro_torch.kernels.zone_aggregate import zone_aggregate_members
 from repro_torch.kernels.zone_aggregate.ops import zone_aggregate_members_op
 from repro_torch.workloads import SCENARIOS as T_SCENARIOS
 
@@ -198,13 +192,6 @@ def test_batched_tick_has_no_fallback(fallback_is_an_error):
         assert int(sb.t[0]) == 3
 
 
-BATCHED_REFS = {
-    "bitmap_fit_rounds_batched": bitmap_fit_rounds_batched_ref,
-    "utility_topk_address_batched": utility_topk_address_batched_ref,
-    "zone_aggregate_members_batched": zone_aggregate_members_batched_ref,
-    "survival_scan_batched": survival_scan_batched_ref,
-    "node_view_batched": node_view_batched_ref,
-}
 OPS = {
     "bitmap_fit_rounds": bitmap_fit_rounds_op,
     "utility_topk_address": utility_topk_address_op,
@@ -225,20 +212,17 @@ def _equal(got, want):
 
 @pytest.mark.parametrize("entry", sorted(OPS))
 def test_batching_rule_is_the_plain_version_seed_by_seed(entry, fallback_is_an_error):
-    """On the CPU each custom op under ``vmap``, its batched wrapper and its
-    batched plain version all equal the unbatched plain version applied seed
-    by seed, for seeds whose inputs differ (three seeds; survival_scan with
-    Airlock off too)."""
-    batched = BATCHED[entry]
-    assert batched in WRAPPERS
+    """On the CPU each custom op under ``vmap`` and its wrapper given the
+    seed axis both equal the wrapper applied seed by seed, for seeds whose
+    inputs differ (three seeds; survival_scan with Airlock off too)."""
+    assert OPS[entry] is ENTRIES[entry].op
+    wrapper = ENTRIES[entry].wrapper
     for airlock in ((True, False) if entry == "survival_scan" else (True,)):
-        args, kw = batched_inputs(3, seed=4, airlock=airlock)[batched]
-        unbatched = WRAPPERS[entry]
-        want = [unbatched(*(a[i] if isinstance(a, torch.Tensor) else a for a in args), **kw)
+        args, kw = batched_inputs(3, seed=4, airlock=airlock)[entry]
+        want = [wrapper(*(a[i] if isinstance(a, torch.Tensor) else a for a in args), **kw)
                 for i in range(3)]
         want = tuple(torch.stack(o) for o in zip(*want))
-        _equal(BATCHED_REFS[batched](*args, **kw), want)
-        _equal(WRAPPERS[batched](*args, **kw), want)
+        _equal(wrapper(*args, **kw), want)
         # the op under vmap, the seed axis moved to dim 1 of the first input
         moved = (args[0].movedim(0, 1), *args[1:])
         dims = (1,) + (0,) * (len(args) - 1)
@@ -250,27 +234,28 @@ def test_batching_rule_is_the_plain_version_seed_by_seed(entry, fallback_is_an_e
 
 def test_batching_rule_broadcasts_an_unmapped_input():
     """An input ``vmap`` does not map is every seed's: the rule gives the
-    batched entry a copy a seed."""
-    args, kw = batched_inputs(2, seed=6)["bitmap_fit_rounds_batched"]
+    entry a copy a seed."""
+    args, kw = batched_inputs(2, seed=6)["bitmap_fit_rounds"]
     shared = args[5][0]  # seed 0's words for both seeds
     dims = (0, 0, 0, 0, 0, None, 0)
     got = torch.func.vmap(lambda *a: bitmap_fit_rounds_op(*a, **kw), in_dims=dims)(
         *args[:5], shared, args[6])
-    want = bitmap_fit_rounds_batched(*args[:5], torch.stack([shared, shared]), args[6], **kw)
+    want = bitmap_fit_rounds(*args[:5], torch.stack([shared, shared]), args[6], **kw)
     _equal(got, want)
 
 
 def test_batched_wrappers_count_no_cpu_launch():
-    for name in BATCHED.values():
-        WRAPPERS[name].launches = 0
+    for name in LOCKSTEP:
+        ENTRIES[name].wrapper.launches = 0
     for name, (args, kw) in batched_inputs(2).items():
-        WRAPPERS[name](*args, **kw)
-    assert {name: WRAPPERS[name].launches for name in BATCHED.values()} == dict.fromkeys(
-        BATCHED.values(), 0)
-    assert survival_scan_batched is WRAPPERS["survival_scan_batched"]
-    assert utility_topk_address_batched is WRAPPERS["utility_topk_address_batched"]
-    assert zone_aggregate_members_batched is WRAPPERS["zone_aggregate_members_batched"]
-    assert node_view_batched is WRAPPERS["node_view_batched"]
+        ENTRIES[name].wrapper(*args, **kw)
+    assert {name: ENTRIES[name].wrapper.launches for name in LOCKSTEP} == dict.fromkeys(
+        LOCKSTEP, 0)
+    assert bitmap_fit_rounds is ENTRIES["bitmap_fit_rounds"].wrapper
+    assert survival_scan is ENTRIES["survival_scan"].wrapper
+    assert utility_topk_address is ENTRIES["utility_topk_address"].wrapper
+    assert zone_aggregate_members is ENTRIES["zone_aggregate_members"].wrapper
+    assert node_view is ENTRIES["node_view"].wrapper
 
 
 def test_address_accumulators_are_a_region_a_stream_and_capture():
@@ -301,17 +286,15 @@ def test_address_accumulators_are_a_region_a_stream_and_capture():
 
 @pytest.mark.parametrize("entry", sorted(OPS))
 def test_batched_plan_is_the_plan_with_a_seed_axis(entry):
-    """One plan builder an entry: given the seed axis, it gives the batched
-    entry's plan, the unbatched launch with ``seeds`` set and every output
-    with the leading axis."""
-    from repro_torch.kernels import PLANS
-
-    batched = BATCHED[entry]
-    args, kw = batched_inputs(3, seed=4)[batched]
-    one = PLANS[entry](*(a[0] if isinstance(a, torch.Tensor) else a for a in args), **kw)
-    many = PLANS[batched](*args, **kw)
+    """One plan builder an entry: given the seed axis, it gives the plan
+    without it with ``seeds`` set on the launch and every output with the
+    leading axis."""
+    plan_for = ENTRIES[entry].plan
+    args, kw = batched_inputs(3, seed=4)[entry]
+    one = plan_for(*(a[0] if isinstance(a, torch.Tensor) else a for a in args), **kw)
+    many = plan_for(*args, **kw)
     assert (one.entry, one.seeds, one.lead) == (entry, 0, ())
-    assert (many.entry, many.seeds, many.lead) == (batched, 3, (3,))
+    assert (many.entry, many.seeds, many.lead) == (entry, 3, (3,))
     assert many.launches == tuple(dataclasses.replace(L, seeds=3) for L in one.launches)
     assert [o.shape for o in many.outputs] == [(3, *o.shape) for o in one.outputs]
     assert many.scratch_words == 3 * (many.scratch_words // 3) >= 3 * one.scratch_words

@@ -22,7 +22,7 @@ import torch
 from repro_torch.core import LaminarConfig, LaminarEngine, MemoryConfig
 from repro_torch.core.draws import TorchDraws
 from repro_torch.kernel_bench import address_edge_cases, address_inputs, address_kw
-from repro_torch.kernels import bitmap_fit, survival_scan, utility_topk, zone_aggregate
+from repro_torch.kernels import LOCKSTEP, bitmap_fit, survival_scan, utility_topk, zone_aggregate
 
 pytestmark = pytest.mark.cuda
 
@@ -448,7 +448,7 @@ def test_engine_cuda_matches_cpu(dev, airlock):
     assert outs[0]["started"] > 0
 
 
-def _run_launches(run, lockstep=False):
+def _run_launches(run):
     """``run()``'s hand-written launches: a compiled run's graph kernel
     nodes (``kernel_bench.graph_census``) times its replays, by entry."""
     from repro_torch.core.scan import watching
@@ -459,7 +459,7 @@ def _run_launches(run, lockstep=False):
     torch.cuda.synchronize()
     launches = {}
     for compiled, replays in runs:
-        for entry, n in tick_entries(graph_census(compiled.graph)["names"], lockstep).items():
+        for entry, n in tick_entries(graph_census(compiled.graph)["names"]).items():
             launches[entry] = launches.get(entry, 0) + n * replays
     return out, launches
 
@@ -597,7 +597,7 @@ def test_compiled_attributes_match_plans(dev):
     """Each kernel's static shared memory equals its plan's declaration, and
     every plan at the reference shapes fits the per-block budget."""
     from repro_torch.analysis.kernel_contract import GEOMETRIES, PER_BLOCK, kernel_suite
-    from repro_torch.kernels import PLANS, _build
+    from repro_torch.kernels import ENTRIES, _build
     from repro_torch.kernels.bitmap_fit import plan as bp
     from repro_torch.kernels.block_copy import plan as cp
     from repro_torch.kernels.node_view import plan as vp
@@ -609,7 +609,7 @@ def test_compiled_attributes_match_plans(dev):
     for mod in (bp, tp, ap, sp, cp, vp):
         for k, kernel in enumerate(mod.KERNELS):
             attrs[kernel] = _build.attrs(mod.__name__.split(".")[-2], k)
-    plans = [PLANS[name](*args, **kw) for geom in GEOMETRIES.values()
+    plans = [ENTRIES[name].plan(*args, **kw) for geom in GEOMETRIES.values()
              for name, args, kw, _ in kernel_suite(geom)] + [cp.good_plan(1024, 128)]
     for p in plans:
         for L in p.launches:
@@ -874,15 +874,12 @@ def test_train_cli_runs_on_the_card(dev, capsys, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the batched entries of the lockstep tick (a seed axis, one launch)
+# the lockstep tick's entries given a seed axis (one launch for all seeds)
 # ---------------------------------------------------------------------------
 
-BATCHED_ENTRIES = ("bitmap_fit_rounds_batched", "utility_topk_address_batched",
-                   "zone_aggregate_members_batched", "survival_scan_batched", "node_view_batched")
 # the entries whose float outputs the card rounds as the CPU does (the
 # others: the summation order of zone_aggregate, rtol 1e-5)
-BATCHED_EXACT = ("survival_scan_batched", "utility_topk_address_batched",
-                 "bitmap_fit_rounds_batched", "node_view_batched")
+EXACT_SEEDS = ("survival_scan", "utility_topk_address", "bitmap_fit_rounds", "node_view")
 
 
 def _batched_case(name, shape, airlock=True):
@@ -891,53 +888,55 @@ def _batched_case(name, shape, airlock=True):
     return batched_inputs(3, **shape, seed=11, airlock=airlock)[name]
 
 
-@pytest.mark.parametrize("name", BATCHED_ENTRIES)
+@pytest.mark.parametrize("name", LOCKSTEP)
 @pytest.mark.parametrize("shape", [dict(N=37, P=1029, Z=3), dict(N=5000, P=65536, Z=20)],
                          ids=["ragged", "exp5"])
 def test_batched_entry_matches_plain_seed_by_seed(dev, name, shape):
     """B = 3 seeds with distinct inputs: one launch, equal to the plain
     version applied seed by seed (survival_scan with Airlock off too)."""
-    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels import ENTRIES
 
-    for airlock in ((True, False) if name == "survival_scan_batched" else (True,)):
+    wrapper = ENTRIES[name].wrapper
+    for airlock in ((True, False) if name == "survival_scan" else (True,)):
         args, kw = _batched_case(name, shape, airlock)
-        n0 = WRAPPERS[name].launches
-        want, got = _both(WRAPPERS[name], args, kw, dev)
-        assert WRAPPERS[name].launches == n0 + 1
+        n0 = wrapper.launches
+        want, got = _both(wrapper, args, kw, dev)
+        assert wrapper.launches == n0 + 1
         for w, g in zip(want, got):
             assert g.dtype == w.dtype and g.shape == w.shape
-            if w.dtype.is_floating_point and name not in BATCHED_EXACT:
+            if w.dtype.is_floating_point and name not in EXACT_SEEDS:
                 torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
             else:
                 assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("name", BATCHED_ENTRIES)
+@pytest.mark.parametrize("name", LOCKSTEP)
 def test_batched_entry_is_one_kernel_node(dev, name):
-    """One batched call captured in a CUDA graph is one kernel node, with no
-    memset or memcpy (utility_topk_address_batched writes its counts in the
+    """One call with a seed axis captured in a CUDA graph is one kernel node,
+    with no memset or memcpy (utility_topk_address writes its counts in the
     kernel)."""
     from repro_torch.kernel_bench import graph_nodes
-    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels import ENTRIES
 
+    wrapper = ENTRIES[name].wrapper
     args, kw = _batched_case(name, dict(N=5000, P=65536, Z=20))
     args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
     names = []
-    nodes = graph_nodes(lambda: WRAPPERS[name](*args, **kw), names)
+    nodes = graph_nodes(lambda: wrapper(*args, **kw), names)
     assert nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0}, nodes
     # and replays of the graph keep giving the same counts (the address
     # kernel's accumulators are set back to zero by each launch)
-    if name == "utility_topk_address_batched":
-        first = WRAPPERS[name](*args, **kw)[-1].clone()
+    if name == "utility_topk_address":
+        first = wrapper(*args, **kw)[-1].clone()
         for _ in range(3):
-            assert torch.equal(WRAPPERS[name](*args, **kw)[-1], first)
+            assert torch.equal(wrapper(*args, **kw)[-1], first)
 
 
 def test_batched_clusters_run_in_waves(dev):
-    """Past the clusters the card holds at once, the batched cluster
-    kernels run in later waves and stay equal to the plain version."""
+    """Past the clusters the card holds at once, the cluster kernels given a
+    seed axis run in later waves and stay equal to the plain version."""
     from repro_torch.kernel_bench import batched_inputs
-    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels import ENTRIES
     from repro_torch.kernels.bitmap_fit import ops as bops
     from repro_torch.kernels.bitmap_fit import plan as bplan
     from repro_torch.kernels.survival_scan import ops as sops
@@ -946,9 +945,9 @@ def test_batched_clusters_run_in_waves(dev):
     resident = max(sops.cluster_occupancy(splan.plan(4096, 500, True))["clusters"],
                    bops.rounds_cluster_occupancy(bplan.rounds_plan(4096, 500, 2, 3, 64))["clusters"])
     cases = batched_inputs(resident + 3, N=500, P=4096, Z=4, seed=2)
-    for name in ("survival_scan_batched", "bitmap_fit_rounds_batched"):
+    for name in ("survival_scan", "bitmap_fit_rounds"):
         args, kw = cases[name]
-        want, got = _both(WRAPPERS[name], args, kw, dev)
+        want, got = _both(ENTRIES[name].wrapper, args, kw, dev)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
@@ -956,16 +955,14 @@ def test_batched_clusters_run_in_waves(dev):
 def test_lockstep_engine_on_the_card(dev, airlock):
     """run_batch in lockstep on the card equals the sequential runs on the
     card, seed by seed, and its CPU twin on one CPU generator's draws; each
-    batched kernel is one launch a tick."""
+    entry of the lockstep tick is one launch a tick for all seeds."""
     from repro_torch.core.draws import BatchDraws
-    from repro_torch.kernels import BATCHED, WRAPPERS
 
     cfg = dataclasses.replace(SMALL_EXP5, airlock=airlock)
     seeds, ticks = [0, 1, 2], 60
     eng = LaminarEngine(cfg, device=dev)
-    got, launches = _run_launches(lambda: eng.run_batch(seeds, num_ticks=ticks), lockstep=True)
-    assert launches == dict.fromkeys(BATCHED.values(), ticks)
-    assert all(name in WRAPPERS for name in launches)
+    got, launches = _run_launches(lambda: eng.run_batch(seeds, num_ticks=ticks))
+    assert launches == dict.fromkeys(LOCKSTEP, ticks)
     s0, lam = eng.init(0)
     for sd, out in zip(seeds, got):
         final, ts = eng.simulate(s0, eng.draws(lam, s0.zstart.shape[0], sd), ticks)
@@ -1068,12 +1065,12 @@ def test_captured_baseline_equals_make_step_by_hand(dev):
 
 
 def test_lockstep_graph_holds_the_batched_entries_once(dev):
-    """The captured lockstep tick's kernel nodes: each batched entry once,
-    no unbatched entry, no memcpy node touching host memory."""
+    """The captured lockstep tick's kernel nodes: each entry of the lockstep
+    tick once for all seeds, no other hand-written kernel, no memcpy node
+    touching host memory."""
     from repro_torch.core.draws import BatchDraws
     from repro_torch.core.scan import watching
     from repro_torch.kernel_bench import graph_census, tick_entries
-    from repro_torch.kernels import BATCHED
 
     eng = LaminarEngine(dataclasses.replace(SMALL_EXP5, airlock=True), device=dev)
     sb, lam = eng.init_batch([0, 1, 2])
@@ -1083,7 +1080,7 @@ def test_lockstep_graph_holds_the_batched_entries_once(dev):
     ((compiled, replays),) = runs
     census = graph_census(compiled.graph)
     assert replays == 5
-    assert tick_entries(census["names"], lockstep=True) == dict.fromkeys(BATCHED.values(), 1)
+    assert tick_entries(census["names"]) == dict.fromkeys(LOCKSTEP, 1)
     assert census["host_memcpy"] == 0
 
 
@@ -1173,7 +1170,7 @@ def test_captured_sharded_run_equals_make_step_by_hand(dev, nccl1, airlock):
     ((compiled, replays),) = runs
     census = graph_census(compiled.graph)
     assert replays == 300
-    assert tick_entries(census["names"], lockstep=False) == {
+    assert tick_entries(census["names"]) == {
         "bitmap_fit_rounds_blocked": 1, "utility_topk_address": 1,
         "zone_aggregate_members": 1, "survival_scan": 1, "node_view": 1}
     assert census["host_memcpy"] == 0
@@ -1322,7 +1319,7 @@ def test_train_step_graph_holds_the_step_and_no_host_copy(dev):
     p, st, _ = step(p, st, batches[0])
     census = graph_census(step.graph)
     assert census["kernel"] > 0 and census["host_memcpy"] == 0, census
-    assert tick_entries(census["names"], lockstep=False) == {}
+    assert tick_entries(census["names"]) == {}
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(dev)
     for b in batches[1:]:

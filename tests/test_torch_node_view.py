@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core import LaminarConfig, LaminarEngine, MemoryConfig, bitmap, hotpath, zhaf
 from repro_torch.kernel_bench import view_edge_cases, view_inputs
-from repro_torch.kernels.node_view import node_view, node_view_batched, node_view_ref
+from repro_torch.kernels.node_view import node_view, node_view_ref
 from repro_torch.kernels.node_view import plan as view_plan
 from repro_torch.kernels.node_view.ops import node_view_op
 
@@ -129,8 +129,9 @@ def test_build_view_equals_jax_build_view():
 
 def test_entry_under_vmap_equals_seed_by_seed():
     """The custom op under ``torch.func.vmap`` (the lockstep tick) and the
-    batched wrapper equal the entry called seed by seed; the plan of the
-    batched words is the unbatched launch with a seed axis."""
+    wrapper given the seed axis equal the entry called seed by seed; the
+    plan of the words with a seed axis is the same entry's launch with
+    ``seeds`` set."""
     words = torch.stack([view_inputs(37, 2, 61, seed=b)[0][0] for b in range(3)])
     want = [node_view(words[b], atoms=61) for b in range(3)]
     want = tuple(torch.stack(o) for o in zip(*want))
@@ -138,9 +139,9 @@ def test_entry_under_vmap_equals_seed_by_seed():
         SMALL, atoms_per_node=61), w))(words), want)
     _equal(torch.func.vmap(lambda w: node_view_op(w, atoms=61), in_dims=1)(
         words.movedim(0, 1)), want)
-    _equal(node_view_batched(words, atoms=61), want)
+    _equal(node_view(words, atoms=61), want)
     one, many = view_plan.for_call(words[0], atoms=61), view_plan.for_call(words, atoms=61)
-    assert (one.entry, many.entry, many.seeds) == ("node_view", "node_view_batched", 3)
+    assert (one.entry, many.entry, one.seeds, many.seeds) == ("node_view", "node_view", 0, 3)
     assert many.launches == tuple(dataclasses.replace(L, seeds=3) for L in one.launches)
     with pytest.raises(ValueError, match="65 atoms in 2 words"):
         view_plan.plan(37, 2, 65)
@@ -206,19 +207,19 @@ def test_kernel_equals_plain_eager_and_captured(dev):
 @pytest.mark.cuda
 def test_batched_kernel_equals_plain_seed_by_seed(dev):
     words = torch.stack([view_inputs(5000, 2, seed=b)[0][0] for b in range(4)])
-    want = node_view_batched(words, atoms=64)
-    n0 = node_view_batched.launches
-    got = node_view_batched(words.to(dev), atoms=64)
-    assert node_view_batched.launches == n0 + 1
+    want = node_view(words, atoms=64)
+    n0 = node_view.launches
+    got = node_view(words.to(dev), atoms=64)
+    assert node_view.launches == n0 + 1
     _equal(tuple(g.cpu() for g in got), want)
 
 
 @pytest.mark.cuda
 def test_lockstep_tick_launches_the_view_once_for_all_seeds(dev):
     """B = 3 seeds in lockstep: the captured tick's graph holds one
-    node_view kernel (the batched entry's), replayed once a tick; the
-    eager lockstep tick counts one batched launch a tick and no unbatched
-    one; the flat tick one node_view a tick."""
+    node_view kernel (its grid with the seed axis), replayed once a tick;
+    the eager lockstep tick counts one launch a tick, not one a seed; the
+    flat tick one node_view a tick."""
     from repro_torch.core.draws import BatchDraws
     from repro_torch.core.engine import make_step
     from repro_torch.core.scan import watching
@@ -231,15 +232,15 @@ def test_lockstep_tick_launches_the_view_once_for_all_seeds(dev):
         eng.simulate_batch(sb, draws, 5)
     ((compiled, replays),) = runs
     assert replays == 5
-    assert tick_entries(graph_census(compiled.graph)["names"], True)["node_view_batched"] == 1
+    assert tick_entries(graph_census(compiled.graph)["names"])["node_view"] == 1
     step = torch.func.vmap(make_step(SMALL), in_dims=(0, BatchDraws.in_dims(draws.tick(0))))
-    n0, b0 = node_view.launches, node_view_batched.launches
+    n0 = node_view.launches
     for t in range(4):
         sb, _ = step(sb, draws.tick(t))
     torch.cuda.synchronize()
-    assert (node_view.launches - n0, node_view_batched.launches - b0) == (0, 4)
+    assert node_view.launches - n0 == 4
     s, lam = eng.init(0)
     with watching() as runs:
         eng.simulate(s, eng.draws(lam, s.zstart.shape[0], 0), 5)
     ((compiled, _),) = runs
-    assert tick_entries(graph_census(compiled.graph)["names"], False)["node_view"] == 1
+    assert tick_entries(graph_census(compiled.graph)["names"])["node_view"] == 1
